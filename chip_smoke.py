@@ -11,13 +11,31 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    in another order, pad columns exactly 0; FPS: B in {1, 32}, 512 -> 128 with
    near-origin and duplicated points, indices exactly equal), then times each
    with CUDA events beside its bound.
+   The train kernels likewise, at B in {1, 8}, full width, on the fold's
+   layout: kernel 3 (tconv + BN1 affine + column moments) and kernel 4 (its
+   transpose + ReLU mask + moments + tap gradient) against their plain
+   versions (y2, dpre: atol = rtol = 1e-4; column moments within 1e-5 of each
+   column's scale, the sum of the magnitudes of its terms; dtaps within 1e-4
+   of its max; pad columns exactly 0), timed beside their bounds and cuDNN.
 4. Serving phase: the demo runner at full width (T=768, 53x64 joints, 512
    seeds, 128 proposals, 100 gaussians) on random weights from seed 42,
    answering the demo clip and three rotated copies; the launch counts must
    show 6 epilogue launches and 1 FPS launch per request; the card's
    ``generate`` must match the same model on the CPU (indices exactly, floats
    within 5e-4).  Then batch-1 request latency and B=32 generate clips/s.
-5. Prints the ``kernels`` JSON line, the nvidia-smi line, and last
+5. Train phase: the train runner at the full width of
+   configs/config_files/p2rnet_train.yaml, global batch 8, f32, on in-memory
+   synthetic scenes (16 train with augmentation, 8 val) for one epoch: 2
+   train steps and 1 val pass.  Every loss finite, weights and BN running
+   statistics moved, ``model_final.pth`` written and loaded by the demo's
+   ``build_model``; launches exactly 6 train_fwd + 6 train_bwd + 1 FPS per
+   train step and 6 epilogue + 1 FPS per val step.  Then one train step on
+   the card against the same step on the CPU (same weights, B=2 full-width
+   batch, same MDN noise): seed and proposal indices equal, loss terms within
+   1e-4 relative, each gradient within 1e-3 of its max, running statistics
+   within 1e-4.  Then the B=8 train step time (CUDA events, median of 5 after
+   2 warm-ups), samples/s, peak memory, and a torch.profiler top-10.
+6. Prints the ``kernels`` JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -35,15 +53,22 @@ import numpy as np
 import torch
 
 from pose2room_tpu_torch import kernels
-from pose2room_tpu_torch.config.loader import CONFIG, read_to_dict
-from pose2room_tpu_torch.data.dataset import load_demo_clip
+from pose2room_tpu_torch.config.loader import CONFIG, mount_external_config, read_to_dict
+from pose2room_tpu_torch.data import synth
+from pose2room_tpu_torch.data.dataset import SceneDataset, load_demo_clip
+from pose2room_tpu_torch.data.loader import collate
 from pose2room_tpu_torch.device import set_precision_policy
-from pose2room_tpu_torch.ops import sampling, stgcn_fused
+from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
+from pose2room_tpu_torch.ops import sampling, stgcn_fused, stgcn_train
 from pose2room_tpu_torch.runners import demo
+from pose2room_tpu_torch.runners import train as train_runner
+from pose2room_tpu_torch.train.state import make_optimizer
+from pose2room_tpu_torch.train.step import batch_to_device, train_step
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEMO_CLIP = os.path.join(REPO, "demo", "inputs", "input_joints_1.npy")
 TEST_YAML = os.path.join(REPO, "configs", "config_files", "p2rnet_test.yaml")
+TRAIN_YAML = os.path.join(REPO, "configs", "config_files", "p2rnet_train.yaml")
 
 # H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -101,7 +126,7 @@ def epilogue_operands(B, g, dev):
     return [t.to(dev) for t in (x, M, vecs, KB)]
 
 
-def kernel_phase(dev):
+def kernel_phase(dev, smi):
     g = torch.Generator().manual_seed(0)
     rows = {}
     errs = {"stgcn_epilogue": 0.0, "fps": 0.0}
@@ -131,7 +156,7 @@ def kernel_phase(dev):
             l_ms = cuda_ms(lambda: torch.nn.functional.conv2d(t_nchw, w, padding=(1, 0)))
             rows[("stgcn_epilogue", B, residual)] = dict(
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
-            print(f"epilogue B={B} residual={residual}: max|err| {err:.3e}  kernel {k_ms:.4f} ms  "
+            print(f"[{smi}] epilogue B={B} residual={residual}: max|err| {err:.3e}  kernel {k_ms:.4f} ms  "
                   f"plain {p_ms:.4f} ms  cuDNN conv2d (tconv only) {l_ms:.4f} ms  "
                   f"bound {b_ms:.4f} ms ({b_by})")
         # the first block: unpadded 3392-wide input contracted against M[:W0]
@@ -165,8 +190,102 @@ def kernel_phase(dev):
         p_ms = cuda_ms(lambda: sampling.fps_ref(xyz, 128), iters=5, warmup=1)
         rows[("fps", B)] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                 bound_by=b_by, library_ms=None)
-        print(f"FPS B={B} 512->128: indices equal  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
+        print(f"[{smi}] FPS B={B} 512->128: indices equal  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
               f"bound {b_ms:.6f} ms ({b_by})")
+    return rows
+
+
+def train_kernel_operands(B, g, dev):
+    """Kernel 3/4 operands at production shape: y, dy2 (B*T, Wp) and vecs
+    (4, Wp) with pad columns zero, KB block-diagonal with one 64x64 tap."""
+    y = torch.zeros(B * T, WP)
+    y[:, :W0] = torch.randn(B * T, W0, generator=g) * 0.7
+    dy2 = torch.zeros(B * T, WP)
+    dy2[:, :W0] = torch.randn(B * T, W0, generator=g) * 0.5
+    vecs = torch.zeros(4, WP)
+    vecs[0, :W0] = 0.5 + torch.rand(W0, generator=g)
+    vecs[1, :W0] = torch.randn(W0, generator=g) * 0.3
+    vecs[2, :W0] = torch.randn(W0, generator=g) * 0.1
+    KB = stgcn_fused.block_diag_taps(torch.randn(3, C, C, generator=g) * 0.15)
+    return [t.to(dev) for t in (y, dy2, vecs, KB)]
+
+
+def parts_err(parts, ref, magnitudes):
+    """Largest column-moment error over each column's scale (the sum of the
+    magnitudes of its terms, which bounds a sum's rounding in any order)."""
+    scale = torch.stack(magnitudes, dim=1).clamp_min(1e-6)
+    return ((parts - ref).abs() / scale).max().item()
+
+
+def train_kernel_phase(dev, smi):
+    g = torch.Generator().manual_seed(1)
+    rows = {}
+    for B in (1, 8):
+        y, dy2, vecs, KB = train_kernel_operands(B, g, dev)
+        vecs_b = vecs.clone()
+        vecs_b[2] = 0.0
+        KBT = KB.transpose(1, 2).contiguous()
+        N = B * T
+        # library yardstick: cuDNN over (B, C, T, V) with the joint's tap, TF32 off
+        t1_nchw = torch.relu(y * vecs[0] + vecs[1])[:, :W0].reshape(B, T, V, C).permute(0, 3, 1, 2).contiguous()
+        dy_nchw = dy2[:, :W0].reshape(B, T, V, C).permute(0, 3, 1, 2).contiguous()
+        w = KB[:, :C, :C].permute(2, 1, 0)[..., None].contiguous()  # (out, in, 3, 1)
+
+        # --- kernel 3 ---
+        y2, parts = stgcn_train.tconv_stats_fwd(y, vecs, KB, T=T)
+        y2_ref, parts_ref = stgcn_train.tconv_stats_fwd_ref(y, vecs, KB, T=T)
+        torch.cuda.synchronize()
+        err = (y2 - y2_ref).abs().max().item()
+        y3 = y2_ref.reshape(B, T, WP)
+        perr = parts_err(parts, parts_ref, [y3.abs().sum(1), (y3 * y3).sum(1)])
+        check(torch.allclose(y2, y2_ref, atol=1e-4, rtol=1e-4), f"train_fwd B={B}: max |err| {err}")
+        check(perr <= 1e-5, f"train_fwd B={B}: column moments off by {perr} of their scale")
+        check(bool(torch.all(y2[:, W0:] == 0)) and bool(torch.all(parts[..., W0:] == 0)),
+              f"train_fwd B={B} pad columns not 0")
+        b_ms, b_by = bound_ms(2 * N * WP * 4 + 4 * WP * 4 + 3 * 128 * 128 * 4 + B * 2 * WP * 4,
+                              2 * N * WP * 3 * C)
+        k_ms = cuda_ms(lambda: stgcn_train.tconv_stats_fwd(y, vecs, KB, T=T))
+        p_ms = cuda_ms(lambda: stgcn_train.tconv_stats_fwd_ref(y, vecs, KB, T=T))
+        l_ms = cuda_ms(lambda: torch.nn.functional.conv2d(t1_nchw, w, padding=(1, 0)))
+        rows[("stgcn_train_fwd", B)] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                            bound_by=b_by, library_ms=l_ms)
+        print(f"[{smi}] train_fwd B={B}: max|err| {err:.3e}  moments {perr:.2e} of scale  kernel {k_ms:.4f} ms  "
+              f"plain {p_ms:.4f} ms  cuDNN conv2d (tconv only) {l_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+
+        # --- kernel 4 ---
+        dpre, parts, dtaps = stgcn_train.tconv_bwd(dy2, y, vecs_b, KBT, T=T, C=C)
+        dpre_ref, parts_ref, dkb_ref = stgcn_train.tconv_bwd_ref(dy2, y, vecs_b, KBT, T=T)
+        dtaps_ref = stgcn_train._fold_diag_blocks(dkb_ref, C)
+        again = stgcn_train.tconv_bwd(dy2, y, vecs_b, KBT, T=T, C=C)
+        torch.cuda.synchronize()
+        err = (dpre - dpre_ref).abs().max().item()
+        d3, yy = dpre_ref.reshape(B, T, WP), y.reshape(B, T, WP)
+        perr = parts_err(parts, parts_ref, [d3.abs().sum(1), (d3 * yy).abs().sum(1)])
+        terr = (dtaps - dtaps_ref).abs().max().item() / dtaps_ref.abs().max().item()
+        check(torch.allclose(dpre, dpre_ref, atol=1e-4, rtol=1e-4), f"train_bwd B={B}: max |err| {err}")
+        check(perr <= 1e-5, f"train_bwd B={B}: column moments off by {perr} of their scale")
+        check(terr <= 1e-4, f"train_bwd B={B}: dtaps off by {terr} of its max")
+        check(bool(torch.all(dpre[:, W0:] == 0)) and bool(torch.all(parts[..., W0:] == 0)),
+              f"train_bwd B={B} pad columns not 0")
+        check(all(torch.equal(a, b) for a, b in zip((dpre, parts, dtaps), again)),
+              f"train_bwd B={B}: two launches differ")
+        b_ms, b_by = bound_ms(3 * N * WP * 4 + 4 * WP * 4 + 3 * 128 * 128 * 4 + B * 2 * WP * 4 + 3 * C * C * 4,
+                              2 * 2 * N * WP * 3 * C)
+        k_ms = cuda_ms(lambda: stgcn_train.tconv_bwd(dy2, y, vecs_b, KBT, T=T, C=C))
+        p_ms = cuda_ms(lambda: stgcn_train.tconv_bwd_ref(dy2, y, vecs_b, KBT, T=T), iters=5, warmup=1)
+
+        def library_bwd():
+            torch.nn.grad.conv2d_input(t1_nchw.shape, w, dy_nchw, padding=(1, 0))
+            torch.nn.grad.conv2d_weight(t1_nchw, w.shape, dy_nchw, padding=(1, 0))
+
+        l_ms = cuda_ms(library_bwd)
+        rows[("stgcn_train_bwd", B)] = dict(max_abs_err=max(err, terr * dtaps_ref.abs().max().item()),
+                                            ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                            library_ms=l_ms)
+        print(f"[{smi}] train_bwd B={B}: max|err| dpre {err:.3e}  moments {perr:.2e} of scale  dtaps {terr:.2e} of max  "
+              f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  cuDNN conv2d_input+conv2d_weight {l_ms:.4f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        del y, dy2, vecs, KB, KBT, y2, y2_ref, dpre, dpre_ref, dkb_ref, t1_nchw, dy_nchw, again
     return rows
 
 
@@ -251,6 +370,184 @@ def serving_phase(workdir, smi):
         cfg.close()
 
 
+def scene_datasets(seed, n_train, n_val):
+    """In-memory synthetic scenes through the loader's item path (no h5py):
+    {"train": augmented, "val": not}."""
+    rng = np.random.RandomState(seed)
+    scenes = [synth.as_stored(*synth.make_scene(rng, n_objects=int(rng.randint(2, 6)), n_frames=900))
+              for _ in range(n_train + n_val)]
+    return {"train": SceneDataset(scenes[:n_train], num_frames=T, augment=True),
+            "val": SceneDataset(scenes[n_train:], num_frames=T, augment=False)}
+
+
+def train_config(workdir):
+    config = read_to_dict(TRAIN_YAML)
+    config.update(seed=42, resume=False, finetune=False)
+    config["train"].update(epochs=1, batch_size=8)
+    config["val"]["batch_size"] = 8
+    config["log"].update(path=os.path.join(workdir, "out"), print_step=1)
+    return config
+
+
+def relative_gap(a, b):
+    return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+
+def card_vs_cpu_step(cfg, datasets):
+    """One train step at B=2, full width, on the card and on the CPU: same
+    weights, batch and MDN noise; a float64 run on the CPU is the referee
+    for the gradients.
+
+    The f32 gradient of the backbone is ill-conditioned (the BN backward
+    through six blocks cancels): rounding alone moves some tensors'
+    gradients by ~1e-2 of their max, on either device and on different
+    tensors each time.  So each card gradient must be within 1e-3 of its max
+    of the CPU's, or no further from the float64 gradient than three times
+    the worst error of the CPU's f32 gradient (ROADMAP "Faults found")."""
+    model_cfg = P2RNetConfig.from_cfg(cfg)
+    items = [datasets["val"].__getitem__(i, rng=np.random.RandomState(i)) for i in range(2)]
+    batch = collate(items)
+    results = []
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        model = P2RNet(model_cfg, device=dev, generator=torch.Generator().manual_seed(42)).to(dtype)
+        optimizer, _, _ = make_optimizer(model, cfg.config["optimizer"])
+        eps = {k: v.to(dtype) for k, v in model.mdn_eps(2, torch.Generator().manual_seed(7)).items()}
+        inputs = {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch_to_device(batch, dev).items()}
+        losses, ep = train_step(model, optimizer, inputs, eps=eps)
+        results.append((
+            {k: float(v) for k, v in losses.items()},
+            {k: ep[k].cpu() for k in ("seed_inds", "aggregated_vote_inds")},
+            {k: p.grad.cpu().double() for k, p in model.named_parameters()},
+            {k: b.cpu() for k, b in model.named_buffers() if k.endswith(("running_mean", "running_var"))},
+        ))
+    (l_g, i_g, g_g, s_g), (l_c, i_c, g_c, s_c), (_, i_64, g_64, _) = results
+    for k in i_c:
+        check(torch.equal(i_g[k], i_c[k]), f"card vs CPU train step: {k} differ")
+        check(torch.equal(i_64[k], i_c[k]), f"CPU float64 referee: {k} differ from float32")
+    loss_gap = {k: abs(l_g[k] - l_c[k]) / max(abs(l_c[k]), 1e-7) for k in l_c}
+    grad_gap = {k: relative_gap(g_g[k], g_c[k]) for k in g_c}
+    card_err = {k: relative_gap(g_g[k], g_64[k]) for k in g_64}
+    cpu_err = {k: relative_gap(g_c[k], g_64[k]) for k in g_64}
+    stat_gap = {k: (s_g[k] - s_c[k]).abs().max().item() for k in s_c}
+    worst = sorted(grad_gap, key=lambda k: -grad_gap[k])[:5]
+    print("card vs CPU train step (B=2): loss terms max rel gap "
+          f"{max(loss_gap.values()):.2e}; running stats max |gap| {max(stat_gap.values()):.2e}; "
+          f"{sum(v <= 1e-3 for v in grad_gap.values())} of {len(grad_gap)} gradients within 1e-3 of max|g|")
+    print("  worst gradients, gap / max|g|: card vs CPU f32 | card vs CPU f64 | CPU f32 vs CPU f64")
+    for k in worst:
+        print(f"  {k}: {grad_gap[k]:.2e} | {card_err[k]:.2e} | {cpu_err[k]:.2e}")
+    for k, v in loss_gap.items():
+        check(v <= 1e-4, f"card vs CPU: loss {k} differs by {v} relative")
+    cpu_worst = max(cpu_err.values())
+    print(f"  worst error against float64: card {max(card_err.values()):.2e}, CPU f32 {cpu_worst:.2e}")
+    for k, v in grad_gap.items():
+        check(v <= 1e-3 or card_err[k] <= 3 * cpu_worst,
+              f"card vs CPU: gradient {k} differs by {v} of its max, and the card is "
+              f"{card_err[k]} from float64 against the CPU's worst {cpu_worst}")
+    for k in s_c:
+        check(torch.allclose(s_g[k], s_c[k], atol=1e-4, rtol=1e-4), f"card vs CPU: running stat {k}")
+    conv_bias = [k for k in g_g if k.endswith("tcn.2.bias")]
+    check(all(bool(torch.all(g_g[k] == 0)) for k in conv_bias), "fused chain: conv bias gradient not 0")
+
+
+def time_train_step(cfg, datasets, smi):
+    """B=8 train step: CUDA-event median of 5 after 2 warm-ups, peak memory,
+    then a torch.profiler top-10 of device ops over 3 steps."""
+    model = P2RNet(P2RNetConfig.from_cfg(cfg), device="cuda", generator=torch.Generator().manual_seed(42))
+    optimizer, _, _ = make_optimizer(model, cfg.config["optimizer"])
+    items = [datasets["train"].__getitem__(i, rng=np.random.RandomState(i)) for i in range(8)]
+    batch = batch_to_device(collate(items), "cuda")
+
+    def step(i):
+        return train_step(model, optimizer, batch, generator=torch.Generator().manual_seed(i))
+
+    for i in range(2):
+        step(i)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(2 + i)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    step_ms = float(np.median(times))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{smi}] B=8 train step {step_ms:.3f} ms (CUDA events, median of 5: "
+          f"{', '.join(f'{t:.3f}' for t in times)}) -> {8e3 / step_ms:.2f} samples/s; "
+          f"peak memory {peak_gib:.2f} GiB")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        for i in range(3):
+            step(10 + i)
+        torch.cuda.synchronize()
+    kernel_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)  # noqa: E731
+    total_us = sum(dev_us(e) for e in kernel_events)
+    print(f"[{smi}] profiler, 3 B=8 train steps: device kernels {total_us / 3e3:.3f} ms per step, "
+          f"busy share {total_us / 3e3 / step_ms:.3f} of the {step_ms:.3f} ms step; "
+          "top 10 kernels by device time per step:")
+    for e in sorted(kernel_events, key=lambda e: -dev_us(e))[:10]:
+        print(f"  {dev_us(e) / 3e3:9.3f} ms  {100 * dev_us(e) / total_us:5.1f}%  "
+              f"x{e.count // 3:<4d} {e.key[:110]}")
+    return step_ms, peak_gib
+
+
+def train_phase(workdir, smi):
+    config = train_config(workdir)
+    cfg = CONFIG(config, mode="train")
+    try:
+        mount_external_config(cfg)
+        datasets = scene_datasets(seed=3, n_train=16, n_val=8)
+        initial = P2RNet(P2RNetConfig.from_cfg(cfg), device="cpu",
+                         generator=torch.Generator().manual_seed(42)).state_dict()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, history = train_runner.run(cfg, datasets=datasets)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        print(f"train run (1 epoch: 2 train steps of 8, 1 val step of 8) {time.perf_counter() - t0:.1f} s; "
+              f"launch counts {launches}")
+        expect = {"stgcn_train_fwd": 6 * 2, "stgcn_train_bwd": 6 * 2, "stgcn_epilogue": 6 * 1, "fps": 2 + 1}
+        check(launches == expect, f"train run launch counts {launches} != {expect} "
+              "(6 train_fwd + 6 train_bwd + 1 fps per train step, 6 epilogue + 1 fps per val step)")
+        for phase in ("train", "val"):
+            means = history[0][phase]
+            check(all(np.isfinite(v) for v in means.values()), f"{phase} losses not finite: {means}")
+            print(f"mean {phase} losses: " + json.dumps({k: round(v, 5) for k, v in means.items()}))
+        final = model.state_dict()
+        moved = [k for k in initial if not torch.equal(initial[k], final[k].cpu())]
+        stats = [k for k in initial if k.endswith(("running_mean", "running_var"))]
+        weights = [k for k, _ in model.named_parameters()]
+        check(all(k in moved for k in stats), "some BN running statistics did not move")
+        check(sum(k in moved for k in weights) >= len(weights) - 6,
+              "weights did not move")  # the six conv biases have an exactly zero gradient
+        ckpt = os.path.join(cfg.save_path, "model_final.pth")
+        check(os.path.isfile(ckpt), "model_final.pth not written")
+        demo_cfg = CONFIG(dict(config, finetune=True, weight=[ckpt], seed=0,
+                               log={"path": os.path.join(workdir, "demo_out")}), mode="demo")
+        try:
+            served = demo.build_model(demo_cfg, device="cuda")
+        finally:
+            demo_cfg.close()
+        check(all(torch.equal(served.state_dict()[k], v) for k, v in final.items()),
+              "demo build_model did not load model_final.pth")
+        print(f"checkpoint {os.path.basename(ckpt)} written and loaded by the demo runner; "
+              f"{len(moved)} of {len(initial)} state tensors moved")
+        del model, served
+
+        card_vs_cpu_step(cfg, datasets)
+        step_ms, peak_gib = time_train_step(cfg, datasets, smi)
+        return launches, step_ms, peak_gib
+    finally:
+        cfg.close()
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
@@ -269,12 +566,16 @@ def main():
                 print(f"  {name}: {line.strip()}")
 
     t0 = time.perf_counter()
-    rows = kernel_phase(dev)
+    rows = kernel_phase(dev, smi)
+    rows.update(train_kernel_phase(dev, smi))
     print(f"kernel phase {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
         t0 = time.perf_counter()
         launches = serving_phase(workdir, smi)
         print(f"serving phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        train_launches, _, _ = train_phase(workdir, smi)
+        print(f"train phase {time.perf_counter() - t0:.1f} s")
 
     line = {"kernels": [
         {"name": "stgcn_epilogue", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_epilogue.cu",
@@ -283,6 +584,12 @@ def main():
         {"name": "fps", "route": "cuda", "source": "pose2room_tpu_torch/csrc/fps.cu",
          "replaces": "pose2room_tpu/ops/sampling.py:57", "launches": launches["fps"],
          **rows[("fps", 1)]},
+        {"name": "stgcn_train_fwd", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_train_fwd.cu",
+         "replaces": "pose2room_tpu/ops/stgcn_train.py:103", "launches": train_launches["stgcn_train_fwd"],
+         **rows[("stgcn_train_fwd", 8)]},
+        {"name": "stgcn_train_bwd", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_train_bwd.cu",
+         "replaces": "pose2room_tpu/ops/stgcn_train.py:227", "launches": train_launches["stgcn_train_bwd"],
+         **rows[("stgcn_train_bwd", 8)]},
     ]}
     print(json.dumps(line))
     print(nvidia_smi())

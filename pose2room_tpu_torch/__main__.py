@@ -1,8 +1,10 @@
 """CLI of the PyTorch port:
-``python -m pose2room_tpu_torch --config <yaml> --mode demo --demo_path <dir>``.
+``python -m pose2room_tpu_torch --config <yaml> --mode {train,demo} [--demo_path <dir>]``.
 
-Same flags as the JAX package's main.py.  Only ``--mode demo`` (serving) is
-ported; it runs on the CUDA card, or on the CPU with ``--device cpu``.
+Same flags as the JAX package's main.py.  ``--mode train`` (training with
+val phases and checkpoints) and ``--mode demo`` (serving) are ported;
+``--mode test`` is not yet.  Both run on the CUDA card, or on the CPU with
+``--device cpu``.
 """
 
 import argparse
@@ -23,19 +25,22 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mode != "demo":
-        raise NotImplementedError(f"--mode {args.mode}: only demo is ported to PyTorch")
+    if args.mode not in ("train", "demo"):
+        raise NotImplementedError(f"--mode {args.mode}: only train and demo are ported to PyTorch")
     from pose2room_tpu_torch.config.loader import CONFIG, read_to_dict
     from pose2room_tpu_torch.device import resolve_device
-    from pose2room_tpu_torch.runners import demo
+    from pose2room_tpu_torch.runners import demo, train
 
     device = resolve_device(args.device)
     cfg = CONFIG(read_to_dict(args.config), mode=args.mode)
     try:
-        cfg.update_config(demo_path=args.demo_path)
+        if args.mode == "demo":
+            cfg.update_config(demo_path=args.demo_path)
         cfg.log_string("Loading configurations.")
         cfg.log_string(cfg.config)
         cfg.write_config()
+        if args.mode == "train":
+            return train.run(cfg, device=device)
         return demo.run(cfg, device=device)
     finally:
         cfg.close()

@@ -23,10 +23,12 @@ import subprocess
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("stgcn_epilogue", "fps")
+SOURCES = ("stgcn_epilogue", "fps", "stgcn_train_fwd", "stgcn_train_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -116,3 +118,17 @@ def check(err, name):
     """Raise if a launch reported a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def check_operands(name, expect, device):
+    """Before a launch: each {what: (tensor, shape)} has that shape, is
+    float32, contiguous and on ``device``; raises ValueError / TypeError."""
+    for what, (t, shape) in expect.items():
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {what} is {t.dtype}; the kernel takes float32")
+        if t.device != device:
+            raise ValueError(f"{name}: {what} is on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} is not contiguous")

@@ -1,4 +1,4 @@
-"""Shared building blocks: pointwise conv stacks and ST-GCN blocks (eval).
+"""Shared building blocks: pointwise conv stacks and ST-GCN blocks.
 
 Port of pose2room_tpu/models/layers.py.  Layout is channels-LAST as in the
 JAX package: pose tensors are (B, T, V, C), point features (B, N, C), and a
@@ -6,8 +6,13 @@ JAX package: pose tensors are (B, T, V, C), point features (B, N, C), and a
 reference P2RNet state_dict (SingleConv ``.conv`` / ``.batchnorm``,
 ``gcn.conv``, ``tcn.{0,2,3}``), so ``state_dict()`` is in reference layout.
 
-BatchNorm is eval-only and uses flax's association,
-``(x - mean) * (scale * rsqrt(var + eps)) + bias`` with eps 1e-5.
+BatchNorm has flax's semantics in both modes (``module.training`` picks):
+normalise as ``(x - mean) * (scale * rsqrt(var + eps)) + bias`` with eps
+1e-5; in training mean = E[x] and the BIASED var = max(E[x^2] - mean^2, 0)
+over every axis but the last, and the running stats follow the flax EMA
+``ra = m * ra + (1 - m) * batch`` with the keep-rate m = ``bn_momentum``.
+``torch.nn.BatchNorm*`` would update running_var with the unbiased variance
+and the torch momentum convention, so it is not used.
 """
 
 import math
@@ -15,9 +20,8 @@ import math
 import torch
 from torch import nn
 
-from pose2room_tpu_torch.ops.stgcn_fused import LANE, N_VEC_ROWS, pad_merged
-
-BN_EPS = 1e-5
+from pose2room_tpu_torch.ops.stgcn_fused import LANE, N_VEC_ROWS, block_diag_taps, pad_merged
+from pose2room_tpu_torch.ops.stgcn_train import BN_EPS, FusedTrainLayer
 
 
 def lecun_normal_(tensor, fan_in, generator):
@@ -29,10 +33,12 @@ def lecun_normal_(tensor, fan_in, generator):
 
 
 class BatchNorm(nn.Module):
-    """Eval BatchNorm over the last axis with reference parameter names."""
+    """BatchNorm over the last axis with flax semantics and reference
+    parameter names.  ``momentum`` is the flax keep-rate."""
 
-    def __init__(self, num_features):
+    def __init__(self, num_features, momentum=0.9):
         super().__init__()
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -43,18 +49,32 @@ class BatchNorm(nn.Module):
         s = self.weight * torch.rsqrt(self.running_var + BN_EPS)
         return s, self.bias - self.running_mean * s
 
+    @torch.no_grad()
+    def update_running_stats(self, mean, var):
+        """Flax EMA of the batch moments (no gradient flows into the buffers)."""
+        m = self.momentum
+        self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1 - m) * var)
+
     def forward(self, x):
-        mul = self.weight * torch.rsqrt(self.running_var + BN_EPS)
-        return (x - self.running_mean) * mul + self.bias
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(axes)
+            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            self.update_running_stats(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = self.weight * torch.rsqrt(var + BN_EPS)
+        return (x - mean) * mul + self.bias
 
 
 class SingleConv(nn.Module):
     """1x1 conv [+ BatchNorm] [+ ReLU]: the reference's SingleConv."""
 
-    def __init__(self, in_dim, out_dim, bias, bn, relu):
+    def __init__(self, in_dim, out_dim, bias, bn, relu, bn_momentum=0.9):
         super().__init__()
         self.conv = nn.Linear(in_dim, out_dim, bias=bias)
-        self.batchnorm = BatchNorm(out_dim) if bn else None
+        self.batchnorm = BatchNorm(out_dim, bn_momentum) if bn else None
         self.relu = relu
 
     def forward(self, x):
@@ -76,13 +96,13 @@ class MLP1x1(nn.ModuleList):
     With batch norm the Linear before it has no bias (torch convention).
     """
 
-    def __init__(self, in_dim, features, use_bn=True, final_plain=True):
+    def __init__(self, in_dim, features, use_bn=True, final_plain=True, bn_momentum=0.9):
         layers = []
         for i, f in enumerate(features):
             plain = i == len(features) - 1 and final_plain
             layers.append(SingleConv(
                 in_dim, f, bias=plain or not use_bn,
-                bn=use_bn and not plain, relu=not plain,
+                bn=use_bn and not plain, relu=not plain, bn_momentum=bn_momentum,
             ))
             in_dim = f
         super().__init__(layers)
@@ -123,15 +143,16 @@ class _GraphConv(nn.Module):
 
 
 class STGCNBlock(nn.Module):
-    """Spatial graph conv + temporal conv with identity residual (eval).
+    """Spatial graph conv + temporal conv with identity residual.
 
     Input x: (B, T, V, C_in); A: (K, V, V) adjacency stack already scaled by
     the caller's edge-importance weights.  ``forward`` is the per-block
-    module path, the CPU reference of the fused chain; ``fold_eval_arrays``
-    gives the fused chain's operands.
+    module path (BatchNorm live in training), the reference of both fused
+    chains; ``fold_eval_arrays`` gives the eval chain's operands and
+    ``apply_fused_train`` runs the train chain.
     """
 
-    def __init__(self, in_channels, out_channels, K, num_joints, residual):
+    def __init__(self, in_channels, out_channels, K, num_joints, residual, bn_momentum=0.9):
         super().__init__()
         if residual and in_channels != out_channels:
             raise NotImplementedError("only the identity residual is ported")
@@ -141,7 +162,8 @@ class STGCNBlock(nn.Module):
         self.K, self.num_joints, self.residual = K, num_joints, residual
         self.gcn = _GraphConv(in_channels, out_channels, K)
         self.tcn = nn.Sequential(
-            BatchNorm(out_channels), nn.ReLU(), TemporalConv(out_channels), BatchNorm(out_channels)
+            BatchNorm(out_channels, bn_momentum), nn.ReLU(), TemporalConv(out_channels),
+            BatchNorm(out_channels, bn_momentum),
         )
 
     def reset_parameters(self, generator):
@@ -171,12 +193,8 @@ class STGCNBlock(nn.Module):
         return torch.relu(y + x) if self.residual else torch.relu(y)
 
     def block_diag_taps(self):
-        """Temporal taps as (3, 128, 128) block-diagonal matrices: a 128-wide
-        column group holds 128/C joints' channels, each mixed by the same
-        (C, C) tap."""
-        taps = self.tcn[2].taps()
-        eye = torch.eye(LANE // self.out_channels, dtype=taps.dtype, device=taps.device)
-        return torch.einsum("sio,pq->spiqo", taps, eye).reshape(3, LANE, LANE)
+        """Temporal taps as (3, 128, 128) block-diagonal matrices."""
+        return block_diag_taps(self.tcn[2].taps())
 
     def fold_eval_arrays(self, A):
         """Operands of ops/stgcn_fused.py: (M padded (Wp, Wp), vecs (8, Wp),
@@ -200,3 +218,37 @@ class STGCNBlock(nn.Module):
         vecs = M.new_zeros(N_VEC_ROWS, Wp)
         vecs[: len(rows), :W0] = torch.stack(rows)
         return M.contiguous(), vecs, self.block_diag_taps().contiguous()
+
+    def fold_train_arrays(self, A):
+        """Operands of ops/stgcn_train.py:FusedTrainLayer, differentiable in
+        the weights: (M padded (Wp, Wp), bias_col (Wp,), g1, b1, taps
+        (3, C, C) as (tap, in, out), cb, g2, b2).  BN folding happens inside
+        the layer each step, from the live batch statistics."""
+        C, V = self.out_channels, self.num_joints
+        W0 = V * C
+        Wp = pad_merged(W0)
+        M, bias_out = self.folded_graph_matrix(A)
+        bn1, conv, bn2 = self.tcn[0], self.tcn[2], self.tcn[3]
+        return (
+            nn.functional.pad(M, (0, Wp - W0, 0, Wp - W0)),
+            nn.functional.pad(bias_out.reshape(W0), (0, Wp - W0)),
+            bn1.weight, bn1.bias, conv.taps(), conv.bias, bn2.weight, bn2.bias,
+        )
+
+    def apply_fused_train(self, hm, A, T):
+        """The block in training mode on merged (B, T, W) activations
+        through the fused train layer; updates both BatchNorms' running
+        statistics from the layer's batch moments, as the module path
+        would.  Returns (B, T, Wp)."""
+        args = self.fold_train_arrays(A)
+        Wp = args[0].shape[1]
+        if self.residual and hm.shape[-1] < Wp:
+            # residual blocks add x to the padded-width output; in the
+            # backbone chain only block 0 (no residual) sees unpadded input
+            hm = nn.functional.pad(hm, (0, Wp - hm.shape[-1]))
+        out, m1, v1, m2, v2 = FusedTrainLayer.apply(
+            hm, *args, self.residual, self.num_joints, self.out_channels, int(T)
+        )
+        self.tcn[0].update_running_stats(m1, v1)
+        self.tcn[3].update_running_stats(m2, v2)
+        return out

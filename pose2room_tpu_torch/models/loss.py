@@ -1,0 +1,142 @@
+"""P2RNet detection loss: vote + objectness + box (center/size/heading) + cls.
+
+Port of pose2room_tpu/models/loss.py (reference models/loss.py:35-189,
+BoxNetDetectionLoss), with the same terms, weights and masking:
+
+* vote loss: GT hip votes gathered at the seed frames; per seed the GT vote
+  whose target is nearest any of the seed's joints (Chamfer between the 3
+  GT votes and the joints); huber on vote_xyz - chosen vote; masked mean;
+* objectness: nearest valid GT center per proposal (padded GT columns +1e9)
+  -> object_assignment; label 1 within 0.3, supervised also beyond 0.6;
+  class-weighted CE [0.1, 0.9];
+* box: bidirectional center Chamfer over the FULL padded GT array, huber on
+  log-size and (sin, cos) heading of the assigned GT, CE on the class, all
+  gated by the objectness label;
+* total = 10*vote + 5*objectness + 10*center + 10*size + 10*heading + sem_cls.
+"""
+
+import torch
+import torch.nn.functional as F
+
+from pose2room_tpu_torch.ops.nn_distance import huber_loss, nn_distance
+
+FAR_THRESHOLD = 0.6
+NEAR_THRESHOLD = 0.3
+GT_VOTE_FACTOR = 3
+OBJECTNESS_CLS_WEIGHTS = (0.1, 0.9)
+_BIG = 1e9
+
+
+def _weighted_ce(logits, labels, weights=None):
+    """Per-element cross entropy -w_y * log p_y."""
+    ce = -torch.gather(F.log_softmax(logits, dim=-1), -1, labels[..., None])[..., 0]
+    if weights is not None:
+        ce = ce * torch.tensor(weights, dtype=ce.dtype, device=ce.device)[labels]
+    return ce
+
+
+def _take(values, idx):
+    """values (B, K, ...) gathered at idx (B, S) along dim 1 -> (B, S, ...)."""
+    idx = idx.long().reshape(idx.shape + (1,) * (values.dim() - 2))
+    return torch.gather(values, 1, idx.expand(idx.shape[:2] + values.shape[2:]))
+
+
+def compute_vote_loss(end_points, gt, origin_joint_id=0):
+    seed_skeleton = end_points["seed_skeleton"]  # (B,S,V,3)
+    B, S, V, _ = seed_skeleton.shape
+    seed_inds = end_points["seed_inds"]  # (B,S)
+    mask = _take(gt["vote_label_mask"][:, :, origin_joint_id], seed_inds).float()  # (B,S)
+    votes = _take(gt["vote_label"][:, :, origin_joint_id, :], seed_inds)  # (B,S,9)
+    votes = votes.reshape(B, S, GT_VOTE_FACTOR, 3)
+    votes = seed_skeleton[:, :, origin_joint_id : origin_joint_id + 1, :] + votes
+
+    # per seed, the GT vote whose target is nearest any joint
+    flat_votes = votes.reshape(B * S, GT_VOTE_FACTOR, 3)
+    _, _, dist2, ind2 = nn_distance(flat_votes, seed_skeleton.reshape(B * S, V, 3))
+    jstar = torch.argmin(dist2, dim=1)  # (B*S,)
+    chosen = torch.gather(ind2, 1, jstar[:, None])  # (B*S, 1)
+    gt_vote = _take(flat_votes, chosen)[:, 0].reshape(B, S, 3)
+
+    per_seed = huber_loss(end_points["vote_xyz"] - gt_vote, delta=1.0).mean(-1)
+    return (per_seed * mask).sum() / (mask.sum() + 1e-6)
+
+
+def compute_correspondence(end_points, gt):
+    agg_xyz = end_points["aggregated_vote_xyz"]  # (B,K,3)
+    gt_center = gt["center_label"][:, :, 0:3]  # (B,K2,3)
+    box_mask = gt["box_label_mask"]  # (B,K2)
+
+    diff = agg_xyz[:, :, None, :] - gt_center[:, None, :, :]
+    d2 = (diff * diff).sum(-1) + (1.0 - box_mask)[:, None, :] * _BIG
+    dist1 = d2.amin(2)
+    object_assignment = d2.argmin(2)  # (B,K)
+
+    euclid = torch.sqrt(dist1 + 1e-6)
+    objectness_label = (euclid < NEAR_THRESHOLD).long()
+    objectness_mask = ((euclid < NEAR_THRESHOLD) | (euclid > FAR_THRESHOLD)).float()
+    ce = _weighted_ce(end_points["objectness_scores"], objectness_label, OBJECTNESS_CLS_WEIGHTS)
+    objectness_loss = (ce * objectness_mask).sum() / (objectness_mask.sum() + 1e-6)
+    return object_assignment, objectness_loss, objectness_label, objectness_mask
+
+
+def compute_box_and_sem_cls_loss(end_points, gt, object_assignment, objectness_label):
+    label = objectness_label.float()
+    denom = label.sum() + 1e-6
+
+    # center: bidirectional Chamfer over the full padded GT array
+    box_mask = gt["box_label_mask"]
+    dist1, _, dist2, _ = nn_distance(end_points["center"], gt["center_label"])
+    loss1 = (dist1 * label).sum() / denom
+    loss2 = (dist2 * box_mask).sum() / (box_mask.sum() + 1e-6)
+    center_loss = (loss1 + loss2) / 2.0
+
+    size_l = huber_loss(end_points["size"] - _take(gt["size"], object_assignment), delta=1.0).mean(-1)
+    size_loss = (size_l * label).sum() / denom
+
+    heading_l = huber_loss(
+        end_points["heading"] - _take(gt["heading"], object_assignment), delta=1.0
+    ).mean(-1)
+    heading_loss = (heading_l * label).sum() / denom
+
+    gt_cls = torch.gather(gt["sem_cls_label"].long(), 1, object_assignment)
+    sem_cls_loss = (_weighted_ce(end_points["sem_cls_scores"], gt_cls) * label).sum() / denom
+    return center_loss, size_loss, heading_loss, sem_cls_loss
+
+
+def detection_loss(end_points, gt, origin_joint_id=0):
+    """Full BoxNetDetectionLoss: a dict of scalar tensors ('total' drives the
+    gradient; the rest are logging statistics)."""
+    vote_loss = compute_vote_loss(end_points, gt, origin_joint_id)
+    object_assignment, objectness_loss, objectness_label, objectness_mask = (
+        compute_correspondence(end_points, gt)
+    )
+    center_loss, size_loss, heading_loss, sem_cls_loss = compute_box_and_sem_cls_loss(
+        end_points, gt, object_assignment, objectness_label
+    )
+    total = (
+        10.0 * vote_loss
+        + 5.0 * objectness_loss
+        + 10.0 * center_loss
+        + 10.0 * size_loss
+        + 10.0 * heading_loss
+        + sem_cls_loss
+    )
+    n_prop = objectness_label.numel()
+    pos_ratio = objectness_label.float().sum() / n_prop
+    neg_ratio = objectness_mask.sum() / n_prop - pos_ratio
+    obj_pred = end_points["objectness_scores"].argmax(2)
+    obj_acc = ((obj_pred == objectness_label).float() * objectness_mask).sum() / (
+        objectness_mask.sum() + 1e-6
+    )
+    return {
+        "total": total,
+        "vote_loss": vote_loss,
+        "objectness_loss": objectness_loss,
+        "center_loss": center_loss,
+        "size_loss": size_loss,
+        "heading_loss": heading_loss,
+        "sem_cls_loss": sem_cls_loss,
+        "pos_ratio": pos_ratio,
+        "neg_ratio": neg_ratio,
+        "obj_acc": obj_acc,
+    }

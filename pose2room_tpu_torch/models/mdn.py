@@ -1,10 +1,13 @@
-"""Mixture-density (GMM) heads with sigmoid mixture weights, eval path.
+"""Mixture-density (GMM) heads with sigmoid mixture weights.
 
 Port of pose2room_tpu/models/mdn.py (reference
 models/p2rnet/modules/mdn.py:17-161): a learnable global ``mu`` (G, D) set
 from task-specific grids, ``pi = sigmoid(linear(h))`` (sigmoid, not softmax),
-and the deterministic ``get_mean`` = sum_g pi_g * mu_g.  The sampled train
-and multi-mode paths are not ported yet.
+the deterministic ``get_mean`` = sum_g pi_g * mu_g, and the train path's
+``predict``: the pi-weighted sum over gaussians of mu + eps * sigma,
+averaged over the samples.  The noise eps is an argument, never drawn here,
+so the card, the CPU and the JAX package's rng streams can be fed the same
+numbers.  Multi-mode generation (Bernoulli pi) is not ported yet.
 """
 
 import numpy as np
@@ -25,13 +28,15 @@ class _MDN(nn.Module):
 
 
 class MDNHead(nn.Module):
-    def __init__(self, num_gaussian, out_dim, mu_init, hidden_dim=128):
+    def __init__(self, num_gaussian, out_dim, mu_init, hidden_dim=128, bn_momentum=0.9):
         super().__init__()
         mu_init = np.asarray(mu_init, dtype=np.float32)
         if mu_init.shape != (num_gaussian, out_dim):
             raise ValueError(f"mu_init shape {mu_init.shape} != {(num_gaussian, out_dim)}")
         self._mu_init = mu_init
-        self.backbone = SingleConv(hidden_dim, hidden_dim, bias=False, bn=True, relu=True)
+        self.out_dim = out_dim
+        self.backbone = SingleConv(hidden_dim, hidden_dim, bias=False, bn=True, relu=True,
+                                   bn_momentum=bn_momentum)
         self.mdn = _MDN(hidden_dim, num_gaussian, out_dim)
 
     def reset_parameters(self, generator):
@@ -49,6 +54,18 @@ class MDNHead(nn.Module):
         """Deterministic eval: (pi-weighted mu (B, P, D), pi (B, P, G))."""
         pi = self.pi(x)
         return torch.einsum("bpg,gd->bpd", pi, self.mdn.mu), pi
+
+    def _samples(self, pi, eps):
+        """pi (B, P, G), eps (B, P, G, n, D) -> (B, P, n, D):
+        sum_g pi_g * (mu_g + eps * sigma_g)."""
+        sigma = torch.exp(self.mdn.log_sigma)  # (G, D)
+        draws = self.mdn.mu[None, None, :, None, :] + eps * sigma[None, None, :, None, :]
+        return (draws * pi[:, :, :, None, None]).sum(2)
+
+    def predict(self, x, eps):
+        """Train-path prediction (B, P, D): the mean over eps's n samples of
+        the pi-weighted gaussian draws.  eps: (B, P, G, n, D) standard normal."""
+        return self._samples(self.pi(x), eps).mean(2)
 
 
 def center_mu_init(num_gaussian):

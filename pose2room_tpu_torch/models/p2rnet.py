@@ -1,9 +1,13 @@
-"""P2RNet eval: backbone -> center votes -> proposals, as a torch module.
+"""P2RNet: backbone -> center votes -> proposals, as a torch module.
 
 Port of pose2room_tpu/models/p2rnet.py (reference
-models/p2rnet/modules/network.py:11-106), the deterministic ``generate``
-path: STGCN backbone, center voting, L2-normalised vote features, and
-ProposalNet with MDN ``get_mean`` heads.
+models/p2rnet/modules/network.py:11-106): STGCN backbone, center voting,
+L2-normalised vote features, and ProposalNet.
+
+* ``forward`` is the train forward: MDN ``predict`` heads on injected noise,
+  BatchNorm on live batch statistics in ``.train()`` mode and on the running
+  statistics in ``.eval()`` mode (the validation loss);
+* ``generate`` is the deterministic eval path with MDN ``get_mean`` heads.
 
 ``P2RNet(config, device=None)`` builds its weights on the host and moves
 them to the card; ``device="cpu"`` runs it on the CPU (the kernels' plain
@@ -17,7 +21,7 @@ import torch
 from torch import nn
 
 from pose2room_tpu_torch.device import assert_precision_policy, resolve_device
-from pose2room_tpu_torch.models.proposal import ProposalNet
+from pose2room_tpu_torch.models.proposal import MDN_KEYS, ProposalNet
 from pose2room_tpu_torch.models.stgcn import STGCN
 from pose2room_tpu_torch.models.vote import CenterVote, l2_normalize
 
@@ -39,6 +43,11 @@ class P2RNetConfig:
     # false runs the per-block module path, the chain's reference
     fused_eval: bool = True
     sparse_eval: bool = False
+    # fused merged-layout train chain (custom backward through live BN and
+    # the CUDA train kernels); false runs the per-block module path
+    fused_train: bool = True
+    # BatchNorm EMA keep-rate, flax convention (= 1 - torch momentum)
+    bn_momentum: float = 0.9
 
     @classmethod
     def from_cfg(cls, cfg):
@@ -47,8 +56,10 @@ class P2RNetConfig:
         model_cfg = cfg.config.get("model", {}) or {}
         return cls(
             compute_dtype=model_cfg.get("compute_dtype", "float32"),
+            bn_momentum=float(model_cfg.get("bn_momentum", 0.9)),
             fused_eval=model_cfg.get("fused_eval", True),
             sparse_eval=model_cfg.get("sparse_eval", False),
+            fused_train=model_cfg.get("fused_train", True),
             num_frames=data.get("num_frames", 768),
             num_seeds=data.get("num_seeds", 512),
             seed_sampling=data.get("seed_sampling", "uniform"),
@@ -77,11 +88,13 @@ class P2RNet(nn.Module):
         self.backbone = STGCN(
             n_seeds=c.num_seeds, num_frames=c.num_frames, origin_joint_id=c.origin_joint_id,
             num_joints=c.num_joints, seed_sampling=c.seed_sampling, fused_eval=c.fused_eval,
+            fused_train=c.fused_train, bn_momentum=c.bn_momentum,
         )
-        self.centervoting = CenterVote(origin_joint_id=c.origin_joint_id, vote_factor=c.vote_factor)
+        self.centervoting = CenterVote(origin_joint_id=c.origin_joint_id, vote_factor=c.vote_factor,
+                                       bn_momentum=c.bn_momentum)
         self.detection = ProposalNet(
             num_class=c.num_class, num_proposals=c.num_proposals,
-            sampling=c.cluster_sampling, num_gaussian=c.num_gaussian,
+            sampling=c.cluster_sampling, num_gaussian=c.num_gaussian, bn_momentum=c.bn_momentum,
         )
         self.reset_parameters(generator if generator is not None else torch.Generator().manual_seed(0))
         self.eval()
@@ -102,6 +115,43 @@ class P2RNet(nn.Module):
         load and pass to ``generate(folded=...)``.  None when the chain is off."""
         return self.backbone.fold_eval_operands() if self.config.fused_eval else None
 
+    def _trunk(self, input_joints, folded=None, generator=None):
+        end_points = self.backbone(input_joints, folded=folded, generator=generator)
+        xyz, features = self.centervoting(end_points["seed_skeleton"], end_points["seed_features"])
+        features = l2_normalize(features)
+        end_points["vote_xyz"] = xyz
+        end_points["vote_features"] = features
+        return end_points, xyz, features
+
+    def mdn_eps(self, batch_size, generator):
+        """Standard-normal noise of the three MDN ``predict`` heads, one
+        sample each: {"center", "size", "heading"} -> (B, P, G, 1, D), drawn
+        on the host from the CPU ``generator`` (so the card and the CPU see
+        the same numbers) and moved to the model's device."""
+        c = self.config
+        dims = {"center": 3, "size": 3, "heading": 2}
+        return {
+            k: torch.randn((batch_size, c.num_proposals, c.num_gaussian, 1, dims[k]),
+                           generator=generator).to(self.device)
+            for k in MDN_KEYS
+        }
+
+    def forward(self, input_joints, eps=None, generator=None):
+        """Train forward. input_joints: (B, T, V, 3) f32 on ``self.device``.
+
+        ``eps``: the MDN noise (``mdn_eps`` layout); drawn from ``generator``
+        (a CPU torch.Generator, also used for ``seed_sampling: random``)
+        when None.  BatchNorm is live in ``.train()`` mode and uses the
+        running statistics in ``.eval()`` mode.  Returns the end_points dict.
+        """
+        assert_precision_policy()
+        if eps is None:
+            if generator is None:
+                raise ValueError("pass the MDN noise eps or a CPU generator to draw it from")
+            eps = self.mdn_eps(input_joints.shape[0], generator)
+        end_points, xyz, features = self._trunk(input_joints, generator=generator)
+        return self.detection(xyz, features, end_points, eps=eps)
+
     @torch.no_grad()
     def generate(self, input_joints, multi_mode=False, folded=None, generator=None):
         """Deterministic eval forward. input_joints: (B, T, V, 3) f32 on
@@ -110,10 +160,8 @@ class P2RNet(nn.Module):
         ``seed_sampling: random``.  Returns the end_points dict."""
         if multi_mode:
             raise NotImplementedError("multi_mode generation is not ported")
+        if self.training:
+            raise RuntimeError("generate runs on the running statistics: call model.eval() first")
         assert_precision_policy()
-        end_points = self.backbone(input_joints, folded=folded, generator=generator)
-        xyz, features = self.centervoting(end_points["seed_skeleton"], end_points["seed_features"])
-        features = l2_normalize(features)
-        end_points["vote_xyz"] = xyz
-        end_points["vote_features"] = features
+        end_points, xyz, features = self._trunk(input_joints, folded=folded, generator=generator)
         return self.detection(xyz, features, end_points)

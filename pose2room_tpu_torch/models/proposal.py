@@ -1,4 +1,4 @@
-"""Proposal network, eval path: vote aggregation (FPS + ball query) + heads.
+"""Proposal network: vote aggregation (FPS + ball query) + heads.
 
 Port of pose2room_tpu/models/proposal.py (reference
 models/p2rnet/modules/proposal_net.py:37-252 with PointnetSAModuleVotes at
@@ -11,7 +11,13 @@ bn=False, max pooling):
   (use_xyz=False: the grouped, radius-scaled coordinates are not features);
 * shared two-layer 1x1 MLP (no BN) and max-pool over the ball;
 * four head stacks (center/size/heading -> 128-d GMM features, sem_obj ->
-  2+num_class logits) and three MDN heads' deterministic ``get_mean``.
+  2+num_class logits) and three MDN heads: the deterministic ``get_mean``
+  for generation, the sampled ``predict`` (injected noise) for training and
+  the validation loss.
+
+FPS and the ball query take detached coordinates (the JAX package's
+stop_gradient): indices carry no gradient; the gathers of coordinates and
+features do.
 """
 
 from torch import nn
@@ -25,6 +31,8 @@ from pose2room_tpu_torch.ops.sampling import (
     gather_points,
     group_points,
 )
+
+MDN_KEYS = ("center", "size", "heading")
 
 
 class _VoteAggregation(nn.Module):
@@ -40,18 +48,19 @@ class _VoteAggregation(nn.Module):
 
 class ProposalNet(nn.Module):
     def __init__(self, num_class=22, num_proposals=128, sampling="vote_fps", radius=0.3,
-                 nsample=16, feature_dim=256, num_gaussian=100, gmm_dim=128):
+                 nsample=16, feature_dim=256, num_gaussian=100, gmm_dim=128, bn_momentum=0.9):
         super().__init__()
         self.num_proposals, self.sampling = num_proposals, sampling
         self.radius, self.nsample = radius, nsample
         self.vote_aggregation = _VoteAggregation(feature_dim)
-        self.conv_center = MLP1x1(feature_dim, [128, gmm_dim], final_plain=False)
-        self.conv_size = MLP1x1(feature_dim, [128, gmm_dim], final_plain=False)
-        self.conv_heading = MLP1x1(feature_dim, [128, gmm_dim], final_plain=False)
-        self.conv_sem_obj = MLP1x1(feature_dim, [128, 128, 2 + num_class])
-        self.gmm_center = MDNHead(num_gaussian, 3, center_mu_init(num_gaussian), gmm_dim)
-        self.gmm_size = MDNHead(num_gaussian, 3, size_mu_init(num_gaussian), gmm_dim)
-        self.gmm_heading = MDNHead(num_gaussian, 2, heading_mu_init(num_gaussian), gmm_dim)
+        bnm = dict(bn_momentum=bn_momentum)
+        self.conv_center = MLP1x1(feature_dim, [128, gmm_dim], final_plain=False, **bnm)
+        self.conv_size = MLP1x1(feature_dim, [128, gmm_dim], final_plain=False, **bnm)
+        self.conv_heading = MLP1x1(feature_dim, [128, gmm_dim], final_plain=False, **bnm)
+        self.conv_sem_obj = MLP1x1(feature_dim, [128, 128, 2 + num_class], **bnm)
+        self.gmm_center = MDNHead(num_gaussian, 3, center_mu_init(num_gaussian), gmm_dim, **bnm)
+        self.gmm_size = MDNHead(num_gaussian, 3, size_mu_init(num_gaussian), gmm_dim, **bnm)
+        self.gmm_heading = MDNHead(num_gaussian, 2, heading_mu_init(num_gaussian), gmm_dim, **bnm)
 
     def reset_parameters(self, generator):
         for lin in self.vote_aggregation.mlp_module[::2]:
@@ -66,26 +75,37 @@ class ProposalNet(nn.Module):
     def _aggregate(self, xyz, features, end_points):
         """-> (new_xyz (B,P,3), new_features (B,P,C), inds (B,P) int32)."""
         if self.sampling == "vote_fps":
-            inds = furthest_point_sample(xyz, self.num_proposals).sort(dim=1).values
+            inds = furthest_point_sample(xyz.detach(), self.num_proposals).sort(dim=1).values
         elif self.sampling == "seed_fps":
             inds = arc_length_seed_inds(end_points["seed_skeleton"][:, :, 0], self.num_proposals)
         else:
             raise NotImplementedError(self.sampling)
         new_xyz = gather_points(xyz, inds)
-        ball_idx = ball_query(self.radius, new_xyz, xyz, self.nsample)  # (B,P,S)
+        ball_idx = ball_query(self.radius, new_xyz.detach(), xyz.detach(), self.nsample)  # (B,P,S)
         h = self.vote_aggregation.mlp_module(group_points(features, ball_idx))
         return new_xyz, h.amax(dim=2), inds
 
-    def forward(self, xyz, features, end_points):
-        """xyz (B,N,3) votes, features (B,N,C) -> end_points with boxes."""
+    def forward(self, xyz, features, end_points, eps=None):
+        """xyz (B,N,3) votes, features (B,N,C) -> end_points with boxes.
+
+        ``eps``: None for generation (MDN ``get_mean``, pi exported), or the
+        train path's noise {"center", "size", "heading"} -> (B, P, G, n, D)
+        standard normal draws for the three MDN ``predict`` heads."""
         agg_xyz, agg_feat, inds = self._aggregate(xyz, features, end_points)
         end_points["aggregated_vote_xyz"] = agg_xyz
         end_points["aggregated_vote_inds"] = inds
-        pred_center, pi_center = self.gmm_center.get_mean(self.conv_center(agg_feat))
-        pred_size, pi_size = self.gmm_size.get_mean(self.conv_size(agg_feat))
-        pred_heading, pi_heading = self.gmm_heading.get_mean(self.conv_heading(agg_feat))
+        feats = (self.conv_center(agg_feat), self.conv_size(agg_feat), self.conv_heading(agg_feat))
         sem_obj = self.conv_sem_obj(agg_feat)  # (B,P,2+num_class)
-        end_points["pi"] = {"center": pi_center, "size": pi_size, "heading": pi_heading}
+        heads = (self.gmm_center, self.gmm_size, self.gmm_heading)
+        if eps is None:
+            (pred_center, pi_center), (pred_size, pi_size), (pred_heading, pi_heading) = (
+                head.get_mean(f) for head, f in zip(heads, feats)
+            )
+            end_points["pi"] = {"center": pi_center, "size": pi_size, "heading": pi_heading}
+        else:
+            pred_center, pred_size, pred_heading = (
+                head.predict(f, eps[k]) for head, f, k in zip(heads, feats, MDN_KEYS)
+            )
         end_points["center"] = agg_xyz + pred_center
         end_points["size"] = pred_size  # log-space
         end_points["heading"] = pred_heading  # (sin, cos)

@@ -1,4 +1,4 @@
-"""ST-GCN pose backbone (eval): a (B,T,53,3) clip -> seed features.
+"""ST-GCN pose backbone: a (B,T,53,3) clip -> seed features.
 
 Port of pose2room_tpu/models/stgcn.py (reference
 models/p2rnet/modules/stgcn.py:12-152):
@@ -11,10 +11,14 @@ models/p2rnet/modules/stgcn.py:12-152):
 * six ST-GCN blocks with per-block edge-importance multipliers;
 * a joint-flatten 1x1 conv to 256-d per-frame features, gathered at seeds.
 
-The eval chain runs the six blocks on the merged (B, T, V*C) layout through
+In eval mode the six blocks run on the merged (B, T, V*C) layout through
 ``ops/stgcn_fused.py`` (f32 matmul + the CUDA epilogue kernel).  Its operands
 are a function of the weights alone: ``fold_eval_operands`` builds them once
-per weight load and ``forward(folded=...)`` reuses them.
+per weight load and ``forward(folded=...)`` reuses them.  In training mode
+with ``fused_train`` the blocks run on the same layout through
+``ops/stgcn_train.py`` (BatchNorm on live batch statistics, hand-written
+backward, the CUDA train kernels); ``fused_eval`` / ``fused_train`` off run
+the per-block module path instead.
 """
 
 import numpy as np
@@ -76,22 +80,24 @@ def window_index_table(n_frames, knn):
 
 class STGCN(nn.Module):
     def __init__(self, n_seeds=512, num_frames=768, origin_joint_id=0, num_joints=53,
-                 seed_sampling="uniform", fused_eval=True, knn=20, in_channels=64,
-                 out_channels=256, max_hop=5):
+                 seed_sampling="uniform", fused_eval=True, fused_train=True, knn=20,
+                 in_channels=64, out_channels=256, max_hop=5, bn_momentum=0.9):
         super().__init__()
         self.n_seeds, self.num_frames = n_seeds, num_frames
         self.origin_joint_id, self.num_joints = origin_joint_id, num_joints
-        self.seed_sampling, self.fused_eval = seed_sampling, fused_eval
+        self.seed_sampling = seed_sampling
+        self.fused_eval, self.fused_train = fused_eval, fused_train
         self.in_channels = in_channels
         A = torch.from_numpy(build_spatial_graph(num_joints, max_hop=max_hop))
         self.register_buffer("A", A, persistent=False)
         self.register_buffer(
             "window_idx", torch.from_numpy(window_index_table(num_frames, knn)), persistent=False
         )
-        self.pos_embed = MLP1x1(3, [64, 64, in_channels])
-        self.sk_feat = MLP1x1(3, [64, 64, in_channels])
+        self.pos_embed = MLP1x1(3, [64, 64, in_channels], bn_momentum=bn_momentum)
+        self.sk_feat = MLP1x1(3, [64, 64, in_channels], bn_momentum=bn_momentum)
         self.st_gcn_networks = nn.ModuleList(
-            STGCNBlock(in_channels, in_channels, A.shape[0], num_joints, residual=(i != 0))
+            STGCNBlock(in_channels, in_channels, A.shape[0], num_joints, residual=(i != 0),
+                       bn_momentum=bn_momentum)
             for i in range(6)
         )
         self.edge_importance = nn.ParameterList(
@@ -141,7 +147,8 @@ class STGCN(nn.Module):
         raise NotImplementedError(self.seed_sampling)
 
     def forward(self, input_joints, folded=None, generator=None):
-        """input_joints: (B, T, V, 3) -> dict of seed tensors."""
+        """input_joints: (B, T, V, 3) -> dict of seed tensors.  ``folded``:
+        ``fold_eval_operands()`` of the current weights (eval mode only)."""
         B, T, V, _ = input_joints.shape
         if T != self.num_frames:
             raise ValueError(f"clip has {T} frames; the model was built for {self.num_frames}")
@@ -156,7 +163,14 @@ class STGCN(nn.Module):
         C = h.shape[-1]
         W0 = V * C
 
-        if self.fused_eval:
+        if self.training and self.fused_train:
+            # same no-entry-pad trick as eval; gradients reach every weight
+            # through the fold (M = einsum(W, A * importance), bias_col)
+            hm = h.reshape(B, T, W0)
+            for blk, imp in zip(self.st_gcn_networks, self.edge_importance):
+                hm = blk.apply_fused_train(hm, self.A * imp, T)
+            frame_feat = hm[..., :W0] @ self._conv_joint_joint_major() + self.conv_joint.bias
+        elif not self.training and self.fused_eval:
             # no entry pad: block 0 has no residual, so it contracts the
             # unpadded merged input against M's first W0 rows
             folded = folded if folded is not None else self.fold_eval_operands()

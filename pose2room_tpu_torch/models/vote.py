@@ -3,7 +3,8 @@
 Port of pose2room_tpu/models/vote.py (reference
 models/p2rnet/modules/vote_center.py:11-59): a 3-layer 1x1 conv over seed
 features gives a 3-d offset from the seed's hip joint and a residual
-feature; vote features = seed features + residual.
+feature; vote features = seed features + residual.  The conv stack's
+BatchNorms are live in training mode.
 """
 
 import torch
@@ -13,12 +14,13 @@ from pose2room_tpu_torch.models.layers import MLP1x1
 
 
 class CenterVote(nn.Module):
-    def __init__(self, origin_joint_id=0, vote_factor=1, feature_dim=256):
+    def __init__(self, origin_joint_id=0, vote_factor=1, feature_dim=256, bn_momentum=0.9):
         super().__init__()
         self.origin_joint_id, self.vote_factor, self.feature_dim = (
             origin_joint_id, vote_factor, feature_dim,
         )
-        self.conv_input = MLP1x1(feature_dim, [256, 256, (3 + feature_dim) * vote_factor])
+        self.conv_input = MLP1x1(feature_dim, [256, 256, (3 + feature_dim) * vote_factor],
+                                 bn_momentum=bn_momentum)
 
     def reset_parameters(self, generator):
         for layer in self.conv_input:

@@ -36,6 +36,31 @@ def pad_merged(width):
     return ((width + LANE - 1) // LANE) * LANE
 
 
+def block_diag_taps(taps):
+    """(3, C, C) temporal taps (tap s applies to row t+s-1) -> (3, 128, 128)
+    block-diagonal matrices: a 128-wide column group holds 128/C joints'
+    channels, each mixed by the same (C, C) tap."""
+    C = taps.shape[-1]
+    eye = torch.eye(LANE // C, dtype=taps.dtype, device=taps.device)
+    return torch.einsum("sio,pq->spiqo", taps, eye).reshape(3, LANE, LANE)
+
+
+def shift_prev(h):
+    """Row t holds row t-1 of h (B, T, W); zero at the first row (tap 0)."""
+    return torch.cat([h.new_zeros(h.shape[0], 1, h.shape[2]), h[:, :-1]], dim=1)
+
+
+def shift_next(h):
+    """Row t holds row t+1 of h (B, T, W); zero at the last row (tap 2)."""
+    return torch.cat([h[:, 1:], h.new_zeros(h.shape[0], 1, h.shape[2])], dim=1)
+
+
+def tconv_group(h, tap):
+    """Product of each 128-column group of h (B, T, Wp) with one (128, 128) tap."""
+    B, T, Wp = h.shape
+    return torch.matmul(h.reshape(B, T, Wp // LANE, LANE), tap).reshape(B, T, Wp)
+
+
 def graph_matmul_bn_relu(x, M, s1, b1):
     """relu((x @ M) * s1 + b1): the graph matmul, accumulated in f32, then
     BN1 and ReLU.  x: (B, T, W); M: (W, Wp)."""
@@ -50,39 +75,11 @@ def epilogue_merged_ref(t1, x, vecs, KB, *, residual):
     [s1, b1', s2, b2', 0...]; KB: (3, 128, 128) f32 temporal taps, tap s
     applied to row t+s-1 with zero rows outside the clip.
     """
-    B, T, Wp = t1.shape
-    G = Wp // LANE
-    zero = t1.new_zeros(B, 1, Wp)
-    prev = torch.cat([zero, t1[:, :-1]], dim=1)
-    nxt = torch.cat([t1[:, 1:], zero], dim=1)
-
-    def tconv(h, tap):
-        return torch.matmul(h.reshape(B, T, G, LANE), tap).reshape(B, T, Wp)
-
-    y2 = tconv(prev, KB[0]) + tconv(t1, KB[1]) + tconv(nxt, KB[2])
+    y2 = tconv_group(shift_prev(t1), KB[0]) + tconv_group(t1, KB[1]) + tconv_group(shift_next(t1), KB[2])
     out = y2 * vecs[2] + vecs[3]
     if residual:
         out = out + x
     return torch.relu(out)
-
-
-def _check_epilogue_operands(t1, x, vecs, KB, residual):
-    B, T, Wp = t1.shape
-    if Wp % LANE:
-        raise ValueError(f"merged width {Wp} is not a multiple of {LANE}")
-    expect = {"t1": (t1, (B, T, Wp)), "vecs": (vecs, (N_VEC_ROWS, Wp)),
-              "KB": (KB, (3, LANE, LANE))}
-    if residual:
-        expect["x"] = (x, (B, T, Wp))
-    for name, (t, shape) in expect.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the epilogue kernel takes float32")
-        if t.device != t1.device:
-            raise ValueError(f"{name} is on {t.device}, t1 on {t1.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
 
 
 def fused_epilogue(t1, x, vecs, KB, *, residual):
@@ -97,8 +94,13 @@ def fused_epilogue(t1, x, vecs, KB, *, residual):
         return epilogue_merged_ref(t1, x, vecs, KB, residual=residual)
     if t1.device.type != "cuda":
         raise ValueError(f"no epilogue kernel for device {t1.device}")
-    _check_epilogue_operands(t1, x, vecs, KB, residual)
     B, T, Wp = t1.shape
+    if Wp % LANE:
+        raise ValueError(f"merged width {Wp} is not a multiple of {LANE}")
+    expect = {"t1": (t1, (B, T, Wp)), "vecs": (vecs, (N_VEC_ROWS, Wp)), "KB": (KB, (3, LANE, LANE))}
+    if residual:
+        expect["x"] = (x, (B, T, Wp))
+    kernels.check_operands("stgcn_epilogue", expect, t1.device)
     out = torch.empty_like(t1)
     lib = kernels.load("stgcn_epilogue")
     fn = lib.p2r_stgcn_epilogue_f32

@@ -16,7 +16,7 @@ import torch
 
 from pose2room_tpu_torch import kernels
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
-from pose2room_tpu_torch.ops import sampling, stgcn_fused
+from pose2room_tpu_torch.ops import sampling, stgcn_fused, stgcn_train
 
 pytestmark = pytest.mark.gpu
 
@@ -81,6 +81,107 @@ def test_epilogue_wrapper_rejects_bad_operands(cuda_device):
         stgcn_fused.fused_epilogue(t1.transpose(0, 1), x.transpose(0, 1), vecs, KB, residual=True)
     with pytest.raises(ValueError):
         stgcn_fused.fused_epilogue(t1, x.cpu(), vecs, KB, residual=True)
+
+
+def _train_operands(B, T, W0, dev, seed=0):
+    """Kernel 3/4 operands in the fold's layout: pad columns of y, dy2 and
+    vecs zero, KB block-diagonal with one 64x64 tap."""
+    g = torch.Generator().manual_seed(seed)
+    Wp = stgcn_fused.pad_merged(W0)
+    y = torch.zeros(B * T, Wp)
+    y[:, :W0] = torch.randn(B * T, W0, generator=g) * 0.7
+    dy2 = torch.zeros(B * T, Wp)
+    dy2[:, :W0] = torch.randn(B * T, W0, generator=g) * 0.5
+    vecs = torch.zeros(4, Wp)
+    vecs[0, :W0] = 0.5 + torch.rand(W0, generator=g)
+    vecs[1, :W0] = torch.randn(W0, generator=g) * 0.3
+    vecs[2, :W0] = torch.randn(W0, generator=g) * 0.1
+    KB = stgcn_fused.block_diag_taps(torch.randn(3, 64, 64, generator=g) * 0.15)
+    return [t.to(dev) for t in (y, dy2, vecs, KB)]
+
+
+def _assert_parts_close(parts, ref, magnitudes):
+    """Column partials within 1e-5 of each column's scale: the sum of the
+    magnitudes of its terms, which bounds the rounding of a sum taken in
+    another order."""
+    scale = torch.stack(magnitudes, dim=1).clamp_min(1e-6)
+    assert ((parts - ref).abs() / scale).max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("B,T,W0", [(1, 768, 3392), (8, 768, 3392), (2, 100, 3392), (3, 17, 320)])
+def test_train_fwd_kernel_matches_plain(cuda_device, B, T, W0):
+    y, _, vecs, KB = _train_operands(B, T, W0, cuda_device)
+    before = kernels.LAUNCHES["stgcn_train_fwd"]
+    y2, parts = stgcn_train.tconv_stats_fwd(y, vecs, KB, T=T)
+    assert kernels.LAUNCHES["stgcn_train_fwd"] == before + 1
+    y2_ref, parts_ref = stgcn_train.tconv_stats_fwd_ref(y, vecs, KB, T=T)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y2, y2_ref, atol=1e-4, rtol=1e-4)
+    y2_3 = y2_ref.reshape(B, T, -1)
+    _assert_parts_close(parts, parts_ref, [y2_3.abs().sum(1), (y2_3 * y2_3).sum(1)])
+    assert torch.all(y2[:, W0:] == 0) and torch.all(parts[..., W0:] == 0)
+
+
+@pytest.mark.parametrize("B,T,W0", [(1, 768, 3392), (8, 768, 3392), (2, 100, 3392), (3, 17, 320)])
+def test_train_bwd_kernel_matches_plain(cuda_device, B, T, W0):
+    y, dy2, vecs, KB = _train_operands(B, T, W0, cuda_device)
+    KBT = KB.transpose(1, 2).contiguous()
+    before = kernels.LAUNCHES["stgcn_train_bwd"]
+    dpre, parts, dtaps = stgcn_train.tconv_bwd(dy2, y, vecs, KBT, T=T, C=64)
+    assert kernels.LAUNCHES["stgcn_train_bwd"] == before + 1
+    dpre_ref, parts_ref, dkb_ref = stgcn_train.tconv_bwd_ref(dy2, y, vecs, KBT, T=T)
+    dtaps_ref = stgcn_train._fold_diag_blocks(dkb_ref, 64)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dpre, dpre_ref, atol=1e-4, rtol=1e-4)
+    d3, y3 = dpre_ref.reshape(B, T, -1), y.reshape(B, T, -1)
+    _assert_parts_close(parts, parts_ref, [d3.abs().sum(1), (d3 * y3).abs().sum(1)])
+    torch.testing.assert_close(dtaps, dtaps_ref, atol=1e-4 * dtaps_ref.abs().max().item(), rtol=0)
+    assert torch.all(dpre[:, W0:] == 0) and torch.all(parts[..., W0:] == 0)
+    # fixed-order reductions: a second launch gives the same bits
+    again = stgcn_train.tconv_bwd(dy2, y, vecs, KBT, T=T, C=64)
+    assert all(torch.equal(a, b) for a, b in zip((dpre, parts, dtaps), again))
+
+
+def test_train_wrappers_reject_bad_operands(cuda_device):
+    y, dy2, vecs, KB = _train_operands(2, 16, 192, cuda_device)
+    with pytest.raises(ValueError):
+        stgcn_train.tconv_stats_fwd(y, vecs, KB, T=5)
+    with pytest.raises(TypeError):
+        stgcn_train.tconv_stats_fwd(y.double(), vecs, KB, T=16)
+    with pytest.raises(ValueError):
+        stgcn_train.tconv_bwd(dy2, y, vecs, KB, T=16, C=32)
+    with pytest.raises(ValueError):
+        stgcn_train.tconv_bwd(dy2, y, vecs.cpu(), KB, T=16, C=64)
+
+
+def test_fused_train_layer_card_matches_cpu(cuda_device):
+    """The whole custom-backward block on the card against the same block on
+    the CPU (plain versions): outputs, stats and every gradient."""
+    V, C, T, B = 53, 64, 64, 2
+    W0, Wp = V * C, 3456
+    g = torch.Generator().manual_seed(1)
+    x = torch.zeros(B, T, Wp)
+    x[..., :W0] = torch.randn(B, T, W0, generator=g) * 0.6
+    M = torch.zeros(Wp, Wp)
+    M[:W0, :W0] = torch.randn(W0, W0, generator=g) * 0.02
+    bias_col = torch.zeros(Wp)
+    bias_col[:W0] = torch.randn(W0, generator=g) * 0.1
+    rest = [0.7 + torch.rand(C, generator=g), torch.randn(C, generator=g) * 0.2,
+            torch.randn(3, C, C, generator=g) * 0.15, torch.randn(C, generator=g) * 0.1,
+            0.7 + torch.rand(C, generator=g), torch.randn(C, generator=g) * 0.2]
+    w = torch.randn(B, T, Wp, generator=g)
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        args = [t.to(dev).requires_grad_() for t in [x, M, bias_col, *rest]]
+        outs = stgcn_train.FusedTrainLayer.apply(*args, True, V, C, T)
+        (outs[0] * w.to(dev)).sum().backward()
+        results.append(([o.detach().cpu() for o in outs], [a.grad.cpu() for a in args]))
+    (outs_g, grads_g), (outs_c, grads_c) = results
+    for a, b in zip(outs_g, outs_c):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    for i, (a, b) in enumerate(zip(grads_g, grads_c)):
+        torch.testing.assert_close(a, b, atol=1e-3 * b.abs().max().item() + 1e-12, rtol=0, msg=f"grad {i}")
+    assert torch.all(grads_g[6] == 0)  # conv bias: the analytic zero
 
 
 def _cloud(kind, B, N, seed):

@@ -139,7 +139,7 @@ def test_cli_demo_on_cpu(tmp_path):
                         "--demo_path", _demo_dir(tmp_path), "--device", "cpu"])
     assert len(results) == 1 and os.path.isdir(results[0][1])
     with pytest.raises(NotImplementedError):
-        cli.main(["--config", str(yaml_path), "--mode", "train", "--device", "cpu"])
+        cli.main(["--config", str(yaml_path), "--mode", "test", "--device", "cpu"])
 
 
 def test_entry_points_raise_without_cuda(tmp_path, monkeypatch):
