@@ -17,6 +17,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    versions (y2, dpre: atol = rtol = 1e-4; column moments within 1e-5 of each
    column's scale, the sum of the magnitudes of its terms; dtaps within 1e-4
    of its max; pad columns exactly 0), timed beside their bounds and cuDNN.
+   Kernel 5 (block-sparse graph matmul + BN1 + ReLU) at B in {1, 8}, full
+   width, for the annealed and the natural joint order, on the fold's layout
+   (a random folded matrix on the support of A, permuted and packed into its
+   279 / 391 nonzero tiles; the pad slot of x and vecs zero): against its
+   plain version within atol = rtol = 1e-4 (f32 sums of 1280-2560 products
+   taken in another order), the pad slot exactly 0, two launches the same
+   bits, and kernel 1 on its output in the permuted layout; timed beside its
+   bound and the dense path's matmul + BN1 + ReLU on the densified matrix.
 4. Serving phase: the demo runner at full width (T=768, 53x64 joints, 512
    seeds, 128 proposals, 100 gaussians) on random weights from seed 42,
    answering the demo clip and three rotated copies; the launch counts must
@@ -35,13 +43,26 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    1e-4 relative, each gradient within 1e-3 of its max, running statistics
    within 1e-4.  Then the B=8 train step time (CUDA events, median of 5 after
    2 warm-ups), samples/s, peak memory, and a torch.profiler top-10.
-6. Prints the ``kernels`` JSON line, the nvidia-smi line, and last
+6. Test phase: the test runner at the full width of p2rnet_test.yaml with
+   ``model.sparse_eval: true``, random weights from seed 42, on 8 in-memory
+   synthetic scenes (900 frames resampled to 768, no augmentation) at batch
+   1: launches exactly 6 stgcn_sparse + 6 epilogue + 1 FPS per batch, every
+   metric finite, the per-batch test time, and a profile of a second run.
+   The card's sparse ``generate`` against the same model on the CPU
+   (indices exactly, floats within 5e-4, seed features within 2e-4) and
+   against the card's dense ``generate`` on the same weights (same bands),
+   and both chains' batch-1 and B=32 ``generate`` times, in turns.  Then ``remove_far_box: false`` runs on 4
+   scenes on the card and on the CPU, with the size head's mixture means set
+   so that the random boxes are ~1.5 m wide and AP is not trivially 0: every
+   AP and recall within 1e-6.
+7. Prints the ``kernels`` JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA card and the repository around it.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -58,9 +79,11 @@ from pose2room_tpu_torch.data import synth
 from pose2room_tpu_torch.data.dataset import SceneDataset, load_demo_clip
 from pose2room_tpu_torch.data.loader import collate
 from pose2room_tpu_torch.device import set_precision_policy
+from pose2room_tpu_torch.models.graph import SPARSE_JOINT_ORDER, build_spatial_graph
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
-from pose2room_tpu_torch.ops import sampling, stgcn_fused, stgcn_train
+from pose2room_tpu_torch.ops import sampling, stgcn_fused, stgcn_sparse, stgcn_train
 from pose2room_tpu_torch.runners import demo
+from pose2room_tpu_torch.runners import test as test_runner
 from pose2room_tpu_torch.runners import train as train_runner
 from pose2room_tpu_torch.train.state import make_optimizer
 from pose2room_tpu_torch.train.step import batch_to_device, train_step
@@ -289,11 +312,92 @@ def train_kernel_phase(dev, smi):
     return rows
 
 
+def sparse_operands(B, order, g, dev):
+    """Kernel 5 operands at production shape in the fold's layout: a random
+    folded matrix on the support of A, permuted by ``order`` and packed into
+    its nonzero tiles; x and vecs zero at the pad slot.  Also returns the
+    densified permuted matrix, the epilogue's KB, and the pad slot."""
+    support = np.zeros((54, 54), bool)
+    support[:V, :V] = (build_spatial_graph() != 0).any(0)
+    col_off, vlist = stgcn_sparse.sparse_tile_lists(support[:V, :V], order)
+    perm = torch.from_numpy(order.astype(np.int64))
+    M = torch.randn(54, C, 54, C, generator=g) * 0.02 * torch.from_numpy(support)[:, None, :, None]
+    Mp = M[perm][:, :, perm].reshape(WP, WP)
+    pad = int(np.where(order == 53)[0][0])
+    x = torch.relu(torch.randn(B, T, WP, generator=g))
+    vecs = torch.zeros(8, WP)
+    vecs[0:4] = torch.randn(4, WP, generator=g) * 0.1
+    vecs[0] += 1.0
+    vecs[2] += 1.0
+    for t in (x, vecs):
+        t[..., pad * C:(pad + 1) * C] = 0
+    tiles = stgcn_sparse.gather_m_tiles(Mp, col_off, vlist).contiguous()
+    KB = stgcn_fused.block_diag_taps(torch.randn(3, C, C, generator=g) * 0.1)
+    ops = [t.to(dev) for t in (x, tiles, vecs, torch.from_numpy(col_off), torch.from_numpy(vlist), Mp, KB)]
+    return ops + [pad]
+
+
+def sparse_kernel_phase(dev, smi):
+    g = torch.Generator().manual_seed(2)
+    rows = {}
+    for name, order in (("annealed", SPARSE_JOINT_ORDER), ("natural", np.arange(54, dtype=np.int32))):
+        for B in (1, 8):
+            x, tiles, vecs, col_off, vlist, Mp, KB, pad = sparse_operands(B, order, g, dev)
+            pad_cols = slice(pad * C, (pad + 1) * C)
+            out = stgcn_sparse.sparse_graph_matmul_bn_relu(x, tiles, vecs, col_off, vlist)
+            again = stgcn_sparse.sparse_graph_matmul_bn_relu(x, tiles, vecs, col_off, vlist)
+            ref = stgcn_sparse.sparse_graph_matmul_bn_relu_ref(x, tiles, vecs, col_off, vlist)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            check(torch.allclose(out, ref, atol=1e-4, rtol=1e-4), f"sparse {name} B={B}: max |err| {err}")
+            check(bool(torch.all(out[..., pad_cols] == 0)), f"sparse {name} B={B}: pad slot {pad} not 0")
+            check(torch.equal(out, again), f"sparse {name} B={B}: two launches differ")
+            # kernel 1 serves the permuted layout: the pad slot stays 0
+            ep = stgcn_fused.fused_epilogue(out, x, vecs, KB, residual=True)
+            ep_ref = stgcn_fused.epilogue_merged_ref(out, x, vecs, KB, residual=True)
+            torch.cuda.synchronize()
+            check(torch.allclose(ep, ep_ref, atol=1e-4, rtol=1e-4) and bool(torch.all(ep[..., pad_cols] == 0)),
+                  f"epilogue on the permuted layout, {name} B={B}")
+            nnz, N = tiles.shape[0], B * T
+            flops = 2 * N * nnz * 128 * 128
+            nbytes = 2 * N * WP * 4 + nnz * 128 * 128 * 4 + 8 * WP * 4 + (col_off.numel() + nnz) * 4
+            b_ms, b_by = bound_ms(nbytes, flops)
+            k_ms = cuda_ms(lambda: stgcn_sparse.sparse_graph_matmul_bn_relu(x, tiles, vecs, col_off, vlist))
+            p_ms = cuda_ms(lambda: stgcn_sparse.sparse_graph_matmul_bn_relu_ref(x, tiles, vecs, col_off, vlist),
+                           iters=5, warmup=1)
+            # library yardstick: the dense path, one f32 matmul on the densified matrix + BN1 + ReLU
+            l_ms = cuda_ms(lambda: stgcn_fused.graph_matmul_bn_relu(x, Mp, vecs[0], vecs[1]))
+            mm_ms = cuda_ms(lambda: torch.matmul(x, Mp))
+            rows[("stgcn_sparse", name, B)] = dict(
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+            print(f"[{smi}] sparse {name} ({nnz} tiles) B={B}: max|err| {err:.3e}  kernel {k_ms:.4f} ms "
+                  f"({flops / k_ms / 1e9:.1f} TFLOP/s)  plain {p_ms:.4f} ms  "
+                  f"dense matmul+BN1+ReLU {l_ms:.4f} ms (matmul alone {mm_ms:.4f} ms)  "
+                  f"bound {b_ms:.4f} ms ({b_by})")
+            del x, tiles, vecs, Mp, KB, out, again, ref, ep, ep_ref
+    return rows
+
+
 def rotated_clip(joints, angle):
     """Rotate a (F, 53, 3) clip about +Y by ``angle``."""
     c, s = np.cos(angle), np.sin(angle)
     R = np.array([[c, 0.0, -s], [0.0, 1.0, 0.0], [s, 0.0, c]], dtype=np.float32)
     return (joints @ R.T).astype(np.float32)
+
+
+def generate_gap(a, b, what):
+    """Largest |a - b| of each float output; raises if an index differs or a
+    gap exceeds its band (seed features 2e-4, the rest 5e-4)."""
+    for key in ("seed_inds", "aggregated_vote_inds"):
+        check(torch.equal(a[key].cpu(), b[key].cpu()), f"{what}: {key} differ")
+    diffs = {k: (a[k].cpu() - b[k].cpu()).abs().max().item()
+             for k in ("center", "size", "heading", "objectness_scores", "sem_cls_scores", "seed_features")}
+    diffs.update({f"pi/{k}": (a["pi"][k].cpu() - b["pi"][k].cpu()).abs().max().item()
+                  for k in ("center", "size", "heading")})
+    for key, d in diffs.items():
+        tol = 2e-4 if key == "seed_features" else 5e-4
+        check(d <= tol, f"{what}: {key} differs by {d} (tolerance {tol})")
+    return diffs
 
 
 def serving_phase(workdir, smi):
@@ -332,18 +436,7 @@ def serving_phase(workdir, smi):
         x_gpu = torch.from_numpy(clip).cuda()
         ep_gpu = gpu_model.generate(x_gpu, folded=folded)
         ep_cpu = cpu_model.generate(torch.from_numpy(clip), folded=cpu_model.fold_eval())
-        for key in ("seed_inds", "aggregated_vote_inds"):
-            check(torch.equal(ep_gpu[key].cpu(), ep_cpu[key]), f"card vs CPU: {key} differ")
-        diffs = {}
-        for key in ("center", "size", "heading", "objectness_scores", "sem_cls_scores"):
-            diffs[key] = (ep_gpu[key].cpu() - ep_cpu[key]).abs().max().item()
-        for key in ("center", "size", "heading"):
-            diffs[f"pi/{key}"] = (ep_gpu["pi"][key].cpu() - ep_cpu["pi"][key]).abs().max().item()
-        diffs["seed_features"] = (ep_gpu["seed_features"].cpu() - ep_cpu["seed_features"]).abs().max().item()
-        print("card vs CPU max |diff|: " + json.dumps(diffs))
-        for key, d in diffs.items():
-            tol = 2e-4 if key == "seed_features" else 5e-4
-            check(d <= tol, f"card vs CPU: {key} differs by {d} (tolerance {tol})")
+        print("card vs CPU max |diff|: " + json.dumps(generate_gap(ep_gpu, ep_cpu, "card vs CPU")))
         for key in ("center", "size", "heading", "sem_cls_scores"):
             check(bool(torch.isfinite(ep_gpu[key]).all()), f"{key} not finite")
         check(ep_gpu["center"].shape == (1, 128, 3) and ep_gpu["pi"]["center"].shape == (1, 128, 100),
@@ -548,6 +641,119 @@ def train_phase(workdir, smi):
         cfg.close()
 
 
+def test_config(workdir, **test_knobs):
+    config = read_to_dict(TEST_YAML)
+    config.update(finetune=False, seed=42)
+    config["model"]["sparse_eval"] = True
+    config["test"].update(batch_size=1, **test_knobs)
+    config["log"]["path"] = os.path.join(workdir, "out")
+    return config
+
+
+def profile_test_run(cfg, dataset, batch_ms, smi):
+    """torch.profiler over a second test run: device kernel time per batch
+    (the one-time fold included), its share of the per-batch time, and the
+    top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        test_runner.run(cfg, dataset=dataset)
+        torch.cuda.synchronize()
+    n = len(dataset)
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)  # noqa: E731
+    per_batch = sum(dev_us(e) for e in events) / n / 1e3
+    print(f"[{smi}] profiler, test run of {n} batches of 1: device kernels {per_batch:.3f} ms per batch, "
+          f"busy share {per_batch / batch_ms:.3f} of the {batch_ms:.3f} ms batch; top 6 kernels per batch:")
+    for e in sorted(events, key=lambda e: -dev_us(e))[:6]:
+        print(f"  {dev_us(e) / n / 1e3:8.3f} ms  x{e.count / n:<5.1f} {e.key[:110]}")
+
+
+def test_phase(workdir, smi):
+    dataset = scene_datasets(seed=5, n_train=0, n_val=8)["val"]  # test scenes: no augmentation
+    cfg = CONFIG(test_config(workdir), mode="test")
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = test_runner.run(cfg, dataset=dataset)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        seconds = time.perf_counter() - t0
+        summary = cfg.test_summary
+        n = len(dataset)
+        expect = {"stgcn_sparse": 6 * n, "stgcn_epilogue": 6 * n, "fps": n}
+        check(launches == expect, f"test run launch counts {launches} != {expect} "
+              "(6 stgcn_sparse + 6 epilogue + 1 fps per batch of 1)")
+        for t, m in metrics.items():
+            check(all(np.isfinite(v) for v in m.values()), f"AP@{t}: a metric is not finite")
+            print(f"AP@{t}: mAP {m['mAP']:.6f} AR {m['AR']:.6f}")
+        check(all(np.isfinite(v) for v in summary["mean_losses"].values()), "test losses not finite")
+        batch_ms = [s * 1e3 for s in summary["batch_seconds"]]
+        print(f"[{smi}] test run, {n} batches of 1 (sparse_eval, IoU on the {summary['iou_path']} path): "
+              f"{seconds:.2f} s with set-up; per-batch time (between batch completions, host clock) "
+              f"median of batches 2-{n} {np.median(batch_ms[1:]):.3f} ms: {', '.join(f'{b:.3f}' for b in batch_ms)}")
+        print(f"test launch counts: {launches}")
+        profile_test_run(cfg, dataset, np.median(batch_ms[1:]), smi)
+
+        # the card's sparse generate against the CPU's and against the card's dense chain
+        clip = torch.from_numpy(dataset[0]["input_joints"][None])
+        gpu = demo.build_model(cfg, device="cuda")
+        cpu = demo.build_model(cfg, device="cpu")
+        dense = P2RNet(dataclasses.replace(gpu.config, sparse_eval=False), device="cuda")
+        dense.load_state_dict(gpu.state_dict())
+        folded_s, folded_d = gpu.fold_eval(), dense.fold_eval()
+        x_gpu = clip.cuda()
+        ep_gpu = gpu.generate(x_gpu, folded=folded_s)
+        ep_cpu = cpu.generate(clip, folded=cpu.fold_eval())
+        ep_dense = dense.generate(x_gpu, folded=folded_d)
+        print("sparse card vs CPU max |diff|: " + json.dumps(generate_gap(ep_gpu, ep_cpu, "sparse card vs CPU")))
+        print("sparse vs dense on the card max |diff|: "
+              + json.dumps(generate_gap(ep_gpu, ep_dense, "sparse vs dense on the card")))
+        # sparse against dense chain, in turns (sparse, dense, dense, sparse)
+        x32 = torch.from_numpy(np.stack([dataset[i % n]["input_joints"] for i in range(32)])).cuda()
+        chains = {"sparse": (gpu, folded_s), "dense": (dense, folded_d)}
+        times = {"sparse": [], "dense": []}
+        for name in ("sparse", "dense", "dense", "sparse"):
+            model, folded = chains[name]
+            times[name].append((cuda_ms(lambda: model.generate(x_gpu, folded=folded), iters=10),
+                                cuda_ms(lambda: model.generate(x32, folded=folded), iters=3, warmup=1)))
+        for name, runs in times.items():
+            print(f"[{smi}] {name} chain generate (CUDA events): batch 1 "
+                  f"{' / '.join(f'{b1:.3f}' for b1, _ in runs)} ms (means of 10); B=32 "
+                  f"{' / '.join(f'{b32:.3f}' for _, b32 in runs)} ms (means of 3) -> "
+                  f"{32e3 / min(b32 for _, b32 in runs):.1f} clips/s")
+        del gpu, cpu, dense, chains, x32
+    finally:
+        cfg.close()
+
+    # remove_far_box off, metre-sized random boxes: the same AP on the card and the CPU
+    model = P2RNet(P2RNetConfig.from_cfg(cfg), device="cpu", generator=torch.Generator().manual_seed(42))
+    mu = model.detection.gmm_size.mdn.mu
+    with torch.no_grad():
+        mu.fill_(2 * np.log(1.5) / mu.shape[0])
+    ckpt = os.path.join(workdir, "test_weights.pth")
+    torch.save({"net": model.state_dict()}, ckpt)
+    small = SceneDataset(dataset.samples[:4], num_frames=T, augment=False)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        config = test_config(workdir, remove_far_box=False)
+        config.update(finetune=True, weight=[ckpt])
+        cfg = CONFIG(config, mode="test")
+        try:
+            results[dev] = test_runner.run(cfg, device=dev, dataset=small)
+        finally:
+            cfg.close()
+    for t, want in results["cpu"].items():
+        got = results["cuda"][t]
+        check(list(got) == list(want), f"AP@{t}: card and CPU report other keys")
+        gap = max(abs(got[k] - v) for k, v in want.items())
+        check(gap <= 1e-6, f"AP@{t}: card vs CPU differ by {gap}")
+        print(f"remove_far_box off, 4 scenes, AP@{t}: card mAP {got['mAP']:.6f} AR {got['AR']:.6f}, "
+              f"CPU mAP {want['mAP']:.6f} AR {want['AR']:.6f}, max |gap| {gap:.2e}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
@@ -568,6 +774,7 @@ def main():
     t0 = time.perf_counter()
     rows = kernel_phase(dev, smi)
     rows.update(train_kernel_phase(dev, smi))
+    rows.update(sparse_kernel_phase(dev, smi))
     print(f"kernel phase {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
         t0 = time.perf_counter()
@@ -576,6 +783,9 @@ def main():
         t0 = time.perf_counter()
         train_launches, _, _ = train_phase(workdir, smi)
         print(f"train phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        test_launches = test_phase(workdir, smi)
+        print(f"test phase {time.perf_counter() - t0:.1f} s")
 
     line = {"kernels": [
         {"name": "stgcn_epilogue", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_epilogue.cu",
@@ -590,6 +800,9 @@ def main():
         {"name": "stgcn_train_bwd", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_train_bwd.cu",
          "replaces": "pose2room_tpu/ops/stgcn_train.py:227", "launches": train_launches["stgcn_train_bwd"],
          **rows[("stgcn_train_bwd", 8)]},
+        {"name": "stgcn_sparse", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_sparse.cu",
+         "replaces": "pose2room_tpu/ops/stgcn_sparse.py:115", "launches": test_launches["stgcn_sparse"],
+         **rows[("stgcn_sparse", "annealed", 1)]},
     ]}
     print(json.dumps(line))
     print(nvidia_smi())

@@ -1,10 +1,10 @@
 """CLI of the PyTorch port:
-``python -m pose2room_tpu_torch --config <yaml> --mode {train,demo} [--demo_path <dir>]``.
+``python -m pose2room_tpu_torch --config <yaml> --mode {train,test,demo} [--demo_path <dir>]``.
 
-Same flags as the JAX package's main.py.  ``--mode train`` (training with
-val phases and checkpoints) and ``--mode demo`` (serving) are ported;
-``--mode test`` is not yet.  Both run on the CUDA card, or on the CPU with
-``--device cpu``.
+Same flags as the JAX package's main.py: ``--mode train`` (training with val
+phases and checkpoints), ``--mode test`` (AP evaluation of the test split)
+and ``--mode demo`` (serving).  Each runs on the CUDA card, or on the CPU
+with ``--device cpu``.
 """
 
 import argparse
@@ -16,7 +16,8 @@ def parse_args(argv=None):
         "--config", type=str, default="configs/config_files/p2rnet_test.yaml",
         help="configure file for training or testing.",
     )
-    parser.add_argument("--mode", type=str, default="demo", help="train, test or demo.")
+    parser.add_argument("--mode", type=str, default="demo", choices=("train", "test", "demo"),
+                        help="train, test or demo.")
     parser.add_argument("--demo_path", type=str, default="demo", help="demo input path.")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device; default the CUDA card ('cpu' to run on the host).")
@@ -25,11 +26,9 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mode not in ("train", "demo"):
-        raise NotImplementedError(f"--mode {args.mode}: only train and demo are ported to PyTorch")
     from pose2room_tpu_torch.config.loader import CONFIG, read_to_dict
     from pose2room_tpu_torch.device import resolve_device
-    from pose2room_tpu_torch.runners import demo, train
+    from pose2room_tpu_torch.runners import demo, test, train
 
     device = resolve_device(args.device)
     cfg = CONFIG(read_to_dict(args.config), mode=args.mode)
@@ -41,6 +40,8 @@ def main(argv=None):
         cfg.write_config()
         if args.mode == "train":
             return train.run(cfg, device=device)
+        if args.mode == "test":
+            return test.run(cfg, device=device)
         return demo.run(cfg, device=device)
     finally:
         cfg.close()

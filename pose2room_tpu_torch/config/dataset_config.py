@@ -34,4 +34,5 @@ class DatasetConfig:
         self.joint_num = 53
         self.origin_joint_id = 0  # hip joint
         self.num_class = len(CLASS_LABELS)
+        self.class2type = dict(enumerate(CLASS_LABELS))
         self.contact_dist_thresh = 1.0

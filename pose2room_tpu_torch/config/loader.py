@@ -94,5 +94,9 @@ def mount_external_config(cfg):
         "conf_thresh": test_cfg.get("conf_thresh", 0.05),
         "multi_mode": test_cfg.get("multi_mode", False),
         "sample_cls": test_cfg.get("sample_cls", False),
+        # read by the test runner only
+        "ap_iou_thresholds": test_cfg.get("ap_iou_thresholds", [0.25, 0.5]),
+        "batch_size": test_cfg.get("batch_size", 1),
+        "dump_results": cfg.config.get("generation", {}).get("dump_results", False),
     }
     return cfg

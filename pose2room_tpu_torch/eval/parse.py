@@ -1,11 +1,13 @@
-"""Prediction parsing: box decoding, pruning, NMS, per-class assembly.
+"""Prediction and GT parsing: box decoding, pruning, NMS, per-class assembly.
 
-Port of the serving-path parts of pose2room_tpu/eval/parse.py (reference
-net_utils/ap_helper.py:133-446).  The parallel half (exp(size), atan2
-heading, softmaxes, corners for all B*K proposals, and the remove_far_box
-containment test against the hip trajectory) runs as torch ops on the
-tensors' device; the small sequential greedy NMS and list assembly run on
-the host in numpy.
+Port of pose2room_tpu/eval/parse.py (reference net_utils/ap_helper.py:133-446).
+The parallel half (exp(size), atan2 heading, softmaxes, corners for all B*K
+proposals and GT boxes, and the remove_far_box containment test against the
+hip trajectory) runs as torch ops on the tensors' device; the small
+sequential greedy NMS and list assembly run on the host in numpy.  The
+test runner dispatches the device half of a batch (``parse_predictions_device``,
+``gt_corners``) and passes its host copy back in (``device_out``, ``corners``)
+one batch later.
 """
 
 import numpy as np
@@ -39,12 +41,15 @@ def device_parse(center, size_log, heading_sincos, sem_cls_scores, objectness_sc
     return corners, aabb, obj_prob, sem_cls_probs, pred_sem_cls, nonempty
 
 
-def parse_predictions(end_points, gt_data, config_dict, rng=None):
-    """Network outputs -> (eval_dict{'pred_mask'}, parsed{'pred_corners_3d',
-    'sem_cls_probs', 'obj_prob', 'pred_sem_cls'}) as host numpy, mirroring
-    ap_helper.py:parse_predictions."""
+def _host(x):
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def parse_predictions_device(end_points, gt_data, config_dict):
+    """The device half of ``parse_predictions``: ``device_parse`` of the
+    network outputs, without copying anything to the host."""
     dataset_config = config_dict["dataset_config"]
-    out = device_parse(
+    return device_parse(
         end_points["center"], end_points["size"], end_points["heading"],
         end_points["sem_cls_scores"], end_points["objectness_scores"],
         gt_data["input_joints"],
@@ -52,7 +57,16 @@ def parse_predictions(end_points, gt_data, config_dict, rng=None):
         contact_dist_thresh=float(dataset_config.contact_dist_thresh),
         origin_joint_id=int(dataset_config.origin_joint_id),
     )
-    corners, aabb, obj_prob, sem_probs, pred_sem_cls, nonempty = (t.cpu().numpy() for t in out)
+
+
+def parse_predictions(end_points, gt_data, config_dict, rng=None, device_out=None):
+    """Network outputs -> (eval_dict{'pred_mask'}, parsed{'pred_corners_3d',
+    'sem_cls_probs', 'obj_prob', 'pred_sem_cls'}) as host numpy, mirroring
+    ap_helper.py:parse_predictions.  ``device_out``: the result of
+    ``parse_predictions_device`` (or its host copy) when already dispatched."""
+    if device_out is None:
+        device_out = parse_predictions_device(end_points, gt_data, config_dict)
+    corners, aabb, obj_prob, sem_probs, pred_sem_cls, nonempty = (_host(t) for t in device_out)
 
     if config_dict.get("sample_cls", False):
         rng = rng or np.random
@@ -115,3 +129,34 @@ def assembly_pred_map_cls(eval_dict, parsed, config_dict):
         batch_pred_map_cls.append(cur)
     eval_dict["batch_pred_map_cls"] = batch_pred_map_cls
     return eval_dict
+
+
+def gt_corners(center_label, size_log, heading_sincos):
+    """GT box corners (B, K2, 8, 3) on the tensors' device."""
+    heading = torch.atan2(heading_sincos[..., 0], heading_sincos[..., 1])
+    return box_corners_from_params(center_label, torch.exp(size_log), heading)
+
+
+def parse_groundtruths(gt_data, corners=None):
+    """GT corner boxes from the padded labels, padding rows zeroed, as host
+    numpy (ap_helper.py:257-292).  ``corners``: ``gt_corners`` of the labels
+    (or its host copy) when already dispatched; gt_data: tensors or arrays."""
+    if corners is None:
+        corners = gt_corners(*(torch.as_tensor(gt_data[k]) for k in ("center_label", "size", "heading")))
+    mask = _host(gt_data["box_label_mask"])
+    return {
+        "sem_cls_label": _host(gt_data["sem_cls_label"]),
+        "gt_corners_3d": _host(corners) * mask[:, :, None, None],
+        "box_label_mask": mask,
+    }
+
+
+def assembly_gt_map_cls(parsed_gts):
+    """[(cls, corners), ...] per scan from parsed GT (ap_helper.py:402-432)."""
+    sem = parsed_gts["sem_cls_label"]
+    corners = parsed_gts["gt_corners_3d"]
+    mask = parsed_gts["box_label_mask"]
+    return [
+        [(int(sem[i, j]), corners[i, j]) for j in range(corners.shape[1]) if mask[i, j] == 1]
+        for i in range(sem.shape[0])
+    ]

@@ -28,7 +28,7 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("stgcn_epilogue", "fps", "stgcn_train_fwd", "stgcn_train_bwd")
+SOURCES = ("stgcn_epilogue", "fps", "stgcn_train_fwd", "stgcn_train_bwd", "stgcn_sparse")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -120,14 +120,14 @@ def check(err, name):
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
 
 
-def check_operands(name, expect, device):
+def check_operands(name, expect, device, dtype=torch.float32):
     """Before a launch: each {what: (tensor, shape)} has that shape, is
-    float32, contiguous and on ``device``; raises ValueError / TypeError."""
+    ``dtype``, contiguous and on ``device``; raises ValueError / TypeError."""
     for what, (t, shape) in expect.items():
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {what} is {t.dtype}; the kernel takes float32")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {what} is {t.dtype}; the kernel takes {dtype}")
         if t.device != device:
             raise ValueError(f"{name}: {what} is on {t.device}, expected {device}")
         if not t.is_contiguous():

@@ -11,6 +11,18 @@ import numpy as np
 
 from pose2room_tpu_torch.config.dataset_config import SKELETON_EDGES
 
+# Joint order of the block-sparse eval chain (ops/stgcn_sparse.py): the 53
+# joints and one pad slot (value 53, at slot 36) paired so that the (27, 27)
+# grid of 128x128 tiles of the folded graph matrix has as few nonzero tiles
+# as possible: 279 against 391 in the natural order.  Valid for the default
+# 53-joint skeleton with max_hop=5; a copy of the JAX package's constant.
+SPARSE_JOINT_ORDER = np.asarray(
+    [43, 46, 33, 24, 45, 48, 9, 10, 52, 49, 8, 11, 50, 44, 12, 14, 39, 47,
+     5, 19, 37, 34, 41, 38, 15, 35, 7, 0, 23, 30, 31, 25, 22, 21, 29, 26,
+     53, 40, 42, 51, 20, 6, 3, 4, 36, 28, 1, 2, 17, 13, 32, 27, 16, 18],
+    dtype=np.int32,
+)
+
 
 def get_hop_distance(num_node, edges, max_hop=1):
     A = np.zeros((num_node, num_node))

@@ -17,6 +17,7 @@ and the torch momentum convention, so it is not used.
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -218,6 +219,47 @@ class STGCNBlock(nn.Module):
         vecs = M.new_zeros(N_VEC_ROWS, Wp)
         vecs[: len(rows), :W0] = torch.stack(rows)
         return M.contiguous(), vecs, self.block_diag_taps().contiguous()
+
+    def fold_eval_arrays_sparse(self, A, order, vlist, wlist):
+        """Operands of ops/stgcn_sparse.py: (tiles (nnz, 2C, 2C), vecs (8, Wp),
+        KB (3, 128, 128)), f32, in the joint-permuted merged layout.
+
+        order: (Vp,) numpy joint permutation (values >= num_joints are pad
+        slots); vlist / wlist: numpy input / output tile of each packed tile
+        (ops/stgcn_sparse.py:sparse_tile_lists, tile_columns).  Each tile is
+        built from its (2, 2) joint sub-blocks, tile[(a,i),(b,o)] =
+        sum_k A_k[v_a, w_b] W_k[i, o], so the dense (Wp, Wp) matrix is never
+        formed.  Pad slots get zero vectors, so their columns stay zero.  KB
+        does not mix joints, so the permutation leaves it unchanged.
+        """
+        C, V, K = self.out_channels, self.num_joints, self.K
+        order = np.asarray(order, dtype=np.int64)
+        Vp = len(order)
+        Wp = Vp * C
+        Wk = self.gcn.conv.weight.t().reshape(self.in_channels, K, C)  # (i, k, o)
+        Ap = A.new_zeros(K, Vp, Vp)
+        Ap[:, :V, :V] = A
+        perm = torch.as_tensor(order, device=A.device)
+        Ap = Ap[:, perm][:, :, perm]
+        vj = torch.as_tensor(np.stack([2 * vlist, 2 * vlist + 1], axis=1), device=A.device).long()
+        wj = torch.as_tensor(np.stack([2 * wlist, 2 * wlist + 1], axis=1), device=A.device).long()
+        Asub = Ap[:, vj[:, :, None], wj[:, None, :]]  # (K, nnz, 2, 2)
+        tiles = torch.einsum("knab,iko->naibo", Asub, Wk).reshape(len(vlist), 2 * C, 2 * C)
+
+        mask = torch.as_tensor((order < V).astype(np.float32), device=A.device)[:, None]  # (Vp, 1)
+        bias_out = torch.einsum("kc,kw->wc", self.gcn.conv.bias.reshape(K, C), Ap.sum(1))  # (Vp, C)
+        s1, b1 = self.tcn[0].affine()
+        s2, b2 = self.tcn[3].affine()
+
+        def per_joint(row_c):
+            return (mask * row_c[None, :]).reshape(Wp)
+
+        s1t = per_joint(s1)
+        rows = [s1t, bias_out.reshape(Wp) * s1t + per_joint(b1), per_joint(s2),
+                per_joint(b2 + self.tcn[2].bias * s2)]
+        vecs = A.new_zeros(N_VEC_ROWS, Wp)
+        vecs[: len(rows)] = torch.stack(rows)
+        return tiles.contiguous(), vecs, self.block_diag_taps().contiguous()
 
     def fold_train_arrays(self, A):
         """Operands of ops/stgcn_train.py:FusedTrainLayer, differentiable in

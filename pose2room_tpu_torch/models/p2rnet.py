@@ -42,6 +42,8 @@ class P2RNetConfig:
     # fused merged-layout ST-GCN chain (matmul + CUDA epilogue kernel);
     # false runs the per-block module path, the chain's reference
     fused_eval: bool = True
+    # block-sparse graph matmul in the fused eval chain (joint-permuted
+    # layout, the CUDA sparse kernel); off runs the dense graph matmul
     sparse_eval: bool = False
     # fused merged-layout train chain (custom backward through live BN and
     # the CUDA train kernels); false runs the per-block module path
@@ -81,14 +83,12 @@ class P2RNet(nn.Module):
         super().__init__()
         if config.compute_dtype != "float32":
             raise NotImplementedError(f"compute_dtype {config.compute_dtype!r}: only float32 is ported")
-        if config.sparse_eval:
-            raise NotImplementedError("sparse_eval (block-sparse graph matmul) is not ported")
         device = resolve_device(device)
         self.config = c = config
         self.backbone = STGCN(
             n_seeds=c.num_seeds, num_frames=c.num_frames, origin_joint_id=c.origin_joint_id,
             num_joints=c.num_joints, seed_sampling=c.seed_sampling, fused_eval=c.fused_eval,
-            fused_train=c.fused_train, bn_momentum=c.bn_momentum,
+            fused_train=c.fused_train, sparse_eval=c.sparse_eval, bn_momentum=c.bn_momentum,
         )
         self.centervoting = CenterVote(origin_joint_id=c.origin_joint_id, vote_factor=c.vote_factor,
                                        bn_momentum=c.bn_momentum)

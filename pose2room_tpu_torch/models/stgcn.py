@@ -12,10 +12,12 @@ models/p2rnet/modules/stgcn.py:12-152):
 * a joint-flatten 1x1 conv to 256-d per-frame features, gathered at seeds.
 
 In eval mode the six blocks run on the merged (B, T, V*C) layout through
-``ops/stgcn_fused.py`` (f32 matmul + the CUDA epilogue kernel).  Its operands
-are a function of the weights alone: ``fold_eval_operands`` builds them once
-per weight load and ``forward(folded=...)`` reuses them.  In training mode
-with ``fused_train`` the blocks run on the same layout through
+``ops/stgcn_fused.py`` (f32 matmul + the CUDA epilogue kernel), or with
+``sparse_eval`` on the joint-permuted layout through ``ops/stgcn_sparse.py``
+(the block-sparse graph matmul kernel, then the same epilogue kernel).  The
+operands are a function of the weights alone: ``fold_eval_operands`` builds
+them once per weight load and ``forward(folded=...)`` reuses them.  In
+training mode with ``fused_train`` the blocks run on the same layout through
 ``ops/stgcn_train.py`` (BatchNorm on live batch statistics, hand-written
 backward, the CUDA train kernels); ``fused_eval`` / ``fused_train`` off run
 the per-block module path instead.
@@ -25,10 +27,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from pose2room_tpu_torch.models.graph import build_spatial_graph
+from pose2room_tpu_torch.models.graph import SPARSE_JOINT_ORDER, build_spatial_graph
 from pose2room_tpu_torch.models.layers import MLP1x1, STGCNBlock, lecun_normal_
 from pose2room_tpu_torch.ops.sampling import gather_points
-from pose2room_tpu_torch.ops.stgcn_fused import fused_stgcn_layer
+from pose2room_tpu_torch.ops.stgcn_fused import LANE, fused_epilogue, fused_stgcn_layer
+from pose2room_tpu_torch.ops.stgcn_sparse import (
+    sparse_graph_matmul_bn_relu,
+    sparse_tile_lists,
+    tile_columns,
+)
 
 
 def blocked_cumsum(x, base=16):
@@ -80,16 +87,27 @@ def window_index_table(n_frames, knn):
 
 class STGCN(nn.Module):
     def __init__(self, n_seeds=512, num_frames=768, origin_joint_id=0, num_joints=53,
-                 seed_sampling="uniform", fused_eval=True, fused_train=True, knn=20,
-                 in_channels=64, out_channels=256, max_hop=5, bn_momentum=0.9):
+                 seed_sampling="uniform", fused_eval=True, fused_train=True, sparse_eval=False,
+                 knn=20, in_channels=64, out_channels=256, max_hop=5, bn_momentum=0.9):
         super().__init__()
         self.n_seeds, self.num_frames = n_seeds, num_frames
         self.origin_joint_id, self.num_joints = origin_joint_id, num_joints
         self.seed_sampling = seed_sampling
         self.fused_eval, self.fused_train = fused_eval, fused_train
+        self.sparse_eval = fused_eval and sparse_eval
+        if self.sparse_eval and 2 * in_channels != LANE:
+            raise NotImplementedError("the block-sparse chain pairs two joints' channels per 128-wide tile")
         self.in_channels = in_channels
-        A = torch.from_numpy(build_spatial_graph(num_joints, max_hop=max_hop))
+        A_np = build_spatial_graph(num_joints, max_hop=max_hop)
+        A = torch.from_numpy(A_np)
         self.register_buffer("A", A, persistent=False)
+        if self.sparse_eval:
+            # static tile lists over the support of A (edge importance scales
+            # A elementwise, so the live support is always a subset)
+            Vp = num_joints + num_joints % 2
+            self.sparse_order = SPARSE_JOINT_ORDER if num_joints == 53 else np.arange(Vp, dtype=np.int32)
+            self.sparse_col_off, self.sparse_vlist = sparse_tile_lists(
+                (A_np != 0).any(0), self.sparse_order)
         self.register_buffer(
             "window_idx", torch.from_numpy(window_index_table(num_frames, knn)), persistent=False
         )
@@ -121,16 +139,43 @@ class STGCN(nn.Module):
         w = self.conv_joint.weight
         return w.reshape(-1, C, V).permute(0, 2, 1).reshape(-1, V * C).t().contiguous()
 
+    def _conv_joint_sparse_rows(self):
+        """The joint-major conv_joint kernel with its rows in the sparse
+        chain's joint order and zero rows at the pad slot, (Vp*C, 256)."""
+        C = self.in_channels
+        kernel = self._conv_joint_joint_major()
+        kernel = torch.cat([kernel, kernel.new_zeros(1, kernel.shape[1])])
+        order = self.sparse_order.astype(np.int64)[:, None]
+        rows = np.where(order < self.num_joints, order * C + np.arange(C)[None], self.num_joints * C)
+        return kernel[torch.as_tensor(rows.reshape(-1), device=kernel.device)].contiguous()
+
     @torch.no_grad()
     def fold_eval_operands(self):
-        """Per-block (M, vecs, KB) operands of the fused chain and the
-        joint-major conv_joint kernel, a function of the weights only.
-        Re-fold after every weight change."""
+        """The fused chain's operands, a function of the weights only:
+        per-block (M, vecs, KB) and the joint-major conv_joint kernel; with
+        ``sparse_eval`` per-block (tiles, vecs, KB), the conv_joint kernel
+        rows in the joint order, and the order and tile lists as tensors on
+        the model's device.  Re-fold after every weight change."""
+        bias = self.conv_joint.bias.clone()
+        if not self.sparse_eval:
+            blocks = [
+                blk.fold_eval_arrays(self.A * imp)
+                for blk, imp in zip(self.st_gcn_networks, self.edge_importance)
+            ]
+            return {"blocks": blocks, "conv_joint": (self._conv_joint_joint_major(), bias)}
+        vlist, wlist = self.sparse_vlist, tile_columns(self.sparse_col_off)
         blocks = [
-            blk.fold_eval_arrays(self.A * imp)
+            blk.fold_eval_arrays_sparse(self.A * imp, self.sparse_order, vlist, wlist)
             for blk, imp in zip(self.st_gcn_networks, self.edge_importance)
         ]
-        return {"blocks": blocks, "conv_joint": (self._conv_joint_joint_major(), self.conv_joint.bias.clone())}
+        dev = self.A.device
+        return {
+            "blocks": blocks,
+            "conv_joint": (self._conv_joint_sparse_rows(), bias),
+            "order": torch.as_tensor(self.sparse_order.astype(np.int64), device=dev),
+            "col_off": torch.as_tensor(self.sparse_col_off, device=dev),
+            "vlist": torch.as_tensor(vlist, device=dev),
+        }
 
     def seed_indices(self, origin, generator=None):
         B, T, _ = origin.shape
@@ -170,6 +215,19 @@ class STGCN(nn.Module):
             for blk, imp in zip(self.st_gcn_networks, self.edge_importance):
                 hm = blk.apply_fused_train(hm, self.A * imp, T)
             frame_feat = hm[..., :W0] @ self._conv_joint_joint_major() + self.conv_joint.bias
+        elif not self.training and self.sparse_eval:
+            # joint-permuted padded layout from the entry: pad to Vp joints,
+            # gather the order; the permutation leaves through conv_joint's rows
+            folded = folded if folded is not None else self.fold_eval_operands()
+            order = folded["order"]
+            hm = torch.cat([h, h.new_zeros(B, T, len(order) - V, C)], dim=2)
+            hm = hm.index_select(2, order).reshape(B, T, len(order) * C)
+            col_off, vlist = folded["col_off"], folded["vlist"]
+            for blk, (tiles, vecs, KB) in zip(self.st_gcn_networks, folded["blocks"]):
+                t1 = sparse_graph_matmul_bn_relu(hm, tiles, vecs, col_off, vlist)
+                hm = fused_epilogue(t1, hm if blk.residual else None, vecs, KB, residual=blk.residual)
+            cj_kernel, cj_bias = folded["conv_joint"]
+            frame_feat = hm @ cj_kernel + cj_bias  # (B,T,256)
         elif not self.training and self.fused_eval:
             # no entry pad: block 0 has no residual, so it contracts the
             # unpadded merged input against M's first W0 rows

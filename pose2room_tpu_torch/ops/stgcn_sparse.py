@@ -1,0 +1,130 @@
+"""Block-sparse folded graph matmul of the ST-GCN eval chain.
+
+Port of pose2room_tpu/ops/stgcn_sparse.py.  The folded graph conv is a
+(Wp, Wp) = (3456, 3456) matrix whose 64x64 joint blocks are zero wherever two
+joints are more than max_hop apart: 971 of 53*53 joint pairs are connected.
+A joint permutation (models/graph.py:SPARSE_JOINT_ORDER) pairs the joints so
+that only 279 of the 729 128x128 tiles hold a nonzero block, and only those
+tiles are stored, packed (nnz, 128, 128) in CSR order by output column tile
+(``col_off``, ``vlist`` from ``sparse_tile_lists``).
+
+``sparse_graph_matmul_bn_relu`` computes relu((x @ M) * s1 + b1) from the
+packed tiles: the hand-written CUDA kernel (csrc/stgcn_sparse.cu) for CUDA
+tensors, the plain version ``sparse_graph_matmul_bn_relu_ref`` (densify,
+then one f32 matmul) for CPU tensors.  Its output feeds the epilogue kernel
+of ops/stgcn_fused.py, which serves the permuted layout unchanged: its taps
+are the same for every joint and the caller permutes the per-column vectors.
+
+Padding contract: the pad joint (order value 53, slot 36 of the default
+order, so columns 2304..2367 and not the last 64) has zero rows and columns
+in M and zero per-column vectors, so its columns stay exactly zero.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from pose2room_tpu_torch import kernels
+from pose2room_tpu_torch.ops.stgcn_fused import LANE, N_VEC_ROWS
+
+
+def sparse_tile_lists(pair_support, order):
+    """CSR-by-output-tile lists of the nonzero 128x128 tiles.
+
+    pair_support: (V, V) bool, True where any A_k[v, w] can be nonzero.
+    order: (Vp,) joint permutation, Vp = V rounded up to even; slots holding
+    values >= V are pad joints with no support.  Returns numpy int32
+    (col_off (Vp//2 + 1,), vlist (nnz,)): the input tiles of output tile w
+    are vlist[col_off[w]:col_off[w+1]].
+    """
+    Vp = len(order)
+    if Vp % 2:
+        raise ValueError(f"the order has {Vp} slots; two joints share a 128-wide tile")
+    V = pair_support.shape[0]
+    sup = np.zeros((Vp, Vp), dtype=bool)
+    sup[:V, :V] = pair_support
+    sup = sup[np.ix_(order, order)]
+    tiles = sup.reshape(Vp // 2, 2, Vp // 2, 2).any(axis=(1, 3))  # (input tile, output tile)
+    col_off, vlist = [0], []
+    for w in range(Vp // 2):
+        vlist.extend(np.where(tiles[:, w])[0].tolist())
+        col_off.append(len(vlist))
+    return np.asarray(col_off, dtype=np.int32), np.asarray(vlist, dtype=np.int32)
+
+
+def tile_columns(col_off):
+    """The output tile of each packed tile (numpy int32, length nnz)."""
+    col_off = np.asarray(col_off)
+    return np.repeat(np.arange(len(col_off) - 1, dtype=np.int32), np.diff(col_off))
+
+
+def gather_m_tiles(M_perm, col_off, vlist):
+    """Pack the nonzero (128, 128) tiles of the joint-permuted folded matrix
+    M_perm (Wp, Wp) tensor into (nnz, 128, 128), in the order of ``vlist``."""
+    G = M_perm.shape[0] // LANE
+    t = M_perm.reshape(G, LANE, G, LANE)
+    rows = torch.as_tensor(np.asarray(vlist, dtype=np.int64), device=M_perm.device)
+    cols = torch.as_tensor(tile_columns(col_off).astype(np.int64), device=M_perm.device)
+    return t[rows, :, cols, :]
+
+
+def densify_tiles(m_tiles, vlist, wlist, G):
+    """The dense (G*128, G*128) matrix of packed tiles: the inverse of
+    ``gather_m_tiles``.  vlist / wlist: index tensors on m_tiles' device."""
+    dense = m_tiles.new_zeros(G, LANE, G, LANE)
+    dense[vlist, :, wlist, :] = m_tiles
+    return dense.reshape(G * LANE, G * LANE)
+
+
+def sparse_graph_matmul_bn_relu_ref(x, m_tiles, vecs, col_off, vlist):
+    """Plain PyTorch version of the kernel (same operands): densify the
+    tiles, then relu((x @ M) * s1 + b1) in f32."""
+    G = x.shape[-1] // LANE
+    col_off = torch.as_tensor(col_off, device=m_tiles.device).long()
+    wlist = torch.repeat_interleave(torch.arange(G, device=m_tiles.device), torch.diff(col_off))
+    vlist = torch.as_tensor(vlist, device=m_tiles.device).long()
+    dense = densify_tiles(m_tiles, vlist, wlist, G)
+    return torch.relu(torch.matmul(x, dense) * vecs[0] + vecs[1])
+
+
+def sparse_graph_matmul_bn_relu(x, m_tiles, vecs, col_off, vlist):
+    """relu((x @ M) * s1 + b1) with M given as its packed nonzero tiles: the
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+
+    x: (B, T, Wp) f32 in the joint-permuted merged layout, pad columns zero;
+    m_tiles: (nnz, 128, 128) f32; vecs: (8, Wp) f32 rows [s1, b1', ...],
+    permuted, pad entries zero; col_off (Wp//128 + 1,) and vlist (nnz,)
+    int32 tile lists on x's device.  The kernel trusts the lists' contents
+    (checking them would copy them to the host on every call): the fold
+    builds them with ``sparse_tile_lists``.  Returns (B, T, Wp) f32.
+    """
+    if x.device.type == "cpu":
+        return sparse_graph_matmul_bn_relu_ref(x, m_tiles, vecs, col_off, vlist)
+    if x.device.type != "cuda":
+        raise ValueError(f"no sparse graph matmul kernel for device {x.device}")
+    B, T, Wp = x.shape
+    if Wp % LANE:
+        raise ValueError(f"merged width {Wp} is not a multiple of {LANE}")
+    nnz = m_tiles.shape[0]
+    name = "stgcn_sparse"
+    kernels.check_operands(name, {
+        "x": (x, (B, T, Wp)), "m_tiles": (m_tiles, (nnz, LANE, LANE)), "vecs": (vecs, (N_VEC_ROWS, Wp)),
+    }, x.device)
+    kernels.check_operands(name, {"col_off": (col_off, (Wp // LANE + 1,)), "vlist": (vlist, (nnz,))},
+                           x.device, dtype=torch.int32)
+    for what, t in (("x", x), ("m_tiles", m_tiles), ("vecs", vecs)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {what} is not 16-byte aligned (the kernel loads float4)")
+    out = torch.empty_like(x)
+    lib = kernels.load(name)
+    fn = lib.p2r_stgcn_sparse_f32
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(
+        x.data_ptr(), m_tiles.data_ptr(), vecs.data_ptr(), col_off.data_ptr(), vlist.data_ptr(),
+        out.data_ptr(), B * T, Wp, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    kernels.check(err, name)
+    kernels.LAUNCHES[name] += 1
+    return out

@@ -20,12 +20,12 @@ from pose2room_tpu_torch.train.engine import train as train_loop
 from pose2room_tpu_torch.train.state import check_supported, make_optimizer
 
 
-def split_datasets(cfg):
-    """{"train", "val"} P2RNetDatasets from ``data.split``/{train,val}.json
-    (augmentation on the train split only)."""
+def split_datasets(cfg, modes=("train", "val")):
+    """{mode: P2RNetDataset} from ``data.split``/<mode>.json for each of
+    ``modes`` (augmentation on the train split only)."""
     data_cfg = cfg.config["data"]
     datasets = {}
-    for mode in ("train", "val"):
+    for mode in modes:
         split_file = os.path.join(data_cfg["split"], f"{mode}.json")
         if not os.path.isfile(split_file):
             raise FileNotFoundError(

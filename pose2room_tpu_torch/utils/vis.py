@@ -19,12 +19,14 @@ BOX_EDGES = [
 ]
 
 
-def dump_predictions(dump_dir, end_points, eval_dict, parsed_predictions, batch_id=0,
-                     dump_threshold=0.5):
-    """Write one sample's prediction dumps:
+def dump_predictions(dump_dir, end_points, eval_dict, parsed_predictions, gt_data=None,
+                     batch_id=0, dump_threshold=0.5):
+    """Write one sample's prediction (and GT) dumps:
     * ``%06d_pred_confident_nms_bbox.npz``: obbs (n,7) [center,size,heading],
       cls (n,), inst_idx (bool mask over proposals);
-    * ``%06d_pi_dict.json``: the kept proposals' mixture weights.
+    * ``%06d_pi_dict.json``: the kept proposals' mixture weights;
+    * ``%06d_gt_bbox.npz``: obbs (n,7), cls, when ``gt_data`` (the padded
+      numpy labels) is given.
     """
     os.makedirs(dump_dir, exist_ok=True)
     corners = np.asarray(parsed_predictions["pred_corners_3d"][batch_id])
@@ -51,6 +53,20 @@ def dump_predictions(dump_dir, end_points, eval_dict, parsed_predictions, batch_
         }
         with open(os.path.join(dump_dir, "%06d_pi_dict.json" % batch_id), "w") as f:
             json.dump(pi_dict, f)
+
+    if gt_data is not None:
+        keep = np.asarray(gt_data["box_label_mask"])[batch_id] != 0
+        if keep.any():
+            sincos = np.asarray(gt_data["heading"])[batch_id][keep]
+            np.savez(
+                os.path.join(dump_dir, "%06d_gt_bbox.npz" % batch_id),
+                obbs=np.hstack([
+                    np.asarray(gt_data["center_label"])[batch_id][keep][:, 0:3],
+                    np.exp(np.asarray(gt_data["size"])[batch_id][keep]),
+                    np.arctan2(sincos[:, 0], sincos[:, 1])[:, None],
+                ]),
+                cls=np.asarray(gt_data["sem_cls_label"])[batch_id][keep],
+            )
 
 
 def write_ply_points(points, path):

@@ -16,7 +16,8 @@ import torch
 
 from pose2room_tpu_torch import kernels
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
-from pose2room_tpu_torch.ops import sampling, stgcn_fused, stgcn_train
+from pose2room_tpu_torch.models.graph import SPARSE_JOINT_ORDER, build_spatial_graph
+from pose2room_tpu_torch.ops import sampling, stgcn_fused, stgcn_sparse, stgcn_train
 
 pytestmark = pytest.mark.gpu
 
@@ -182,6 +183,74 @@ def test_fused_train_layer_card_matches_cpu(cuda_device):
     for i, (a, b) in enumerate(zip(grads_g, grads_c)):
         torch.testing.assert_close(a, b, atol=1e-3 * b.abs().max().item() + 1e-12, rtol=0, msg=f"grad {i}")
     assert torch.all(grads_g[6] == 0)  # conv bias: the analytic zero
+
+
+def _sparse_operands(B, T, order, dev, seed=0):
+    """Kernel 5 operands in the fold's layout: a random folded matrix on the
+    support of A, permuted by ``order`` and packed into its nonzero tiles;
+    x and vecs zero at the pad slot.  Returns (..., pad slot)."""
+    g = torch.Generator().manual_seed(seed)
+    support = np.zeros((54, 54), bool)
+    support[:53, :53] = (build_spatial_graph() != 0).any(0)
+    col_off, vlist = stgcn_sparse.sparse_tile_lists(support[:53, :53], order)
+    M = torch.randn(54, 64, 54, 64, generator=g) * 0.05 * torch.from_numpy(support)[:, None, :, None]
+    perm = torch.from_numpy(order.astype(np.int64))
+    Mp = M[perm][:, :, perm].reshape(3456, 3456)
+    pad = int(np.where(order == 53)[0][0])
+    x = torch.randn(B, T, 3456, generator=g) * 0.5
+    vecs = torch.zeros(8, 3456)
+    vecs[0] = 0.5 + torch.rand(3456, generator=g)
+    vecs[1] = torch.randn(3456, generator=g) * 0.3
+    for t in (x, vecs):
+        t[..., pad * 64:(pad + 1) * 64] = 0
+    tiles = stgcn_sparse.gather_m_tiles(Mp, col_off, vlist).contiguous()
+    ops = [t.to(dev) for t in (x, tiles, vecs, torch.from_numpy(col_off), torch.from_numpy(vlist))]
+    return ops + [pad]
+
+
+@pytest.mark.parametrize("B,T", [(1, 768), (8, 768), (2, 100), (3, 17)])
+@pytest.mark.parametrize("natural", [False, True])
+def test_sparse_kernel_matches_plain(cuda_device, B, T, natural):
+    order = np.arange(54, dtype=np.int32) if natural else SPARSE_JOINT_ORDER
+    x, tiles, vecs, col_off, vlist, pad = _sparse_operands(B, T, order, cuda_device)
+    before = kernels.LAUNCHES["stgcn_sparse"]
+    got = stgcn_sparse.sparse_graph_matmul_bn_relu(x, tiles, vecs, col_off, vlist)
+    assert kernels.LAUNCHES["stgcn_sparse"] == before + 1
+    ref = stgcn_sparse.sparse_graph_matmul_bn_relu_ref(x, tiles, vecs, col_off, vlist)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    assert torch.all(got[..., pad * 64:(pad + 1) * 64] == 0)
+    # each output element is summed by one thread in a fixed order
+    assert torch.equal(got, stgcn_sparse.sparse_graph_matmul_bn_relu(x, tiles, vecs, col_off, vlist))
+
+
+def test_sparse_wrapper_rejects_bad_operands(cuda_device):
+    x, tiles, vecs, col_off, vlist, _ = _sparse_operands(1, 16, SPARSE_JOINT_ORDER, cuda_device)
+    with pytest.raises(TypeError):
+        stgcn_sparse.sparse_graph_matmul_bn_relu(x.double(), tiles, vecs, col_off, vlist)
+    with pytest.raises(TypeError):
+        stgcn_sparse.sparse_graph_matmul_bn_relu(x, tiles, vecs, col_off.long(), vlist)
+    with pytest.raises(ValueError):
+        stgcn_sparse.sparse_graph_matmul_bn_relu(x, tiles[1:], vecs, col_off, vlist)
+    with pytest.raises(ValueError):
+        stgcn_sparse.sparse_graph_matmul_bn_relu(x, tiles, vecs, col_off.cpu(), vlist)
+
+
+def test_sparse_generate_card_matches_cpu_small(cuda_device):
+    cfg = P2RNetConfig(num_frames=96, num_seeds=64, num_proposals=16, num_gaussian=10, sparse_eval=True)
+    rng = np.random.RandomState(0)
+    x = (rng.randn(2, 96, 53, 3) * 0.4).astype(np.float32)
+    x[..., 0] += np.linspace(0, 3, 96, dtype=np.float32)[None, :, None]
+    gpu = P2RNet(cfg, device=cuda_device)
+    cpu = P2RNet(cfg, device="cpu")
+    kernels.reset_launch_counts()
+    a = gpu.generate(torch.from_numpy(x).to(cuda_device), folded=gpu.fold_eval())
+    assert dict(kernels.LAUNCHES) == {"stgcn_sparse": 6, "stgcn_epilogue": 6, "fps": 1}
+    b = cpu.generate(torch.from_numpy(x), folded=cpu.fold_eval())
+    for key in ("seed_inds", "aggregated_vote_inds"):
+        assert torch.equal(a[key].cpu(), b[key]), key
+    for key in ("center", "size", "heading", "objectness_scores", "sem_cls_scores"):
+        torch.testing.assert_close(a[key].cpu(), b[key], atol=5e-4, rtol=0)
 
 
 def _cloud(kind, B, N, seed):

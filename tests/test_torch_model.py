@@ -160,7 +160,7 @@ def test_linspace_seeds_when_seeds_cover_frames(payload):
     np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16"), dict(sparse_eval=True)])
+@pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16"), dict(compute_dtype="bfloat16", sparse_eval=True)])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         P2RNet(P2RNetConfig(**SMALL, **kw), device="cpu")

@@ -138,7 +138,8 @@ def test_cli_demo_on_cpu(tmp_path):
     results = cli.main(["--config", str(yaml_path), "--mode", "demo",
                         "--demo_path", _demo_dir(tmp_path), "--device", "cpu"])
     assert len(results) == 1 and os.path.isdir(results[0][1])
-    with pytest.raises(NotImplementedError):
+    # --mode test runs the test runner, which needs the config's test split
+    with pytest.raises(FileNotFoundError):
         cli.main(["--config", str(yaml_path), "--mode", "test", "--device", "cpu"])
 
 
