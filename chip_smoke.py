@@ -7,16 +7,26 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 2. Builds every CUDA kernel from csrc/ (nvcc, one process per source).
 3. Kernel phase: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (epilogue: residual on/off, the unpadded first
-   block, B in {1, 8}, atol = rtol = 1e-4 for f32 sums of 192 products taken
-   in another order, pad columns exactly 0; FPS: B in {1, 32}, 512 -> 128 with
+   block, B in {1, 8}, atol = rtol = 1e-4 for sums of 192 products taken in
+   another order and, on the card, in 3xTF32 (tconv_mma.cuh), pad columns
+   exactly 0, two launches the same bits; FPS: B in {1, 32}, 512 -> 128 with
    near-origin and duplicated points, indices exactly equal), then times each
-   with CUDA events beside its bound.
+   beside its bound: device time, by CUDA events around launches queued
+   behind a sleeping kernel, so the host's cost of issuing them is not
+   counted (the plain versions and the library calls alike).
    The train kernels likewise, at B in {1, 8}, full width, on the fold's
    layout: kernel 3 (tconv + BN1 affine + column moments) and kernel 4 (its
    transpose + ReLU mask + moments + tap gradient) against their plain
    versions (y2, dpre: atol = rtol = 1e-4; column moments within 1e-5 of each
    column's scale, the sum of the magnitudes of its terms; dtaps within 1e-4
-   of its max; pad columns exactly 0), timed beside their bounds and cuDNN.
+   of its max; pad columns exactly 0; two launches the same bits; kernel 3's
+   conv within 5e-7 of sum |a*b| of a float64 conv and its signed bias
+   within 5e-8), timed beside their bounds and cuDNN.
+   Kernels 1 and 3 run the temporal conv on the tensor cores in 3xTF32; each
+   prints its share of two bounds: the f32 CUDA-core bound (as kernels 4 and
+   5 use) and the tensor-core bound max(bytes / 3.35 TB/s, 3 x flops / 495
+   TFLOP/s), which is the ``bound_ms`` of its row in the ``kernels`` line.
+   The cuDNN conv2d of the temporal conv alone (TF32 off) is timed beside.
    Kernel 5 (block-sparse graph matmul + BN1 + ReLU) at B in {1, 8}, full
    width, for the annealed and the natural joint order, on the fold's layout
    (a random folded matrix on the support of A, permuted and packed into its
@@ -42,7 +52,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    batch, same MDN noise): seed and proposal indices equal, loss terms within
    1e-4 relative, each gradient within 1e-3 of its max, running statistics
    within 1e-4.  Then the B=8 train step time (CUDA events, median of 5 after
-   2 warm-ups), samples/s, peak memory, and a torch.profiler top-10.
+   2 warm-ups), samples/s, peak memory, and a torch.profiler top-10 with
+   the hand-written kernels' rows.
 6. Test phase: the test runner at the full width of p2rnet_test.yaml with
    ``model.sparse_eval: true``, random weights from seed 42, on 8 in-memory
    synthetic scenes (900 frames resampled to 768, no augmentation) at batch
@@ -51,7 +62,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    The card's sparse ``generate`` against the same model on the CPU
    (indices exactly, floats within 5e-4, seed features within 2e-4) and
    against the card's dense ``generate`` on the same weights (same bands),
-   and both chains' batch-1 and B=32 ``generate`` times, in turns.  Then ``remove_far_box: false`` runs on 4
+   and both chains' batch-1 and B=32 ``generate`` times, in turns, and a
+   profile of each chain's B=32 ``generate``.  Then ``remove_far_box: false`` runs on 4
    scenes on the card and on the CPU, with the size head's mixture means set
    so that the random boxes are ~1.5 m wide and AP is not trivially 0: every
    AP and recall within 1e-6.
@@ -93,9 +105,12 @@ DEMO_CLIP = os.path.join(REPO, "demo", "inputs", "input_joints_1.npy")
 TEST_YAML = os.path.join(REPO, "configs", "config_files", "p2rnet_test.yaml")
 TRAIN_YAML = os.path.join(REPO, "configs", "config_files", "p2rnet_train.yaml")
 
-# H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+# H100 SXM published peaks (NVIDIA data sheet): f32 outside the tensor cores,
+# TF32 on the tensor cores (dense), HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clock: time for the host to queue a timing loop
 T, V, C = 768, 53, 64
 W0 = V * C
 WP = stgcn_fused.pad_merged(W0)
@@ -128,9 +143,40 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20, warmup=3):
+    """Mean device time of fn() in ms: CUDA events around ``iters`` calls
+    queued behind a sleeping kernel, so that the device runs them back to
+    back and the host's cost of issuing them (the wrappers' checks and
+    allocations) is not counted, as it would be at small shapes."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound_ms(nbytes, flops):
+    """Least time on f32 CUDA cores: (ms, what bounds it)."""
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def tc_bound_ms(nbytes, flops):
+    """Least time of f32 products done as three TF32 tensor-core products
+    (3xTF32): (ms, what bounds it)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, 3 * flops / PEAK_TF32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bound_shares(k_ms, f32_ms, tc_ms, tc_by):
+    return (f"f32 CUDA-core bound {f32_ms:.4f} ms (share {f32_ms / k_ms:.3f}), "
+            f"3xTF32 tensor-core bound {tc_ms:.4f} ms ({tc_by}; share {tc_ms / k_ms:.3f})")
 
 
 def epilogue_operands(B, g, dev):
@@ -161,6 +207,7 @@ def kernel_phase(dev, smi):
         for residual in (True, False):
             xr = x if residual else None
             out = stgcn_fused.fused_epilogue(t1, xr, vecs, KB, residual=residual)
+            again = stgcn_fused.fused_epilogue(t1, xr, vecs, KB, residual=residual)
             ref = stgcn_fused.epilogue_merged_ref(t1, xr, vecs, KB, residual=residual)
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
@@ -168,20 +215,22 @@ def kernel_phase(dev, smi):
             check(torch.allclose(out, ref, atol=1e-4, rtol=1e-4),
                   f"epilogue B={B} residual={residual}: max |err| {err}")
             check(bool(torch.all(out[..., W0:] == 0)), f"epilogue B={B} pad columns not 0")
+            check(torch.equal(out, again), f"epilogue B={B} residual={residual}: two launches differ")
             nbytes = (3 if residual else 2) * B * T * WP * 4 + 8 * WP * 4 + 3 * 128 * 128 * 4
             flops = 2 * B * T * WP * 3 * C
-            b_ms, b_by = bound_ms(nbytes, flops)
-            k_ms = cuda_ms(lambda: stgcn_fused.fused_epilogue(t1, xr, vecs, KB, residual=residual))
-            p_ms = cuda_ms(lambda: stgcn_fused.epilogue_merged_ref(t1, xr, vecs, KB, residual=residual))
+            f_ms, _ = bound_ms(nbytes, flops)
+            b_ms, b_by = tc_bound_ms(nbytes, flops)
+            k_ms = device_ms(lambda: stgcn_fused.fused_epilogue(t1, xr, vecs, KB, residual=residual))
+            p_ms = device_ms(lambda: stgcn_fused.epilogue_merged_ref(t1, xr, vecs, KB, residual=residual))
             # library yardstick, temporal conv only: cuDNN conv2d over (B, C, T, V), TF32 off
             t_nchw = t1[..., :W0].reshape(B, T, V, C).permute(0, 3, 1, 2).contiguous()
             w = KB[:, :C, :C].permute(2, 1, 0)[..., None].contiguous()  # (out, in, 3, 1)
-            l_ms = cuda_ms(lambda: torch.nn.functional.conv2d(t_nchw, w, padding=(1, 0)))
+            l_ms = device_ms(lambda: torch.nn.functional.conv2d(t_nchw, w, padding=(1, 0)))
             rows[("stgcn_epilogue", B, residual)] = dict(
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
-            print(f"[{smi}] epilogue B={B} residual={residual}: max|err| {err:.3e}  kernel {k_ms:.4f} ms  "
-                  f"plain {p_ms:.4f} ms  cuDNN conv2d (tconv only) {l_ms:.4f} ms  "
-                  f"bound {b_ms:.4f} ms ({b_by})")
+            print(f"[{smi}] epilogue B={B} residual={residual}: max|err| {err:.3e}  same bits on relaunch  "
+                  f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  cuDNN conv2d (tconv only) {l_ms:.4f} ms  "
+                  f"{bound_shares(k_ms, f_ms, b_ms, b_by)}")
         # the first block: unpadded 3392-wide input contracted against M[:W0]
         xu = x[..., :W0].contiguous()
         out = stgcn_fused.fused_stgcn_layer(xu, M, vecs, KB, residual=False)
@@ -193,7 +242,7 @@ def kernel_phase(dev, smi):
         check(torch.allclose(out, ref, atol=1e-4, rtol=1e-4), f"first block B={B}: max |err| {err}")
         check(bool(torch.all(out[..., W0:] == 0)), "first block pad columns not 0")
         print(f"first block (unpadded {W0}-wide input) B={B}: max|err| {err:.3e}")
-        del x, M, vecs, KB, t1, out, ref
+        del x, M, vecs, KB, t1, out, ref, again
 
     # --- kernel 2: furthest-point sampling ---
     for B in (1, 32):
@@ -209,8 +258,8 @@ def kernel_phase(dev, smi):
         nbytes = B * 512 * 3 * 4 + B * 128 * 4
         flops = 127 * B * 512 * 8  # per pick and point: 3 sub, 3 mul, 2 add
         b_ms, b_by = bound_ms(nbytes, flops)
-        k_ms = cuda_ms(lambda: sampling.furthest_point_sample(xyz, 128))
-        p_ms = cuda_ms(lambda: sampling.fps_ref(xyz, 128), iters=5, warmup=1)
+        k_ms = device_ms(lambda: sampling.furthest_point_sample(xyz, 128))
+        p_ms = device_ms(lambda: sampling.fps_ref(xyz, 128), iters=5, warmup=1)
         rows[("fps", B)] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                 bound_by=b_by, library_ms=None)
         print(f"[{smi}] FPS B={B} 512->128: indices equal  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
@@ -231,6 +280,16 @@ def train_kernel_operands(B, g, dev):
     vecs[2, :W0] = torch.randn(W0, generator=g) * 0.1
     KB = stgcn_fused.block_diag_taps(torch.randn(3, C, C, generator=g) * 0.15)
     return [t.to(dev) for t in (y, dy2, vecs, KB)]
+
+
+def tconv_float64(t1, KB):
+    """The temporal conv of t1 (B, T, Wp) in float64 and its sum of |a*b|."""
+    h, K = t1.double(), KB.double()
+    y, mag = 0.0, 0.0
+    for s, hs in enumerate((stgcn_fused.shift_prev(h), h, stgcn_fused.shift_next(h))):
+        y = y + stgcn_fused.tconv_group(hs, K[s])
+        mag = mag + stgcn_fused.tconv_group(hs.abs(), K[s].abs())
+    return y, mag
 
 
 def parts_err(parts, ref, magnitudes):
@@ -256,6 +315,7 @@ def train_kernel_phase(dev, smi):
 
         # --- kernel 3 ---
         y2, parts = stgcn_train.tconv_stats_fwd(y, vecs, KB, T=T)
+        again = stgcn_train.tconv_stats_fwd(y, vecs, KB, T=T)
         y2_ref, parts_ref = stgcn_train.tconv_stats_fwd_ref(y, vecs, KB, T=T)
         torch.cuda.synchronize()
         err = (y2 - y2_ref).abs().max().item()
@@ -265,17 +325,31 @@ def train_kernel_phase(dev, smi):
         check(perr <= 1e-5, f"train_fwd B={B}: column moments off by {perr} of their scale")
         check(bool(torch.all(y2[:, W0:] == 0)) and bool(torch.all(parts[..., W0:] == 0)),
               f"train_fwd B={B} pad columns not 0")
-        b_ms, b_by = bound_ms(2 * N * WP * 4 + 4 * WP * 4 + 3 * 128 * 128 * 4 + B * 2 * WP * 4,
-                              2 * N * WP * 3 * C)
-        k_ms = cuda_ms(lambda: stgcn_train.tconv_stats_fwd(y, vecs, KB, T=T))
-        p_ms = cuda_ms(lambda: stgcn_train.tconv_stats_fwd_ref(y, vecs, KB, T=T))
-        l_ms = cuda_ms(lambda: torch.nn.functional.conv2d(t1_nchw, w, padding=(1, 0)))
+        check(torch.equal(y2, again[0]) and torch.equal(parts, again[1]), f"train_fwd B={B}: two launches differ")
+        # 3xTF32 against float64: largest error and signed bias over sum |a*b| (the
+        # tensor cores' truncating adds would show as a bias toward zero)
+        exact, mag = tconv_float64(torch.relu(y * vecs[0] + vecs[1]).reshape(B, T, WP), KB)
+        d = (y2.reshape(B, T, WP).double() - exact - vecs[2].double())[..., :W0]
+        mag = mag[..., :W0]
+        e_max = (d.abs() / mag).max().item()
+        e_bias = ((d * torch.sign(exact[..., :W0])).sum() / mag.sum()).item()
+        check(e_max <= 5e-7 and abs(e_bias) <= 5e-8,
+              f"train_fwd B={B}: tconv off float64 by {e_max} of sum|a*b| (bias {e_bias})")
+        nbytes = 2 * N * WP * 4 + 4 * WP * 4 + 3 * 128 * 128 * 4 + B * 2 * WP * 4
+        f_ms, _ = bound_ms(nbytes, 2 * N * WP * 3 * C)
+        b_ms, b_by = tc_bound_ms(nbytes, 2 * N * WP * 3 * C)
+        k_ms = device_ms(lambda: stgcn_train.tconv_stats_fwd(y, vecs, KB, T=T))
+        p_ms = device_ms(lambda: stgcn_train.tconv_stats_fwd_ref(y, vecs, KB, T=T))
+        l_ms = device_ms(lambda: torch.nn.functional.conv2d(t1_nchw, w, padding=(1, 0)))
         rows[("stgcn_train_fwd", B)] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                                             bound_by=b_by, library_ms=l_ms)
-        print(f"[{smi}] train_fwd B={B}: max|err| {err:.3e}  moments {perr:.2e} of scale  kernel {k_ms:.4f} ms  "
-              f"plain {p_ms:.4f} ms  cuDNN conv2d (tconv only) {l_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        print(f"[{smi}] train_fwd B={B}: max|err| {err:.3e}  moments {perr:.2e} of scale  same bits on relaunch  "
+              f"vs float64: max {e_max:.2e}, bias {e_bias:.2e} of sum|a*b|  "
+              f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  cuDNN conv2d (tconv only) {l_ms:.4f} ms  "
+              f"{bound_shares(k_ms, f_ms, b_ms, b_by)}")
 
         # --- kernel 4 ---
+        del again, exact, mag, d
         dpre, parts, dtaps = stgcn_train.tconv_bwd(dy2, y, vecs_b, KBT, T=T, C=C)
         dpre_ref, parts_ref, dkb_ref = stgcn_train.tconv_bwd_ref(dy2, y, vecs_b, KBT, T=T)
         dtaps_ref = stgcn_train._fold_diag_blocks(dkb_ref, C)
@@ -294,14 +368,14 @@ def train_kernel_phase(dev, smi):
               f"train_bwd B={B}: two launches differ")
         b_ms, b_by = bound_ms(3 * N * WP * 4 + 4 * WP * 4 + 3 * 128 * 128 * 4 + B * 2 * WP * 4 + 3 * C * C * 4,
                               2 * 2 * N * WP * 3 * C)
-        k_ms = cuda_ms(lambda: stgcn_train.tconv_bwd(dy2, y, vecs_b, KBT, T=T, C=C))
-        p_ms = cuda_ms(lambda: stgcn_train.tconv_bwd_ref(dy2, y, vecs_b, KBT, T=T), iters=5, warmup=1)
+        k_ms = device_ms(lambda: stgcn_train.tconv_bwd(dy2, y, vecs_b, KBT, T=T, C=C))
+        p_ms = device_ms(lambda: stgcn_train.tconv_bwd_ref(dy2, y, vecs_b, KBT, T=T), iters=5, warmup=1)
 
         def library_bwd():
             torch.nn.grad.conv2d_input(t1_nchw.shape, w, dy_nchw, padding=(1, 0))
             torch.nn.grad.conv2d_weight(t1_nchw, w.shape, dy_nchw, padding=(1, 0))
 
-        l_ms = cuda_ms(library_bwd)
+        l_ms = device_ms(library_bwd)
         rows[("stgcn_train_bwd", B)] = dict(max_abs_err=max(err, terr * dtaps_ref.abs().max().item()),
                                             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                                             library_ms=l_ms)
@@ -362,12 +436,12 @@ def sparse_kernel_phase(dev, smi):
             flops = 2 * N * nnz * 128 * 128
             nbytes = 2 * N * WP * 4 + nnz * 128 * 128 * 4 + 8 * WP * 4 + (col_off.numel() + nnz) * 4
             b_ms, b_by = bound_ms(nbytes, flops)
-            k_ms = cuda_ms(lambda: stgcn_sparse.sparse_graph_matmul_bn_relu(x, tiles, vecs, col_off, vlist))
-            p_ms = cuda_ms(lambda: stgcn_sparse.sparse_graph_matmul_bn_relu_ref(x, tiles, vecs, col_off, vlist),
+            k_ms = device_ms(lambda: stgcn_sparse.sparse_graph_matmul_bn_relu(x, tiles, vecs, col_off, vlist))
+            p_ms = device_ms(lambda: stgcn_sparse.sparse_graph_matmul_bn_relu_ref(x, tiles, vecs, col_off, vlist),
                            iters=5, warmup=1)
             # library yardstick: the dense path, one f32 matmul on the densified matrix + BN1 + ReLU
-            l_ms = cuda_ms(lambda: stgcn_fused.graph_matmul_bn_relu(x, Mp, vecs[0], vecs[1]))
-            mm_ms = cuda_ms(lambda: torch.matmul(x, Mp))
+            l_ms = device_ms(lambda: stgcn_fused.graph_matmul_bn_relu(x, Mp, vecs[0], vecs[1]))
+            mm_ms = device_ms(lambda: torch.matmul(x, Mp))
             rows[("stgcn_sparse", name, B)] = dict(
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
             print(f"[{smi}] sparse {name} ({nnz} tiles) B={B}: max|err| {err:.3e}  kernel {k_ms:.4f} ms "
@@ -572,23 +646,36 @@ def time_train_step(cfg, datasets, smi):
           f"{', '.join(f'{t:.3f}' for t in times)}) -> {8e3 / step_ms:.2f} samples/s; "
           f"peak memory {peak_gib:.2f} GiB")
 
+    device_profile(lambda i: step(10 + i), 3, "B=8 train step", step_ms, smi)
+    return step_ms, peak_gib
+
+
+# the hand-written kernels, by the names the profiler gives them
+OWN_KERNELS = ("epilogue_kernel", "fps_kernel", "train_fwd_kernel", "train_bwd_kernel", "sparse_kernel")
+
+
+def device_profile(run, n, what, run_ms, smi, top=10):
+    """torch.profiler over ``n`` calls of run(i): device kernel time per call,
+    its share of ``run_ms``, the top kernels and every hand-written kernel
+    with its rank."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
-        for i in range(3):
-            step(10 + i)
+        for i in range(n):
+            run(i)
         torch.cuda.synchronize()
-    kernel_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = lambda e: getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)  # noqa: E731
-    total_us = sum(dev_us(e) for e in kernel_events)
-    print(f"[{smi}] profiler, 3 B=8 train steps: device kernels {total_us / 3e3:.3f} ms per step, "
-          f"busy share {total_us / 3e3 / step_ms:.3f} of the {step_ms:.3f} ms step; "
-          "top 10 kernels by device time per step:")
-    for e in sorted(kernel_events, key=lambda e: -dev_us(e))[:10]:
-        print(f"  {dev_us(e) / 3e3:9.3f} ms  {100 * dev_us(e) / total_us:5.1f}%  "
-              f"x{e.count // 3:<4d} {e.key[:110]}")
-    return step_ms, peak_gib
+    total_us = sum(dev_us(e) for e in events)
+    ranked = sorted(events, key=lambda e: -dev_us(e))
+    print(f"[{smi}] profiler, {n} x {what}: device kernels {total_us / n / 1e3:.3f} ms per call, "
+          f"busy share {total_us / n / 1e3 / run_ms:.3f} of the {run_ms:.3f} ms call; "
+          f"top {top} kernels by device time per call, then the hand-written ones:")
+    for rank, e in enumerate(ranked, 1):
+        if rank <= top or any(k in e.key for k in OWN_KERNELS):
+            print(f"  #{rank:<3d} {dev_us(e) / n / 1e3:9.3f} ms  {100 * dev_us(e) / total_us:5.1f}%  "
+                  f"x{e.count / n:<5.1f} {e.key[:110]}")
 
 
 def train_phase(workdir, smi):
@@ -723,6 +810,9 @@ def test_phase(workdir, smi):
                   f"{' / '.join(f'{b1:.3f}' for b1, _ in runs)} ms (means of 10); B=32 "
                   f"{' / '.join(f'{b32:.3f}' for _, b32 in runs)} ms (means of 3) -> "
                   f"{32e3 / min(b32 for _, b32 in runs):.1f} clips/s")
+        for name, (model, folded) in chains.items():
+            device_profile(lambda i: model.generate(x32, folded=folded), 2, f"B=32 {name} generate",
+                           min(b32 for _, b32 in times[name]), smi, top=6)
         del gpu, cpu, dense, chains, x32
     finally:
         cfg.close()

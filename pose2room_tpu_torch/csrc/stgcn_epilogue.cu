@@ -7,146 +7,137 @@
 //   y2  = sum_s shift_s(t1) @ KB[s]        tap s reads row t+s-1, zero outside the clip
 //   out = relu(y2 * s2 + b2' [+ x])        s2 = vecs[2], b2' = vecs[3]
 // KB (3,128,128) is block-diagonal: every C x C diagonal block (C = 64 channels
-// of one joint) holds the same temporal tap.  The kernel reads only those
-// diagonal blocks; the plain PyTorch version multiplies the full 128x128 KB,
-// which the fold (fold_eval_arrays) guarantees is zero off the diagonal.
+// of one joint) holds the same temporal tap.  The kernel reads only the
+// diagonal block at (col0 % 128); the plain PyTorch version multiplies the
+// full 128x128 KB, which the fold (fold_eval_arrays) guarantees is zero off
+// the diagonal.
 //
-// What bounds it on an H100: operations.  Per clip and block the taps need
-// 2*768*3456*192 = 1.02 GFLOP of exact f32 FMAs (15.2 us at 67 TFLOP/s) while
-// t1, x and out move 31.9 MB (9.5 us at 3.35 TB/s).
+// What bounds it on an H100: bytes, in principle.  Per clip and block the
+// taps need 2*768*3456*192 = 1.02 GFLOP, done as three TF32 products each
+// (3xTF32, tconv_mma.cuh): 6.2 us at 495 TFLOP/s, under the 9.5 us (no
+// residual: 6.3 us) that t1, x and out need at 3.35 TB/s.  In practice the
+// mma.sync issue rate, which is below wgmma's, and the operand splits bound
+// it (PERF.md).
 //
-// Design: one block computes a 64-row x 64-column tile (one joint, one row
-// chunk of one clip).  It stages the three 64x64 diagonal taps (48 KB) and a
-// (64+2)-row slab of t1 with its t-1/t+1 halo (zeros at the clip edges) in
-// dynamic shared memory; tiles never cross a clip boundary.  Each of the 128
-// threads keeps an 8x4 register tile of accumulators, so every k step issues
-// 32 FMAs for 8 scalar and one 16-byte shared load.  Pad columns (3392..3455)
-// come out exactly 0 because t1, x, s2 and b2' are 0 there.  Plain CUDA
-// cores in f32: no tensor cores, no TMA (a later optimisation).
+// Design: tconv_mma.cuh's core on a persistent grid.  A block stages its
+// diagonal tap block once (cp.async) and walks row tiles (128 rows of one
+// clip) of the joints that read it.  Each tile's slab of t1 with its
+// halo comes in by cp.async (zero-filled outside the clip); the next tile's
+// copy starts as soon as the warps are done reading the slab, so it
+// overlaps this tile's epilogue, and the other resident block's work
+// overlaps both.  Pad columns (3392..3455) come out exactly 0 because t1,
+// x, s2 and b2' are 0 there.
 
 #include <cuda_runtime.h>
 
+#include "tconv_mma.cuh"
+
 namespace {
 
-constexpr int kC = 64;         // channels of one joint = width of a diagonal tap block
-constexpr int kLane = 128;     // KB is (3, kLane, kLane)
-constexpr int kRows = 64;      // output rows per block
-constexpr int kThreads = 128;
-constexpr int kTM = 8;         // rows per thread
-constexpr int kTN = 4;         // columns per thread
-constexpr int kSlabStride = kC + 1;  // +1 staggers banks between thread rows
+using namespace tconv;
 
-static_assert((kRows / kTM) * (kC / kTN) == kThreads, "thread tile must cover the block tile");
-
-constexpr size_t kTapFloats = 3 * kC * kC;
-constexpr size_t kSlabFloats = (kRows + 2) * kSlabStride;
 constexpr size_t kSmemBytes = (kTapFloats + kSlabFloats) * sizeof(float);
 
 template <bool kResidual>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 epilogue_kernel(const float* __restrict__ t1, const float* __restrict__ x,
                 const float* __restrict__ vecs, const float* __restrict__ kb,
-                float* __restrict__ out, int T, int Wp) {
+                float* __restrict__ out, int B, int T, int Wp) {
   extern __shared__ __align__(16) float smem[];
-  float* taps = smem;               // [3][kC][kC]
-  float* slab = smem + kTapFloats;  // [kRows + 2][kSlabStride]
+  float* taps = smem;
+  float* slab = taps + kTapFloats;
 
-  const int col0 = blockIdx.x * kC;
-  const int t0 = blockIdx.y * kRows;
-  const size_t clip_row0 = static_cast<size_t>(blockIdx.z) * T;
-  const int diag = col0 % kLane;  // offset of this joint's block on KB's diagonal
+  const int items = (Wp / kC / 2) * B * ((T + kRows - 1) / kRows);
+  const int stride = gridDim.x / 2;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int row0 = warp * 16 * kMT;
 
-  for (int i = threadIdx.x; i < static_cast<int>(kTapFloats); i += kThreads) {
-    const int s = i / (kC * kC);
-    const int r = (i / kC) % kC;
-    const int c = i % kC;
-    taps[i] = kb[(static_cast<size_t>(s) * kLane + diag + r) * kLane + diag + c];
-  }
-  for (int i = threadIdx.x; i < (kRows + 2) * kC; i += kThreads) {
-    const int r = i / kC;
-    const int c = i % kC;
-    const int t = t0 - 1 + r;
-    slab[r * kSlabStride + c] =
-        (t >= 0 && t < T) ? t1[(clip_row0 + t) * Wp + col0 + c] : 0.f;
-  }
-  __syncthreads();
+  int item = blockIdx.x >> 1;
+  TileAt a = tile_at(item, B, T);
+  stage_taps(taps, kb, (blockIdx.x & 1) * kC);
+  stage_slab(slab, t1, a.clip_row0, a.t0, T, Wp, a.col0);
+  cp_async_commit();
 
-  const int tx = threadIdx.x % (kC / kTN);
-  const int ty = threadIdx.x / (kC / kTN);
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  for (; item < items; item += stride) {
+    const bool more = item + stride < items;
+    const TileAt next = tile_at(more ? item + stride : item, B, T);
+    cp_async_wait<0>();
+    __syncthreads();
 
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    const float* tap = taps + s * kC * kC;
-    const float* rows = slab + (ty * kTM + s) * kSlabStride;
-#pragma unroll 4
-    for (int k = 0; k < kC; ++k) {
-      const float4 w = *reinterpret_cast<const float4*>(tap + k * kC + tx * kTN);
-      float a[kTM];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = rows[i * kSlabStride + k];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        acc[i][0] += a[i] * w.x;
-        acc[i][1] += a[i] * w.y;
-        acc[i][2] += a[i] * w.z;
-        acc[i][3] += a[i] * w.w;
-      }
+    float acc[kMT][kNT][4];
+    tconv_mma(slab, taps, row0, acc);
+    __syncthreads();  // every warp is done reading the slab
+    if (more) {
+      stage_slab(slab, t1, next.clip_row0, next.t0, T, Wp, next.col0);
+      cp_async_commit();
     }
-  }
 
-  const int c0 = col0 + tx * kTN;
-  float s2[kTN], b2[kTN];
 #pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    s2[j] = vecs[2 * static_cast<size_t>(Wp) + c0 + j];
-    b2[j] = vecs[3 * static_cast<size_t>(Wp) + c0 + j];
-  }
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int n = a.col0 + nt * 8 + 2 * c;
+      const float2 s2 = __ldg(reinterpret_cast<const float2*>(vecs + 2 * static_cast<size_t>(Wp) + n));
+      const float2 b2 = __ldg(reinterpret_cast<const float2*>(vecs + 3 * static_cast<size_t>(Wp) + n));
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int t = t0 + ty * kTM + i;
-    if (t >= T) continue;
-    const size_t base = (clip_row0 + t) * Wp + c0;
+      for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      float v = acc[i][j] * s2[j] + b2[j];
-      if (kResidual) v += x[base + j];
-      out[base + j] = fmaxf(v, 0.f);
+        for (int half = 0; half < 2; ++half) {
+          const int t = a.t0 + row0 + mt * 16 + g + 8 * half;
+          if (t >= T) continue;
+          const size_t idx = (a.clip_row0 + t) * Wp + n;
+          float v0 = acc[mt][nt][2 * half] * s2.x + b2.x;
+          float v1 = acc[mt][nt][2 * half + 1] * s2.y + b2.y;
+          if (kResidual) {
+            const float2 xv = __ldg(reinterpret_cast<const float2*>(x + idx));
+            v0 += xv.x;
+            v1 += xv.y;
+          }
+          *reinterpret_cast<float2*>(out + idx) = make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+        }
     }
+    a = next;
   }
+}
+
+template <bool R>
+cudaError_t configure(int sms, int* slots) {
+  cudaError_t err = cudaFuncSetAttribute(epilogue_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, epilogue_kernel<R>, kThreads, kSmemBytes);
+  *slots = per_sm * sms;
+  return err;
 }
 
 }  // namespace
 
-// t1, x, out: (B*T, Wp) contiguous f32 (x unused and may be null when
-// residual == 0); vecs: (8, Wp) f32; kb: (3, 128, 128) f32.  Wp % 128 == 0.
-// Returns the cudaError_t of the launch (0 on success).
+// t1, x, out: (B*T, Wp) contiguous f32, 16-byte aligned (x unused and may be
+// null when residual == 0); vecs: (8, Wp) f32; kb: (3, 128, 128) f32.
+// Wp % 128 == 0.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int p2r_stgcn_epilogue_f32(const float* t1, const float* x,
                                       const float* vecs, const float* kb,
                                       float* out, int B, int T, int Wp,
                                       int residual, void* stream) {
   static bool configured = false;
+  static int slots[2];  // [residual]: resident blocks on the card
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        epilogue_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaFuncSetAttribute(
-        epilogue_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemBytes));
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = configure<false>(sms, &slots[0]);
+    if (err == cudaSuccess) err = configure<true>(sms, &slots[1]);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const dim3 grid(Wp / kC, (T + kRows - 1) / kRows, B);
+  const int grid = grid_size(B, T, Wp, slots[residual ? 1 : 0]);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (residual) {
-    epilogue_kernel<true><<<grid, kThreads, kSmemBytes, s>>>(t1, x, vecs, kb, out, T, Wp);
+    epilogue_kernel<true><<<grid, kThreads, kSmemBytes, s>>>(t1, x, vecs, kb, out, B, T, Wp);
   } else {
-    epilogue_kernel<false><<<grid, kThreads, kSmemBytes, s>>>(t1, nullptr, vecs, kb, out, T, Wp);
+    epilogue_kernel<false><<<grid, kThreads, kSmemBytes, s>>>(t1, nullptr, vecs, kb, out, B, T, Wp);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,166 +8,180 @@
 //   t1  = relu(y * s1 + sh1)                 s1 = vecs[0], sh1 = vecs[1]
 //   y2  = sum_s shift_s(t1) @ KB[s] + cb     cb = vecs[2]; tap s reads row
 //                                            t+s-1, zero outside the clip
-//   tile_parts[b, tile] = per-column [sum(y2), sum(y2^2)] over the tile's rows
+//   tile_parts[b, tile] = per-column [sum(y2), sum(y2^2)] over the rows of
+//                         64-row tile `tile` (ROW_TILE in ops/stgcn_train.py)
 // KB (3,128,128) is block-diagonal with one C x C tap per joint (C = 64); the
-// kernel reads only those diagonal blocks.  The wrapper sums tile_parts over
-// the tiles of a clip in a fixed order.
+// kernel reads only the diagonal block at (col0 % 128).  The wrapper sums
+// tile_parts over the tiles of a clip in a fixed order.
 //
-// What bounds it on an H100: operations.  At B=8 the taps need
-// 2*6144*3456*192 = 8.15 GFLOP of exact f32 FMAs (0.122 ms at 67 TFLOP/s)
-// while y and y2 move 170 MB (0.051 ms at 3.35 TB/s).
+// What bounds it on an H100: bytes, in principle.  At B=8 the taps need
+// 2*6144*3456*192 = 8.15 GFLOP, done as three TF32 products each (3xTF32,
+// tconv_mma.cuh): 0.049 ms at 495 TFLOP/s, under the 0.051 ms that y and y2
+// (170 MB) need at 3.35 TB/s.  In practice the mma.sync issue rate and the
+// operand splits bound it (PERF.md).
 //
-// Design: kernel 1 (stgcn_epilogue.cu) with another prologue and epilogue.
-// One block computes a 64-row x 64-column tile (one joint, one row chunk of
-// one clip; a tile never crosses a clip).  It builds t1 from y in shared
-// memory as a (64+2)-row slab with its t-1/t+1 halo (zero rows at the clip
-// edges), next to the three 64x64 diagonal taps (48 KB).  Each of the 128
-// threads keeps an 8x4 register tile of accumulators.  y*s1 + sh1 is rounded
-// as a product then a sum (no FMA contraction), as the plain version
-// computes it.  The column moments are summed per thread over its 8 rows,
-// then over the 8 thread rows in shared memory in a fixed order.  Pad
-// columns (3392..3455) come out exactly 0 because y and vecs are 0 there.
-// Plain CUDA cores in f32: no tensor cores, no TMA (a later optimisation).
+// Design: tconv_mma.cuh's core on a persistent grid, as kernel 1
+// (stgcn_epilogue.cu), with another prologue and epilogue.  The slab of y
+// comes in by cp.async (the next tile's copy overlaps this tile's epilogue)
+// and is turned into t1 in place: y*s1 + sh1 is rounded as a product then a
+// sum (no FMA contraction), as the plain version and kernel 4 compute it, so
+// kernel 4's ReLU mask agrees; halo rows outside the clip stay 0.  Moments,
+// deterministic: each thread sums its rows, a butterfly of shuffles sums the
+// warp's 8 row groups, and the warps of each 64-row part are summed in
+// shared memory in a fixed order; a 128-row tile writes two rows of
+// tile_parts.  Pad columns (3392..3455) come out exactly 0 because y and
+// vecs are 0 there.
 
 #include <cuda_runtime.h>
 
+#include "tconv_mma.cuh"
+
 namespace {
 
-constexpr int kC = 64;         // channels of one joint = width of a diagonal tap block
-constexpr int kLane = 128;     // KB is (3, kLane, kLane)
-constexpr int kRows = 64;      // output rows per block
-constexpr int kThreads = 128;
-constexpr int kTM = 8;         // rows per thread
-constexpr int kTN = 4;         // columns per thread
-constexpr int kThreadRows = kRows / kTM;
-constexpr int kSlabStride = kC + 1;  // +1 staggers banks between thread rows
+using namespace tconv;
 
-static_assert(kThreadRows * (kC / kTN) == kThreads, "thread tile must cover the block tile");
-static_assert(2 * kC == kThreads, "one thread per (moment, column) in the final reduction");
-
-constexpr size_t kTapFloats = 3 * kC * kC;
-constexpr size_t kSlabFloats = (kRows + 2) * kSlabStride;
-constexpr size_t kRedFloats = 2 * kThreadRows * kC;
+constexpr int kPartRows = 64;  // ROW_TILE: the row granularity of tile_parts
+constexpr int kWarpsPerPart = kPartRows / (16 * kMT);
+constexpr int kRedFloats = 4 * 2 * kC;  // [warp][moment][column]
 constexpr size_t kSmemBytes = (kTapFloats + kSlabFloats + kRedFloats) * sizeof(float);
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 train_fwd_kernel(const float* __restrict__ y, const float* __restrict__ vecs,
                  const float* __restrict__ kb, float* __restrict__ y2,
-                 float* __restrict__ tile_parts, int T, int Wp) {
+                 float* __restrict__ tile_parts, int B, int T, int Wp) {
   extern __shared__ __align__(16) float smem[];
-  float* taps = smem;                // [3][kC][kC]
-  float* slab = taps + kTapFloats;   // [kRows + 2][kSlabStride]
-  float* red = slab + kSlabFloats;   // [2][kThreadRows][kC]
+  float* taps = smem;
+  float* slab = taps + kTapFloats;
+  float* red = slab + kSlabFloats;
 
-  const int col0 = blockIdx.x * kC;
-  const int tile = blockIdx.y;
-  const int t0 = tile * kRows;
-  const size_t clip_row0 = static_cast<size_t>(blockIdx.z) * T;
-  const int diag = col0 % kLane;  // offset of this joint's block on KB's diagonal
+  const int items = (Wp / kC / 2) * B * ((T + kRows - 1) / kRows);
+  const int stride = gridDim.x / 2;
+  const int n_parts = (T + kPartRows - 1) / kPartRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int row0 = warp * 16 * kMT;
+  // the float4 column this thread stages and turns into t1 (stage_slab's)
+  const int q = threadIdx.x % (kC / 4);
 
-  for (int i = threadIdx.x; i < static_cast<int>(kTapFloats); i += kThreads) {
-    const int s = i / (kC * kC);
-    const int r = (i / kC) % kC;
-    const int c = i % kC;
-    taps[i] = kb[(static_cast<size_t>(s) * kLane + diag + r) * kLane + diag + c];
-  }
-  for (int i = threadIdx.x; i < (kRows + 2) * kC; i += kThreads) {
-    const int r = i / kC;
-    const int c = i % kC;
-    const int t = t0 - 1 + r;
-    float v = 0.f;
-    if (t >= 0 && t < T) {
-      const float pre = __fadd_rn(__fmul_rn(y[(clip_row0 + t) * Wp + col0 + c], vecs[col0 + c]),
-                                  vecs[static_cast<size_t>(Wp) + col0 + c]);
-      v = fmaxf(pre, 0.f);
+  int item = blockIdx.x >> 1;
+  TileAt a = tile_at(item, B, T);
+  stage_taps(taps, kb, (blockIdx.x & 1) * kC);
+  stage_slab(slab, y, a.clip_row0, a.t0, T, Wp, a.col0);
+  cp_async_commit();
+
+  for (; item < items; item += stride) {
+    const bool more = item + stride < items;
+    const TileAt next = tile_at(more ? item + stride : item, B, T);
+    const float4 s1 = __ldg(reinterpret_cast<const float4*>(vecs + a.col0 + 4 * q));
+    const float4 sh1 = __ldg(reinterpret_cast<const float4*>(vecs + Wp + a.col0 + 4 * q));
+    cp_async_wait<0>();
+    __syncthreads();
+
+    for (int i = threadIdx.x; i < (kRows + 2) * (kC / 4); i += kThreads) {
+      const int r = i / (kC / 4);
+      const int t = a.t0 - 1 + r;
+      if (t < 0 || t >= T) continue;  // zero-filled, and t1 is 0 there
+      float4* p = reinterpret_cast<float4*>(slab + slab_index(r, 4 * q));
+      float4 v = *p;
+      v.x = fmaxf(__fadd_rn(__fmul_rn(v.x, s1.x), sh1.x), 0.f);
+      v.y = fmaxf(__fadd_rn(__fmul_rn(v.y, s1.y), sh1.y), 0.f);
+      v.z = fmaxf(__fadd_rn(__fmul_rn(v.z, s1.z), sh1.z), 0.f);
+      v.w = fmaxf(__fadd_rn(__fmul_rn(v.w, s1.w), sh1.w), 0.f);
+      *p = v;
     }
-    slab[r * kSlabStride + c] = v;
-  }
-  __syncthreads();
+    __syncthreads();
 
-  const int tx = threadIdx.x % (kC / kTN);
-  const int ty = threadIdx.x / (kC / kTN);
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    const float* tap = taps + s * kC * kC;
-    const float* rows = slab + (ty * kTM + s) * kSlabStride;
-#pragma unroll 4
-    for (int k = 0; k < kC; ++k) {
-      const float4 w = *reinterpret_cast<const float4*>(tap + k * kC + tx * kTN);
-      float a[kTM];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = rows[i * kSlabStride + k];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        acc[i][0] += a[i] * w.x;
-        acc[i][1] += a[i] * w.y;
-        acc[i][2] += a[i] * w.z;
-        acc[i][3] += a[i] * w.w;
-      }
+    float acc[kMT][kNT][4];
+    tconv_mma(slab, taps, row0, acc);
+    __syncthreads();  // every warp is done reading the slab
+    if (more) {
+      stage_slab(slab, y, next.clip_row0, next.t0, T, Wp, next.col0);
+      cp_async_commit();
     }
-  }
 
-  const int c0 = col0 + tx * kTN;
-  float cb[kTN], sum[kTN], sumsq[kTN];
+    float sum[kNT][2], sumsq[kNT][2];
 #pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    cb[j] = vecs[2 * static_cast<size_t>(Wp) + c0 + j];
-    sum[j] = 0.f;
-    sumsq[j] = 0.f;
-  }
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int n = a.col0 + nt * 8 + 2 * c;
+      const float2 cb = __ldg(reinterpret_cast<const float2*>(vecs + 2 * static_cast<size_t>(Wp) + n));
+      sum[nt][0] = sum[nt][1] = sumsq[nt][0] = sumsq[nt][1] = 0.f;
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int t = t0 + ty * kTM + i;
-    if (t >= T) continue;
-    const size_t base = (clip_row0 + t) * Wp + c0;
+      for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const float v = acc[i][j] + cb[j];
-      y2[base + j] = v;
-      sum[j] += v;
-      sumsq[j] += v * v;
+        for (int half = 0; half < 2; ++half) {
+          const int t = a.t0 + row0 + mt * 16 + g + 8 * half;
+          if (t >= T) continue;
+          const float v0 = acc[mt][nt][2 * half] + cb.x;
+          const float v1 = acc[mt][nt][2 * half + 1] + cb.y;
+          *reinterpret_cast<float2*>(y2 + (a.clip_row0 + t) * Wp + n) = make_float2(v0, v1);
+          sum[nt][0] += v0;
+          sum[nt][1] += v1;
+          sumsq[nt][0] += v0 * v0;
+          sumsq[nt][1] += v1 * v1;
+        }
     }
-  }
+    // sum over the warp's 8 row groups (lanes of equal c), then one lane per c writes
 #pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    red[ty * kC + tx * kTN + j] = sum[j];
-    red[(kThreadRows + ty) * kC + tx * kTN + j] = sumsq[j];
-  }
-  __syncthreads();
-
-  const int moment = threadIdx.x / kC;
-  const int c = threadIdx.x % kC;
-  float total = 0.f;
+    for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
-  for (int r = 0; r < kThreadRows; ++r) total += red[(moment * kThreadRows + r) * kC + c];
-  const size_t n_tiles = gridDim.y;
-  tile_parts[((static_cast<size_t>(blockIdx.z) * n_tiles + tile) * 2 + moment) * Wp + col0 + c] = total;
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          sum[nt][j] += __shfl_xor_sync(0xffffffffu, sum[nt][j], off);
+          sumsq[nt][j] += __shfl_xor_sync(0xffffffffu, sumsq[nt][j], off);
+        }
+    if (g == 0) {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          red[(warp * 2 + 0) * kC + nt * 8 + 2 * c + j] = sum[nt][j];
+          red[(warp * 2 + 1) * kC + nt * 8 + 2 * c + j] = sumsq[nt][j];
+        }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < (kRows / kPartRows) * 2 * kC; i += kThreads) {
+      const int h = i / (2 * kC);  // 64-row part of this tile
+      const int moment = (i / kC) % 2;
+      const int col = i % kC;
+      const int part = a.t0 / kPartRows + h;
+      if (part >= n_parts) continue;
+      float total = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarpsPerPart; ++w) total += red[((h * kWarpsPerPart + w) * 2 + moment) * kC + col];
+      tile_parts[((static_cast<size_t>(a.b) * n_parts + part) * 2 + moment) * Wp + a.col0 + col] = total;
+    }
+    // red is written again only after the next tile's first __syncthreads
+    a = next;
+  }
 }
 
 }  // namespace
 
-// y, y2: (B*T, Wp) contiguous f32; vecs: (4, Wp) f32 rows [s1, sh1, cb, 0];
-// kb: (3, 128, 128) f32; tile_parts: (B, ceil(T/64), 2, Wp) f32.
-// Wp % 128 == 0.  Returns the cudaError_t of the launch (0 on success).
+// y, y2: (B*T, Wp) contiguous f32, 16-byte aligned; vecs: (4, Wp) f32 rows
+// [s1, sh1, cb, 0]; kb: (3, 128, 128) f32; tile_parts: (B, ceil(T/64), 2, Wp)
+// f32.  Wp % 128 == 0.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int p2r_stgcn_train_fwd_f32(const float* y, const float* vecs, const float* kb,
                                        float* y2, float* tile_parts, int B, int T, int Wp,
                                        void* stream) {
   static bool configured = false;
+  static int slots = 0;  // resident blocks on the card
   if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemBytes));
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kSmemBytes));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, train_fwd_kernel, kThreads, kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
+    slots = per_sm * sms;
     configured = true;
   }
-  const dim3 grid(Wp / kC, (T + kRows - 1) / kRows, B);
-  train_fwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      y, vecs, kb, y2, tile_parts, T, Wp);
+  train_fwd_kernel<<<grid_size(B, T, Wp, slots), kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      y, vecs, kb, y2, tile_parts, B, T, Wp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes``.  Builds happen at first use,
 all sources at once (one ``nvcc`` process per source, started together), into
 ``pose2room_tpu_torch/_build/`` (listed in ``.gitignore``).  A library's file
-name carries a hash of its source and flags, so an edited source rebuilds.
+name carries a hash of its source, the ``csrc/`` headers it includes and the
+flags, so an edited source or header rebuilds.
 
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -18,6 +19,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -55,10 +57,33 @@ def _nvcc():
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source_files(name):
+    """``csrc/<name>.cu`` and every header of ``csrc/`` it includes, directly
+    or through another header (quoted includes), in a fixed order."""
+    seen, todo = [], [f"{name}.cu"]
+    while todo:
+        rel = todo.pop(0)
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            found = _INCLUDE.findall(f.read())
+        todo.extend(inc.decode() for inc in found
+                    if os.path.isfile(os.path.join(CSRC, inc.decode())))
+    return seen
+
+
 def _lib_path(name):
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    """The library's path; its name hashes the source, the headers it
+    includes and the flags, so an edit to any of them rebuilds."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for rel in _source_files(name):
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            h.update(rel.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
 def build_all():
@@ -120,9 +145,10 @@ def check(err, name):
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
 
 
-def check_operands(name, expect, device, dtype=torch.float32):
+def check_operands(name, expect, device, dtype=torch.float32, align=1):
     """Before a launch: each {what: (tensor, shape)} has that shape, is
-    ``dtype``, contiguous and on ``device``; raises ValueError / TypeError."""
+    ``dtype``, contiguous, on ``device`` and starts on an ``align``-byte
+    boundary; raises ValueError / TypeError."""
     for what, (t, shape) in expect.items():
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: {what} has shape {tuple(t.shape)}, expected {tuple(shape)}")
@@ -132,3 +158,5 @@ def check_operands(name, expect, device, dtype=torch.float32):
             raise ValueError(f"{name}: {what} is on {t.device}, expected {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {what} is not contiguous")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: {what} does not start on a {align}-byte boundary")

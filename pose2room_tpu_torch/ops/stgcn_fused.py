@@ -100,7 +100,7 @@ def fused_epilogue(t1, x, vecs, KB, *, residual):
     expect = {"t1": (t1, (B, T, Wp)), "vecs": (vecs, (N_VEC_ROWS, Wp)), "KB": (KB, (3, LANE, LANE))}
     if residual:
         expect["x"] = (x, (B, T, Wp))
-    kernels.check_operands("stgcn_epilogue", expect, t1.device)
+    kernels.check_operands("stgcn_epilogue", expect, t1.device, align=16)
     out = torch.empty_like(t1)
     lib = kernels.load("stgcn_epilogue")
     fn = lib.p2r_stgcn_epilogue_f32

@@ -44,7 +44,9 @@ from pose2room_tpu_torch.ops.stgcn_fused import (
 
 BN_EPS = 1e-5
 # csrc/stgcn_train_{fwd,bwd}.cu: one 64-wide column group (one joint's
-# channels) per block, 64-row tiles, 4 tiles per block in the backward
+# channels) per block; column partials per 64-row tile (the forward computes
+# 128-row tiles and writes two rows of partials each); 4 tiles per block in
+# the backward
 KERNEL_C = 64
 ROW_TILE = 64
 BWD_TILES_PER_BLOCK = 4
@@ -119,7 +121,7 @@ def tconv_stats_fwd(y, vecs, KB, *, T):
     _check_layout(N, Wp, T)
     kernels.check_operands("stgcn_train_fwd", {
         "y": (y, (N, Wp)), "vecs": (vecs, (4, Wp)), "KB": (KB, (3, LANE, LANE)),
-    }, y.device)
+    }, y.device, align=16)
     B = N // T
     n_tiles = -(-T // ROW_TILE)
     y2 = torch.empty_like(y)

@@ -45,9 +45,12 @@ def _operands(B, T, W0, dev, seed=0):
     return [t.to(dev) for t in (x, M, vecs, KB)]
 
 
-@pytest.mark.parametrize("B,T,W0", [(1, 768, 3392), (2, 100, 3392), (3, 17, 192)])
+@pytest.mark.parametrize("B,T,W0", [(1, 768, 3392), (2, 100, 3392), (3, 17, 192),
+                                    (8, 768, 3392), (2, 200, 3392), (8, 200, 320)])
 @pytest.mark.parametrize("residual", [True, False])
 def test_epilogue_kernel_matches_plain(cuda_device, B, T, W0, residual):
+    """T = 200 crosses the 128-row tile and ends inside one; B = 8 gives each
+    block of the persistent grid several tiles."""
     x, M, vecs, KB = _operands(B, T, W0, cuda_device)
     t1 = stgcn_fused.graph_matmul_bn_relu(x, M, vecs[0], vecs[1])
     xr = x if residual else None
@@ -58,6 +61,16 @@ def test_epilogue_kernel_matches_plain(cuda_device, B, T, W0, residual):
     torch.cuda.synchronize()
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
     assert torch.all(got[..., W0:] == 0)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("residual", [True, False])
+def test_epilogue_kernel_same_bits_on_relaunch(cuda_device, B, residual):
+    x, M, vecs, KB = _operands(B, 768, 3392, cuda_device, seed=3)
+    t1 = stgcn_fused.graph_matmul_bn_relu(x, M, vecs[0], vecs[1])
+    xr = x if residual else None
+    first = stgcn_fused.fused_epilogue(t1, xr, vecs, KB, residual=residual)
+    assert torch.equal(first, stgcn_fused.fused_epilogue(t1, xr, vecs, KB, residual=residual))
 
 
 def test_first_block_unpadded_input(cuda_device):
@@ -82,6 +95,10 @@ def test_epilogue_wrapper_rejects_bad_operands(cuda_device):
         stgcn_fused.fused_epilogue(t1.transpose(0, 1), x.transpose(0, 1), vecs, KB, residual=True)
     with pytest.raises(ValueError):
         stgcn_fused.fused_epilogue(t1, x.cpu(), vecs, KB, residual=True)
+    # contiguous but off the 16-byte boundary that the kernel's cp.async needs
+    shifted = torch.zeros(t1.numel() + 1, device=cuda_device)[1:].view(t1.shape)
+    with pytest.raises(ValueError):
+        stgcn_fused.fused_epilogue(shifted, x, vecs, KB, residual=True)
 
 
 def _train_operands(B, T, W0, dev, seed=0):
@@ -109,8 +126,11 @@ def _assert_parts_close(parts, ref, magnitudes):
     assert ((parts - ref).abs() / scale).max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("B,T,W0", [(1, 768, 3392), (8, 768, 3392), (2, 100, 3392), (3, 17, 320)])
+@pytest.mark.parametrize("B,T,W0", [(1, 768, 3392), (8, 768, 3392), (2, 100, 3392), (3, 17, 320),
+                                    (2, 200, 3392), (8, 200, 3392), (8, 130, 192)])
 def test_train_fwd_kernel_matches_plain(cuda_device, B, T, W0):
+    """T = 200 and 130 cross the 128-row tile (130: a 128-row tile whose
+    second 64-row part of partials lies past the clip)."""
     y, _, vecs, KB = _train_operands(B, T, W0, cuda_device)
     before = kernels.LAUNCHES["stgcn_train_fwd"]
     y2, parts = stgcn_train.tconv_stats_fwd(y, vecs, KB, T=T)
@@ -121,6 +141,15 @@ def test_train_fwd_kernel_matches_plain(cuda_device, B, T, W0):
     y2_3 = y2_ref.reshape(B, T, -1)
     _assert_parts_close(parts, parts_ref, [y2_3.abs().sum(1), (y2_3 * y2_3).sum(1)])
     assert torch.all(y2[:, W0:] == 0) and torch.all(parts[..., W0:] == 0)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_train_fwd_kernel_same_bits_on_relaunch(cuda_device, B):
+    """Fixed-order moments: a second launch gives the same bits."""
+    y, _, vecs, KB = _train_operands(B, 768, 3392, cuda_device, seed=3)
+    first = stgcn_train.tconv_stats_fwd(y, vecs, KB, T=768)
+    again = stgcn_train.tconv_stats_fwd(y, vecs, KB, T=768)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.parametrize("B,T,W0", [(1, 768, 3392), (8, 768, 3392), (2, 100, 3392), (3, 17, 320)])

@@ -3,8 +3,11 @@ the JAX package, on the CPU through their plain PyTorch versions.  The CUDA
 kernels themselves are held against the plain versions in test_torch_gpu.py.
 
 JAX's Pallas kernels run as the JAX package's own tests run them: in
-interpret mode, or through their jnp references.
+interpret mode, or through their jnp references.  The last test checks that
+the kernel libraries' names hash the csrc/ headers their sources include.
 """
+
+import shutil
 
 import numpy as np
 import pytest
@@ -158,3 +161,19 @@ def test_cpu_wrappers_never_count_launches(rng):
     stgcn_fused.fused_stgcn_layer(*(torch.from_numpy(a) for a in (x, M, vecs, KB)), residual=True)
     sampling.furthest_point_sample(torch.from_numpy(_fps_cloud(rng, 1, 32, "random")), 4)
     assert sum(kernels.LAUNCHES.values()) == 0
+
+
+def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
+    """Editing csrc/tconv_mma.cuh rebuilds exactly the kernels that include it."""
+    src = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, src)
+    monkeypatch.setattr(kernels, "CSRC", str(src))
+    assert kernels._source_files("stgcn_epilogue") == ["stgcn_epilogue.cu", "tconv_mma.cuh"]
+    assert kernels._source_files("stgcn_train_fwd") == ["stgcn_train_fwd.cu", "tconv_mma.cuh"]
+    assert kernels._source_files("fps") == ["fps.cu"]
+    before = {name: kernels._lib_path(name) for name in kernels.SOURCES}
+    header = src / "tconv_mma.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: kernels._lib_path(name) for name in kernels.SOURCES}
+    assert {name for name in kernels.SOURCES if after[name] != before[name]} == {
+        "stgcn_epilogue", "stgcn_train_fwd"}
