@@ -19,22 +19,26 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    transpose + ReLU mask + moments + tap gradient) against their plain
    versions (y2, dpre: atol = rtol = 1e-4; column moments within 1e-5 of each
    column's scale, the sum of the magnitudes of its terms; dtaps within 1e-4
-   of its max; pad columns exactly 0; two launches the same bits; kernel 3's
-   conv within 5e-7 of sum |a*b| of a float64 conv and its signed bias
-   within 5e-8), timed beside their bounds and cuDNN.
-   Kernels 1 and 3 run the temporal conv on the tensor cores in 3xTF32; each
-   prints its share of two bounds: the f32 CUDA-core bound (as kernels 4 and
-   5 use) and the tensor-core bound max(bytes / 3.35 TB/s, 3 x flops / 495
-   TFLOP/s), which is the ``bound_ms`` of its row in the ``kernels`` line.
-   The cuDNN conv2d of the temporal conv alone (TF32 off) is timed beside.
+   of its max; pad columns exactly 0; two launches the same bits), and
+   against float64: kernel 3's conv, kernel 4's dt1 (where the ReLU mask
+   lets it through) and its dtaps each within 5e-7 of sum |a*b|, signed bias
+   within 5e-8; timed beside their bounds and cuDNN.
+   Kernels 1, 3, 4 and 5 form their products on the tensor cores in 3xTF32;
+   each prints its share of two bounds: the f32 CUDA-core bound and the
+   tensor-core bound max(bytes / 3.35 TB/s, 3 x flops / 495 TFLOP/s), which
+   is the ``bound_ms`` of its row in the ``kernels`` line.  The cuDNN conv2d
+   of the temporal conv alone (TF32 off) is timed beside kernels 1 and 3,
+   cuDNN's conv2d_input + conv2d_weight beside kernel 4.
    Kernel 5 (block-sparse graph matmul + BN1 + ReLU) at B in {1, 8}, full
    width, for the annealed and the natural joint order, on the fold's layout
    (a random folded matrix on the support of A, permuted and packed into its
    279 / 391 nonzero tiles; the pad slot of x and vecs zero): against its
    plain version within atol = rtol = 1e-4 (f32 sums of 1280-2560 products
    taken in another order), the pad slot exactly 0, two launches the same
-   bits, and kernel 1 on its output in the permuted layout; timed beside its
-   bound and the dense path's matmul + BN1 + ReLU on the densified matrix.
+   bits, its acc (relu(acc) - relu(-acc), two launches with s1 = +-1 and
+   b1 = 0) within 5e-7 of sum |a*b| of a float64 matmul, bias within 5e-8,
+   and kernel 1 on its output in the permuted layout; timed beside its
+   bounds and the dense path's matmul + BN1 + ReLU on the densified matrix.
 4. Serving phase: the demo runner at full width (T=768, 53x64 joints, 512
    seeds, 128 proposals, 100 gaussians) on random weights from seed 42,
    answering the demo clip and three rotated copies; the launch counts must
@@ -292,6 +296,25 @@ def tconv_float64(t1, KB):
     return y, mag
 
 
+def tap_grad_float64(t1, d):
+    """The folded tap gradient sum over rows and joints of shift_s(t1)^T @ d,
+    t1 and d (B, T, Wp), in float64, and its sum of |a*b|: (3, C, C) each."""
+    dd = d.double()[..., :W0].reshape(-1, C)
+    grads, mags = [], []
+    for hs in (stgcn_fused.shift_prev(t1.double()), t1.double(), stgcn_fused.shift_next(t1.double())):
+        a = hs[..., :W0].reshape(-1, C)
+        grads.append(a.t() @ dd)
+        mags.append(a.abs().t() @ dd.abs())
+    return torch.stack(grads), torch.stack(mags)
+
+
+def float64_gap(got, exact, mag):
+    """Largest error and signed bias of got against float64 over sum |a*b|
+    (the tensor cores' truncating adds would show as a bias toward zero)."""
+    d = got.double() - exact
+    return (d.abs() / mag).max().item(), ((d * torch.sign(exact)).sum() / mag.sum()).item()
+
+
 def parts_err(parts, ref, magnitudes):
     """Largest column-moment error over each column's scale (the sum of the
     magnitudes of its terms, which bounds a sum's rounding in any order)."""
@@ -326,13 +349,10 @@ def train_kernel_phase(dev, smi):
         check(bool(torch.all(y2[:, W0:] == 0)) and bool(torch.all(parts[..., W0:] == 0)),
               f"train_fwd B={B} pad columns not 0")
         check(torch.equal(y2, again[0]) and torch.equal(parts, again[1]), f"train_fwd B={B}: two launches differ")
-        # 3xTF32 against float64: largest error and signed bias over sum |a*b| (the
-        # tensor cores' truncating adds would show as a bias toward zero)
+        # 3xTF32 against float64: largest error and signed bias over sum |a*b|
         exact, mag = tconv_float64(torch.relu(y * vecs[0] + vecs[1]).reshape(B, T, WP), KB)
-        d = (y2.reshape(B, T, WP).double() - exact - vecs[2].double())[..., :W0]
-        mag = mag[..., :W0]
-        e_max = (d.abs() / mag).max().item()
-        e_bias = ((d * torch.sign(exact[..., :W0])).sum() / mag.sum()).item()
+        e_max, e_bias = float64_gap(y2.reshape(B, T, WP)[..., :W0].double() - vecs[2, :W0].double(),
+                                    exact[..., :W0], mag[..., :W0])
         check(e_max <= 5e-7 and abs(e_bias) <= 5e-8,
               f"train_fwd B={B}: tconv off float64 by {e_max} of sum|a*b| (bias {e_bias})")
         nbytes = 2 * N * WP * 4 + 4 * WP * 4 + 3 * 128 * 128 * 4 + B * 2 * WP * 4
@@ -349,7 +369,7 @@ def train_kernel_phase(dev, smi):
               f"{bound_shares(k_ms, f_ms, b_ms, b_by)}")
 
         # --- kernel 4 ---
-        del again, exact, mag, d
+        del again, exact, mag
         dpre, parts, dtaps = stgcn_train.tconv_bwd(dy2, y, vecs_b, KBT, T=T, C=C)
         dpre_ref, parts_ref, dkb_ref = stgcn_train.tconv_bwd_ref(dy2, y, vecs_b, KBT, T=T)
         dtaps_ref = stgcn_train._fold_diag_blocks(dkb_ref, C)
@@ -366,8 +386,23 @@ def train_kernel_phase(dev, smi):
               f"train_bwd B={B} pad columns not 0")
         check(all(torch.equal(a, b) for a, b in zip((dpre, parts, dtaps), again)),
               f"train_bwd B={B}: two launches differ")
-        b_ms, b_by = bound_ms(3 * N * WP * 4 + 4 * WP * 4 + 3 * 128 * 128 * 4 + B * 2 * WP * 4 + 3 * C * C * 4,
-                              2 * 2 * N * WP * 3 * C)
+        # 3xTF32 against float64: dt1 where the mask lets it through (dpre is
+        # dt1 there) and dtaps, each over its sum |a*b|
+        t1 = torch.relu(y * vecs_b[0] + vecs_b[1]).reshape(B, T, WP)
+        exact, mag = tconv_float64(dy2.reshape(B, T, WP), KBT.flip(0))
+        live = (t1 > 0)[..., :W0]
+        dt_max, dt_bias = float64_gap(dpre.reshape(B, T, WP)[..., :W0][live], exact[..., :W0][live],
+                                      mag[..., :W0][live])
+        g_exact, g_mag = tap_grad_float64(t1, dy2.reshape(B, T, WP))
+        g_max, g_bias = float64_gap(dtaps, g_exact, g_mag)
+        check(dt_max <= 5e-7 and abs(dt_bias) <= 5e-8,
+              f"train_bwd B={B}: dt1 off float64 by {dt_max} of sum|a*b| (bias {dt_bias})")
+        check(g_max <= 5e-7 and abs(g_bias) <= 5e-8,
+              f"train_bwd B={B}: dtaps off float64 by {g_max} of sum|a*b| (bias {g_bias})")
+        del t1, exact, mag, live, g_exact, g_mag
+        nbytes = 3 * N * WP * 4 + 4 * WP * 4 + 3 * 128 * 128 * 4 + B * 2 * WP * 4 + 3 * C * C * 4
+        f_ms, _ = bound_ms(nbytes, 2 * 2 * N * WP * 3 * C)
+        b_ms, b_by = tc_bound_ms(nbytes, 2 * 2 * N * WP * 3 * C)
         k_ms = device_ms(lambda: stgcn_train.tconv_bwd(dy2, y, vecs_b, KBT, T=T, C=C))
         p_ms = device_ms(lambda: stgcn_train.tconv_bwd_ref(dy2, y, vecs_b, KBT, T=T), iters=5, warmup=1)
 
@@ -380,8 +415,10 @@ def train_kernel_phase(dev, smi):
                                             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                                             library_ms=l_ms)
         print(f"[{smi}] train_bwd B={B}: max|err| dpre {err:.3e}  moments {perr:.2e} of scale  dtaps {terr:.2e} of max  "
+              f"same bits on relaunch  vs float64 (of sum|a*b|): dt1 max {dt_max:.2e} bias {dt_bias:.2e}, "
+              f"dtaps max {g_max:.2e} bias {g_bias:.2e}  "
               f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  cuDNN conv2d_input+conv2d_weight {l_ms:.4f} ms  "
-              f"bound {b_ms:.4f} ms ({b_by})")
+              f"{bound_shares(k_ms, f_ms, b_ms, b_by)}")
         del y, dy2, vecs, KB, KBT, y2, y2_ref, dpre, dpre_ref, dkb_ref, t1_nchw, dy_nchw, again
     return rows
 
@@ -432,10 +469,25 @@ def sparse_kernel_phase(dev, smi):
             torch.cuda.synchronize()
             check(torch.allclose(ep, ep_ref, atol=1e-4, rtol=1e-4) and bool(torch.all(ep[..., pad_cols] == 0)),
                   f"epilogue on the permuted layout, {name} B={B}")
+            # 3xTF32 against float64: acc = relu(acc) - relu(-acc), both exact with
+            # s1 = +-1 and b1 = 0, against x @ M over its sum |a*b|
+            unit = torch.zeros_like(vecs)
+            unit[0] = 1.0
+            acc = stgcn_sparse.sparse_graph_matmul_bn_relu(x, tiles, unit, col_off, vlist)
+            unit[0] = -1.0
+            acc -= stgcn_sparse.sparse_graph_matmul_bn_relu(x, tiles, unit, col_off, vlist)
+            xd = x.reshape(B * T, WP).double()
+            exact, mag = xd @ Mp.double(), xd.abs() @ Mp.double().abs()
+            live = mag > 0
+            a_max, a_bias = float64_gap(acc.reshape(B * T, WP)[live], exact[live], mag[live])
+            check(a_max <= 5e-7 and abs(a_bias) <= 5e-8,
+                  f"sparse {name} B={B}: acc off float64 by {a_max} of sum|a*b| (bias {a_bias})")
+            del unit, acc, xd, exact, mag, live
             nnz, N = tiles.shape[0], B * T
             flops = 2 * N * nnz * 128 * 128
             nbytes = 2 * N * WP * 4 + nnz * 128 * 128 * 4 + 8 * WP * 4 + (col_off.numel() + nnz) * 4
-            b_ms, b_by = bound_ms(nbytes, flops)
+            f_ms, _ = bound_ms(nbytes, flops)
+            b_ms, b_by = tc_bound_ms(nbytes, flops)
             k_ms = device_ms(lambda: stgcn_sparse.sparse_graph_matmul_bn_relu(x, tiles, vecs, col_off, vlist))
             p_ms = device_ms(lambda: stgcn_sparse.sparse_graph_matmul_bn_relu_ref(x, tiles, vecs, col_off, vlist),
                            iters=5, warmup=1)
@@ -444,10 +496,11 @@ def sparse_kernel_phase(dev, smi):
             mm_ms = device_ms(lambda: torch.matmul(x, Mp))
             rows[("stgcn_sparse", name, B)] = dict(
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
-            print(f"[{smi}] sparse {name} ({nnz} tiles) B={B}: max|err| {err:.3e}  kernel {k_ms:.4f} ms "
+            print(f"[{smi}] sparse {name} ({nnz} tiles) B={B}: max|err| {err:.3e}  same bits on relaunch  "
+                  f"acc vs float64: max {a_max:.2e}, bias {a_bias:.2e} of sum|a*b|  kernel {k_ms:.4f} ms "
                   f"({flops / k_ms / 1e9:.1f} TFLOP/s)  plain {p_ms:.4f} ms  "
                   f"dense matmul+BN1+ReLU {l_ms:.4f} ms (matmul alone {mm_ms:.4f} ms)  "
-                  f"bound {b_ms:.4f} ms ({b_by})")
+                  f"{bound_shares(k_ms, f_ms, b_ms, b_by)}")
             del x, tiles, vecs, Mp, KB, out, again, ref, ep, ep_ref
     return rows
 

@@ -16,158 +16,343 @@
 // PyTorch version computes it.
 //
 // What bounds it on an H100: operations.  Per clip the 279 tiles of the
-// default skeleton need 2*768*279*128*128 = 7.02 GFLOP of exact f32 FMAs
-// (0.105 ms at 67 TFLOP/s) while x and out move 21.2 MB and the tiles 18.3 MB
-// once per launch (0.012 ms at 3.35 TB/s at B=1).
+// default skeleton need 2*768*279*128*128 = 7.02 GFLOP: 0.105 ms as f32 FMAs
+// on the CUDA cores (67 TFLOP/s), 0.0425 ms as three TF32 products each on
+// the tensor cores (3xTF32, 495 TFLOP/s), while x and out move 21.2 MB and
+// the tiles 18.3 MB once per launch (0.012 ms at 3.35 TB/s at B=1).
 //
 // Design: the TPU kernel keeps a (R, 3456) row chunk of x resident in VMEM;
 // on the H100 one row is 13.8 KB, so the chunk cannot stay in shared memory.
-// Instead one block computes a 64-row x 128-column output tile (one output
-// column tile w, one row chunk) and walks its CSR list: for each nonzero
-// tile j it streams the x slab x[rows, vlist[j]*128 : +128] and the tile in
-// k-steps of 32 through shared memory (25 KB), re-reading each x slab from
-// L2 (the 18.3 MB of tiles and the row chunks fit the 50 MB L2).  The next
-// k-step's global loads go to registers while the current one is multiplied.
-// Each of the 128 threads keeps an 8x8 register tile of accumulators (rows
-// ty*8..+8, columns tx*4..+4 and 64+tx*4..+4, so a quarter warp's 16-byte
-// shared loads hit distinct banks).  Plain CUDA cores in f32: no tensor
-// cores, no TMA (a later optimisation).
+// A unit of work is one 128-row x 128-column output tile (one output column
+// tile w, one row block) over a chunk of w's CSR list.  Its K sequence, the
+// (tile j, 32-deep k-stage) pairs of the chunk, is known up front, so a
+// 4-stage cp.async ring streams the x slab x[rows, vlist[j]*128 + k : +32]
+// and the tile's rows k .. k+32 through 128 KB of shared memory, from L2 (the
+// 18.3 MB of tiles and the rows in flight fit the 50 MB L2).  8 warps, each a
+// 32 x 64 output tile, form the products with mma.sync m16n8k8 in 3xTF32 with
+// tconv_mma.cuh's arithmetic: each operand split into big and small TF32
+// parts, three products small terms first, each k-step's products in a
+// fresh fragment folded into the f32 accumulator by an IEEE add (the tensor
+// cores' own adds truncate).  XOR swizzles keep every fragment load on 32
+// banks.  Splitting each landed stage once into big and small planes in
+// shared memory, instead of per fragment load, was slower (a barrier-
+// separated pass; the splitstage variant of
+// scripts/torch_bwd_sparse_variants.py).
+//
+// Balance: the lists are uneven (5-20 tiles, annealed order), and at B=1
+// there are only 6 row blocks, so the longest list would set the launch's
+// length.  The lists are cut into chunks of at most `cap` tiles, cap chosen
+// so that the chunks fill the card about three times (at B=8 no list is
+// cut), and the units are launched longest first: the block scheduler then
+// hands each free SM the longest unit left.  A cut list's chunks each write
+// their partial to scratch; the last of them to finish (an integer counter,
+// no float atomics) sums the partials in chunk order, so the bits do not
+// depend on which finished last, and applies BN1 and the ReLU.  The pad slot
+// (slot 36 of SPARSE_JOINT_ORDER) stays exactly 0: its x columns, tile rows
+// and columns and vecs are 0.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "tconv_mma.cuh"
+
 namespace {
 
-constexpr int kLane = 128;    // tile edge
-constexpr int kBM = 64;       // output rows per block
-constexpr int kBK = 32;       // depth of one k-step
-constexpr int kThreads = 128;
-constexpr int kTM = 8;        // rows per thread
-constexpr int kAStride = kBK + 4;  // As rows stay 16-byte aligned
-constexpr int kStepsPerTile = kLane / kBK;
-constexpr int kALoads = kBM * kBK / 4 / kThreads;    // float4 loads of x per thread and step
-constexpr int kBLoads = kBK * kLane / 4 / kThreads;  // float4 loads of the tile
+using tconv::cp_async16;
+using tconv::cp_async_commit;
+using tconv::cp_async_wait;
+using tconv::mma_tf32;
+using tconv::split;
 
-static_assert((kBM / kTM) * (kLane / 8) == kThreads, "thread tile must cover the block tile");
-static_assert(kALoads * kThreads * 4 == kBM * kBK, "x slab loads");
-static_assert(kBLoads * kThreads * 4 == kBK * kLane, "tile loads");
+constexpr int kLane = 128;     // tile edge
+constexpr int kBM = 128;       // output rows of a unit
+constexpr int kBK = 32;        // depth of one pipeline stage
+constexpr int kStages = 4;
+constexpr int kThreads = 256;  // 8 warps: 4 along the rows x 2 along the columns
+constexpr int kMT = 2;         // 16-row m-tiles of a warp
+constexpr int kNT = 8;         // 8-column n-tiles of a warp
+constexpr int kStagesPerTile = kLane / kBK;
+constexpr int kAFloats = kBM * kBK;    // x slab of one stage, [row][k]
+constexpr int kBFloats = kBK * kLane;  // tile rows of one stage, [k][column]
+constexpr int kStageFloats = kAFloats + kBFloats;
+constexpr int kUnitFloats = kBM * kLane;  // one unit's partial
+constexpr int kMaxCols = 64;              // output column tiles the schedule holds
+constexpr int kMinChunk = 4;              // shortest chunk a list is cut into
+constexpr int kMaxChunks = kMaxCols + kMaxCols * kMaxCols / kMinChunk;
+constexpr int kSplitWaves = 3;            // the chunks fill the card about this many times
+constexpr size_t kSmemBytes = kStages * kStageFloats * sizeof(float);
 
-__device__ __forceinline__ float4 fma4(float a, float4 b, float4 acc) {
-  acc.x += a * b.x;
-  acc.y += a * b.y;
-  acc.z += a * b.z;
-  acc.w += a * b.w;
-  return acc;
-}
+static_assert(4 * 16 * kMT == kBM && 2 * 8 * kNT == kLane, "the warps cover the unit");
+
+__device__ __forceinline__ int a_index(int r, int k) { return r * kBK + (k ^ ((r & 7) << 2)); }
+__device__ __forceinline__ int b_index(int k, int n) { return k * kLane + (n ^ ((k & 3) << 3)); }
 
 __device__ __forceinline__ float bn_relu(float acc, float s, float b) {
   return fmaxf(__fadd_rn(__fmul_rn(acc, s), b), 0.f);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The chunk schedule, the same in every block: column w's list of L tiles
+// is cut into max(1, ceil(L / cap)) near-equal chunks, numbered in (column,
+// chunk) order from cbase[w]; order[] lists the chunks longest first.
+struct Schedule {
+  int off[kMaxCols + 1];
+  int cbase[kMaxCols + 1];
+  int len[kMaxChunks];
+  int order[kMaxChunks];
+  int last;  // this block sums its column's partials
+};
+
+struct Chunk {
+  int w, q, nq, j0, j1;
+};
+
+__device__ __forceinline__ Chunk chunk_at(const Schedule& sc, int c) {
+  Chunk k;
+  k.w = 0;
+  while (sc.cbase[k.w + 1] <= c) ++k.w;
+  k.nq = sc.cbase[k.w + 1] - sc.cbase[k.w];
+  k.q = c - sc.cbase[k.w];
+  const int lo = sc.off[k.w];
+  const int L = sc.off[k.w + 1] - lo;
+  k.j0 = lo + k.q * L / k.nq;
+  k.j1 = lo + (k.q + 1) * L / k.nq;
+  return k;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
 sparse_kernel(const float* __restrict__ x, const float* __restrict__ tiles,
               const float* __restrict__ vecs, const int* __restrict__ col_off,
-              const int* __restrict__ vlist, float* __restrict__ out, int N, int Wp) {
-  __shared__ __align__(16) float As[kBM * kAStride];  // [row][k] of the x slab
-  __shared__ __align__(16) float Bs[kBK * kLane];     // [k][column] of the tile
-
-  const int w = blockIdx.x;
-  const int row0 = blockIdx.y * kBM;
+              const int* __restrict__ vlist, float* __restrict__ out,
+              float* __restrict__ partials, int* __restrict__ counters, int N, int Wp, int cap) {
+  extern __shared__ __align__(16) float smem[];  // kStages x [A slab | B rows]
+  __shared__ Schedule sc;
+  const int G = Wp / kLane;
+  const int n_rb = (N + kBM - 1) / kBM;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int lo = col_off[w];
-  const int n_steps = (col_off[w + 1] - lo) * kStepsPerTile;
 
-  float4 acc[kTM][2];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) acc[i][0] = acc[i][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid; i <= G; i += kThreads) sc.off[i] = col_off[i];
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int w = 0; w < G; ++w) {
+      sc.cbase[w] = n;
+      n += max(1, (sc.off[w + 1] - sc.off[w] + cap - 1) / cap);
+    }
+    sc.cbase[G] = n;
+  }
+  __syncthreads();
+  const int n_chunks = sc.cbase[G];
+  const int rank = blockIdx.x / n_rb;
+  if (rank >= n_chunks) return;  // the grid counts the most chunks the lists could give
+  for (int c = tid; c < n_chunks; c += kThreads) {
+    const Chunk k = chunk_at(sc, c);
+    sc.len[c] = k.j1 - k.j0;
+  }
+  __syncthreads();
+  for (int c = tid; c < n_chunks; c += kThreads) {  // longest first, ties in chunk order
+    int r = 0;
+    for (int o = 0; o < n_chunks; ++o) r += sc.len[o] > sc.len[c] || (sc.len[o] == sc.len[c] && o < c);
+    sc.order[r] = c;
+  }
+  __syncthreads();
+  const Chunk k = chunk_at(sc, sc.order[rank]);
+  const int row0 = (blockIdx.x % n_rb) * kBM;
+  const int steps = (k.j1 - k.j0) * kStagesPerTile;
 
-  float4 ra[kALoads], rb[kBLoads];
-  auto load_step = [&](int step) {
-    const int j = lo + step / kStepsPerTile;
-    const int k0 = (step % kStepsPerTile) * kBK;
+  auto issue = [&](int step) {  // start the copies of one stage
+    float* As = smem + (step % kStages) * kStageFloats;
+    float* Bs = As + kAFloats;
+    const int j = k.j0 + step / kStagesPerTile;
+    const int k0 = (step % kStagesPerTile) * kBK;
     const size_t xcol = static_cast<size_t>(__ldg(vlist + j)) * kLane + k0;
-#pragma unroll
-    for (int i = 0; i < kALoads; ++i) {
-      const int f = tid + i * kThreads;
-      const int m = f / (kBK / 4);
-      const int k4 = f % (kBK / 4);
-      const int row = row0 + m;
-      ra[i] = row < N ? __ldg(reinterpret_cast<const float4*>(x + static_cast<size_t>(row) * Wp + xcol) + k4)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i = tid; i < kBM * (kBK / 4); i += kThreads) {
+      const int r = i / (kBK / 4);
+      const int q = i % (kBK / 4);
+      const bool valid = row0 + r < N;  // rows past the end are zero-filled
+      const float* src = valid ? x + static_cast<size_t>(row0 + r) * Wp + xcol + 4 * q : x;
+      cp_async16(As + a_index(r, 4 * q), src, valid);
     }
     const float* tile = tiles + (static_cast<size_t>(j) * kLane + k0) * kLane;
-#pragma unroll
-    for (int i = 0; i < kBLoads; ++i) {
-      rb[i] = __ldg(reinterpret_cast<const float4*>(tile) + tid + i * kThreads);
+    for (int i = tid; i < kBK * (kLane / 4); i += kThreads) {
+      const int kr = i / (kLane / 4);
+      const int q = i % (kLane / 4);
+      cp_async16(Bs + b_index(kr, 4 * q), tile + kr * kLane + 4 * q, true);
     }
   };
 
-  if (n_steps > 0) load_step(0);
-  for (int step = 0; step < n_steps; ++step) {
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int wrow = (warp & 3) * 16 * kMT;
+  const int wcol = (warp >> 2) * 8 * kNT;
+  float acc[kMT][kNT][4];
 #pragma unroll
-    for (int i = 0; i < kALoads; ++i) {
-      const int f = tid + i * kThreads;
-      *reinterpret_cast<float4*>(As + (f / (kBK / 4)) * kAStride + 4 * (f % (kBK / 4))) = ra[i];
-    }
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int i = 0; i < kBLoads; ++i) {
-      reinterpret_cast<float4*>(Bs)[tid + i * kThreads] = rb[i];
-    }
-    __syncthreads();
-    if (step + 1 < n_steps) load_step(step + 1);  // in flight during the products below
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
 #pragma unroll
-    for (int k = 0; k < kBK; k += 4) {
-      float4 a[kTM];
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) issue(s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // this stage has landed; the slot of the last one is free
+    if (step + kStages - 1 < steps) issue(step + kStages - 1);
+    cp_async_commit();
+    const float* As = smem + (step % kStages) * kStageFloats;
+    const float* Bs = As + kAFloats;
 #pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        a[i] = *reinterpret_cast<const float4*>(As + (ty * kTM + i) * kAStride + k);
+    for (int kk = 0; kk < kBK; kk += 8) {
+      uint32_t ab[kMT][4], as[kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        const int r = wrow + mt * 16 + g;
+        split(As[a_index(r, kk + c)], ab[mt][0], as[mt][0]);
+        split(As[a_index(r + 8, kk + c)], ab[mt][1], as[mt][1]);
+        split(As[a_index(r, kk + c + 4)], ab[mt][2], as[mt][2]);
+        split(As[a_index(r + 8, kk + c + 4)], ab[mt][3], as[mt][3]);
       }
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float4 b0 = *reinterpret_cast<const float4*>(Bs + (k + kk) * kLane + tx * 4);
-        const float4 b1 = *reinterpret_cast<const float4*>(Bs + (k + kk) * kLane + 64 + tx * 4);
+      for (int nt = 0; nt < kNT; ++nt) {
+        uint32_t bb0, bs0, bb1, bs1;
+        split(Bs[b_index(kk + c, wcol + nt * 8 + g)], bb0, bs0);
+        split(Bs[b_index(kk + c + 4, wcol + nt * 8 + g)], bb1, bs1);
 #pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          const float av = kk == 0 ? a[i].x : kk == 1 ? a[i].y : kk == 2 ? a[i].z : a[i].w;
-          acc[i][0] = fma4(av, b0, acc[i][0]);
-          acc[i][1] = fma4(av, b1, acc[i][1]);
+        for (int mt = 0; mt < kMT; ++mt) {
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_tf32(part, as[mt], bb0, bb1);
+          mma_tf32(part, ab[mt], bs0, bs1);
+          mma_tf32(part, ab[mt], bb0, bb1);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[i];
         }
       }
     }
+  }
+  cp_async_wait<0>();
+
+  if (k.nq > 1) {  // a cut list: leave the partial; the last chunk to finish sums them in order
+    const int rb = blockIdx.x % n_rb;
+    float* mine = partials + (static_cast<size_t>(sc.order[rank]) * n_rb + rb) * kUnitFloats;
+    int e = 0;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) __stcg(mine + (e++) * kThreads + tid, acc[mt][nt][i]);
+    __threadfence();
     __syncthreads();
+    if (tid == 0) sc.last = atomicAdd(counters + k.w * n_rb + rb, 1) == k.nq - 1;
+    __syncthreads();
+    if (!sc.last) return;
+    __threadfence();
+    for (int q = 0; q < k.nq; ++q) {
+      const float* p = partials + (static_cast<size_t>(sc.cbase[k.w] + q) * n_rb + rb) * kUnitFloats;
+      e = 0;
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float v = __ldcg(p + (e++) * kThreads + tid);
+            acc[mt][nt][i] = q == 0 ? v : acc[mt][nt][i] + v;
+          }
+    }
   }
 
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = w * kLane + h * 64 + tx * 4;
-    const float4 s = *reinterpret_cast<const float4*>(vecs + c);
-    const float4 b = *reinterpret_cast<const float4*>(vecs + Wp + c);
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int col = k.w * kLane + wcol + nt * 8 + 2 * c;
+    const float2 s = __ldg(reinterpret_cast<const float2*>(vecs + col));
+    const float2 b = __ldg(reinterpret_cast<const float2*>(vecs + Wp + col));
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int row = row0 + ty * kTM + i;
-      if (row >= N) continue;
-      const float4 v = acc[i][h];
-      *reinterpret_cast<float4*>(out + static_cast<size_t>(row) * Wp + c) =
-          make_float4(bn_relu(v.x, s.x, b.x), bn_relu(v.y, s.y, b.y),
-                      bn_relu(v.z, s.z, b.z), bn_relu(v.w, s.w, b.w));
-    }
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = row0 + wrow + mt * 16 + g + 8 * half;
+        if (row >= N) continue;
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * Wp + col) =
+            make_float2(bn_relu(acc[mt][nt][2 * half], s.x, b.x), bn_relu(acc[mt][nt][2 * half + 1], s.y, b.y));
+      }
   }
+}
+
+struct Plan {
+  int cap;            // longest chunk, in tiles
+  int grid;           // blocks: row blocks x the most chunks the lists could give
+  size_t scratch;     // floats of partials (0: no list is cut)
+  int counters;       // ints of counters, zeroed by the caller
+};
+
+int make_plan(int N, int Wp, int nnz, Plan* plan) {
+  static int slots = 0;  // resident blocks on the card
+  if (slots == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(sparse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kSmemBytes));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sparse_kernel, kThreads, kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    slots = per_sm * sms;
+  }
+  const int G = Wp / kLane;
+  if (G > kMaxCols || nnz > G * G) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_rb = (N + kBM - 1) / kBM;
+  const long long work = static_cast<long long>(nnz) * n_rb;
+  const long long per_unit = (work + static_cast<long long>(kSplitWaves) * slots - 1) / (kSplitWaves * slots);
+  plan->cap = static_cast<int>(per_unit < kMinChunk ? kMinChunk : per_unit > G ? G : per_unit);
+  // a list has at most G tiles: with cap >= G none is cut and there are G chunks
+  const bool cut = plan->cap < G;
+  const int max_chunks = cut ? G + nnz / plan->cap : G;
+  plan->grid = max_chunks * n_rb;
+  plan->scratch = cut ? static_cast<size_t>(max_chunks) * n_rb * kUnitFloats : 0;
+  plan->counters = cut ? G * n_rb : 0;
+  return 0;
 }
 
 }  // namespace
 
-// x, out: (N, Wp) contiguous f32; tiles: (nnz, 128, 128) f32; vecs: (8, Wp)
-// f32; col_off: (Wp/128 + 1,) int32; vlist: (nnz,) int32 with entries in
-// [0, Wp/128).  Wp % 128 == 0.  Returns the cudaError_t of the launch (0 on
-// success).
+// The scratch the launch needs for these shapes: sizes[0] floats of
+// partials and sizes[1] int32 counters that must be zero (0 and 0 when no
+// list is cut).  Returns a cudaError_t (0 on success).
+extern "C" int p2r_stgcn_sparse_scratch(int N, int Wp, int nnz, long long* sizes) {
+  Plan plan;
+  const int err = make_plan(N, Wp, nnz, &plan);
+  if (err != 0) return err;
+  sizes[0] = static_cast<long long>(plan.scratch);
+  sizes[1] = plan.counters;
+  return 0;
+}
+
+// x, out: (N, Wp) contiguous f32, 16-byte aligned; tiles: (nnz, 128, 128)
+// f32; vecs: (8, Wp) f32; col_off: (Wp/128 + 1,) int32; vlist: (nnz,) int32
+// with entries in [0, Wp/128); partials, counters: the scratch of
+// p2r_stgcn_sparse_scratch (null when it is 0), counters zeroed.
+// Wp % 128 == 0, Wp / 128 <= 64.  Returns the cudaError_t of the launch (0
+// on success).
 extern "C" int p2r_stgcn_sparse_f32(const float* x, const float* tiles, const float* vecs,
                                     const int* col_off, const int* vlist, float* out,
-                                    int N, int Wp, void* stream) {
+                                    float* partials, int* counters, int N, int Wp, int nnz,
+                                    void* stream) {
   if (N == 0) return 0;
-  const dim3 grid(Wp / kLane, (N + kBM - 1) / kBM);
-  sparse_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, tiles, vecs, col_off, vlist, out, N, Wp);
+  Plan plan;
+  const int err = make_plan(N, Wp, nnz, &plan);
+  if (err != 0) return err;
+  if (plan.scratch > 0 && (partials == nullptr || counters == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  sparse_kernel<<<plan.grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      x, tiles, vecs, col_off, vlist, out, partials, counters, N, Wp, plan.cap);
   return static_cast<int>(cudaGetLastError());
 }

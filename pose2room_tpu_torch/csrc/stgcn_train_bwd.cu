@@ -9,222 +9,352 @@
 //   t1    = relu(y * s1 + sh1)                (recomputed; never stored)
 //   dt1   = dy2[t+1] @ KBT[0] + dy2[t] @ KBT[1] + dy2[t-1] @ KBT[2]
 //   dpre  = (t1 > 0) ? dt1 : 0
-//   chunk_parts[b, chunk] = per-column [sum(dpre), sum(dpre * y)]
-//   tap_parts[b, chunk, joint, s] = shift_s(t1)^T @ dy2 over the chunk's rows,
-//                                   for the joint's 64x64 diagonal block
+//   tile_parts[b, part] = per-column [sum(dpre), sum(dpre * y)] over the rows
+//                         of 64-row part `part` (ROW_TILE in ops/stgcn_train.py)
+//   tap_parts[block, s] = sum over the block's tiles of shift_s(t1)^T @ dy2,
+//                         the joint's 64x64 diagonal block
 // KBT (3,128,128) holds the transposed block-diagonal taps; the kernel reads
-// only their diagonal 64x64 blocks.  The wrapper reduces chunk_parts over the
-// chunks and tap_parts over (clip, chunk, joint) with fixed-order sums, so
-// the tap gradient is the diagonal-block fold of the TPU kernel's dense dKB
-// and repeated runs agree bit for bit (no float atomics).
+// only their diagonal 64x64 blocks.  The wrapper sums tile_parts over the
+// parts of a clip and tap_parts over the blocks with fixed-order sums, so the
+// tap gradient is the diagonal-block fold of the TPU kernel's dense dKB and
+// repeated runs agree bit for bit (no float atomics).
 //
 // What bounds it on an H100: operations.  At B=8, dt1 and the tap gradient
-// each need 2*6144*3456*192 = 8.15 GFLOP of f32 FMAs, 16.3 GFLOP in all
-// (0.243 ms at 67 TFLOP/s), while dy2, y and dpre move 255 MB (0.076 ms).
+// each need 2*6144*3456*192 = 8.15 GFLOP, 16.3 GFLOP in all: 0.243 ms as f32
+// FMAs on the CUDA cores (67 TFLOP/s), 0.099 ms as three TF32 products each
+// on the tensor cores (3xTF32, 495 TFLOP/s), while dy2, y and dpre move
+// 255 MB (0.076 ms at 3.35 TB/s).
 //
-// Design: one block owns one joint's 64 columns over a chunk of up to four
-// 64-row tiles of one clip.  Per tile it stages a (64+2)-row slab of dy2
-// and one of t1 (both with the t-1/t+1 halo, zero outside the clip) beside
-// the three 64x64 transposed taps, stored in reverse tap order so that the
-// transpose runs the same loop as the forward.  Each of the 128 threads
-// keeps an 8x4 tile of dt1 accumulators and, across the chunk's tiles, an
-// 8x4 tile of each of the three tap gradients in registers.  y*s1 + sh1 is
-// rounded as a product then a sum, as the plain version computes it, so the
-// ReLU mask matches it exactly.  Pad columns (3392..3455) give exactly 0
-// because y, vecs and dy2 are 0 there.  Plain CUDA cores, no tensor cores.
+// Design: both products on the tensor cores in 3xTF32 (tconv_mma.cuh's
+// arithmetic: each k-step's three products in a fresh fragment folded into
+// the accumulator by an IEEE add), on tconv_mma.cuh's persistent,
+// parity-split grid with 128-row tiles, one block of 8 warps an SM.  The
+// block stages its joints' three transposed diagonal taps once, in reverse
+// tap order, so that tconv_mma computes the transpose unchanged.  Per tile
+// it stages slabs of dy2 and of y with the t-1/t+1 halo by cp.async (zero
+// outside the clip), double-buffered: the next tile's copies run during this
+// tile's products.  All threads build t1 from y into a third slab, rounded as
+// a product then a sum (no FMA contraction), as kernel 3 and the plain
+// version compute it, so the ReLU mask agrees bit for bit.  Then the warps
+// split in two roles (warp-uniform, so each keeps only its own registers):
+//   warps 0-3: dt1 = tconv_mma(dy2 slab, reversed taps), 32 rows each; the
+//     mask, dpre, and the column moments, summed over a warp's rows by
+//     shuffles and over the two warps of each 64-row part in a fixed order;
+//   warps 4-7: the tap gradient as a GEMM with K over the tile's rows:
+//     A = t1 slab^T at row offset s (read column-wise), B = the dy2 rows,
+//     both with 2-way bank conflicts on tconv_mma.cuh's swizzle; the stacked (3*64) x 64 output is
+//     cut into 12 m-tiles, 3 a warp, held in registers across every tile the
+//     block walks (96 floats a thread) and written once per block.
+// Shared memory: taps 48 KB, two dy2 and two y slabs and the t1 slab 33 KB
+// each, 2 KB of moment partials: 212.5 KB.  Pad columns (3392..3455) come
+// out exactly 0 because y, vecs and dy2 are 0 there.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
+#include "tconv_mma.cuh"
+
 namespace {
 
-constexpr int kC = 64;
-constexpr int kLane = 128;
-constexpr int kRows = 64;
-constexpr int kTilesPerBlock = 4;   // ROW_TILE * BWD_TILES_PER_BLOCK rows in ops/stgcn_train.py
-constexpr int kThreads = 128;
-constexpr int kTM = 8;
-constexpr int kTN = 4;
-constexpr int kThreadRows = kRows / kTM;
-constexpr int kSlabStride = kC + 1;
+using namespace tconv;
 
-static_assert(kThreadRows * (kC / kTN) == kThreads, "thread tile must cover the block tile");
-static_assert(2 * kC == kThreads, "one thread per (moment, column) in the final reduction");
+constexpr int kBwdThreads = 256;     // warps 0-3: dt1; warps 4-7: the tap gradient
+constexpr int kRoleThreads = kBwdThreads / 2;
+constexpr int kPartRows = 64;        // ROW_TILE: the row granularity of tile_parts
+constexpr int kWarpsPerPart = kPartRows / (16 * kMT);
+constexpr int kGradMT = 3 * kC / 16 / 4;  // m-tiles of the stacked (tap, channel) rows a warp owns
+constexpr int kRedFloats = 4 * 2 * kC;    // [dt1 warp][moment][column]
+constexpr size_t kSmemBytes = (kTapFloats + 5 * kSlabFloats + kRedFloats) * sizeof(float);
 
-constexpr size_t kTapFloats = 3 * kC * kC;
-constexpr size_t kSlabFloats = (kRows + 2) * kSlabStride;
-constexpr size_t kRedFloats = 2 * kThreadRows * kC;
-constexpr size_t kSmemBytes = (kTapFloats + 2 * kSlabFloats + kRedFloats) * sizeof(float);
+static_assert(kRows == 16 * kMT * (kRoleThreads / 32), "the dt1 warps cover the tile's rows");
+static_assert(kBwdThreads == 2 * 2 * kC, "one thread per (part, moment, column) of a tile");
 
-__global__ void __launch_bounds__(kThreads)
+// every thread of the block; the two roles reach it from their own loops
+__device__ __forceinline__ void block_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kBwdThreads) : "memory");
+}
+
+struct Bufs {
+  const float* taps;
+  float* dslab;  // [2][kSlabFloats] dy2
+  float* yslab;  // [2][kSlabFloats] y
+  float* tslab;  // t1 of the current tile
+  float* red;
+};
+
+// dt1 of the warp's 32 rows, the mask, dpre and the warp's column moments
+__device__ __forceinline__ void dt1_tile(const Bufs& sm, const float* ds, const float* ys,
+                                         const TileAt& a, float* __restrict__ dpre, int T, int Wp) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int row0 = warp * 16 * kMT;
+  float acc[kMT][kNT][4];
+  tconv_mma(ds, sm.taps, row0, acc);
+
+  float sum[kNT][2], dot[kNT][2];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int k = nt * 8 + 2 * c;
+    sum[nt][0] = sum[nt][1] = dot[nt][0] = dot[nt][1] = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row0 + mt * 16 + g + 8 * half;
+        const int t = a.t0 + r;
+        if (t >= T) continue;
+        const float2 tv = *reinterpret_cast<const float2*>(sm.tslab + slab_index(r + 1, k));
+        const float2 yv = *reinterpret_cast<const float2*>(ys + slab_index(r + 1, k));
+        const float d0 = tv.x > 0.f ? acc[mt][nt][2 * half] : 0.f;
+        const float d1 = tv.y > 0.f ? acc[mt][nt][2 * half + 1] : 0.f;
+        *reinterpret_cast<float2*>(dpre + (a.clip_row0 + t) * Wp + a.col0 + k) = make_float2(d0, d1);
+        sum[nt][0] += d0;
+        sum[nt][1] += d1;
+        dot[nt][0] += d0 * yv.x;
+        dot[nt][1] += d1 * yv.y;
+      }
+  }
+  // sum over the warp's 8 row groups (lanes of equal c), then one lane per c writes
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        sum[nt][j] += __shfl_xor_sync(0xffffffffu, sum[nt][j], off);
+        dot[nt][j] += __shfl_xor_sync(0xffffffffu, dot[nt][j], off);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        sm.red[(warp * 2 + 0) * kC + nt * 8 + 2 * c + j] = sum[nt][j];
+        sm.red[(warp * 2 + 1) * kC + nt * 8 + 2 * c + j] = dot[nt][j];
+      }
+  }
+}
+
+// gacc[mi] += the tile's share of m-tile (3 * gwarp + mi) of the stacked
+// tap gradient: rows (s, i0 .. i0 + 16) of dKB[s] = sum_r t1[r + s - 1]^T dy2[r]
+__device__ __forceinline__ void grad_tile(const float* tslab, const float* ds, int k_end,
+                                          float (&gacc)[kGradMT][kNT][4]) {
+  const int gwarp = (threadIdx.x >> 5) - 4;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+#pragma unroll 1
+  for (int k0 = 0; k0 < k_end; k0 += 8) {
+    uint32_t ab[kGradMT][4], as[kGradMT][4];
+#pragma unroll
+    for (int mi = 0; mi < kGradMT; ++mi) {
+      const int m = kGradMT * gwarp + mi;
+      const int r = k0 + c + m / 4;  // slab row of t1[t + s - 1] for tile row k0 + c, s = m / 4
+      const int i = (m % 4) * 16 + g;
+      split(tslab[slab_index(r, i)], ab[mi][0], as[mi][0]);
+      split(tslab[slab_index(r, i + 8)], ab[mi][1], as[mi][1]);
+      split(tslab[slab_index(r + 4, i)], ab[mi][2], as[mi][2]);
+      split(tslab[slab_index(r + 4, i + 8)], ab[mi][3], as[mi][3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      uint32_t bb0, bs0, bb1, bs1;
+      split(ds[slab_index(k0 + c + 1, nt * 8 + g)], bb0, bs0);
+      split(ds[slab_index(k0 + c + 5, nt * 8 + g)], bb1, bs1);
+#pragma unroll
+      for (int mi = 0; mi < kGradMT; ++mi) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(part, as[mi], bb0, bb1);
+        mma_tf32(part, ab[mi], bs0, bs1);
+        mma_tf32(part, ab[mi], bb0, bb1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) gacc[mi][nt][i] += part[i];
+      }
+    }
+  }
+}
+
+// The walk over the block's tiles, as one role: staging, t1 and the moments'
+// last sum are shared work (every thread, in both roles), the products are
+// the role's.  kGrad: the tap gradient role.
+template <bool kGrad>
+__device__ __forceinline__ void walk(const Bufs& sm, const float* __restrict__ dy2,
+                                     const float* __restrict__ y, const float* __restrict__ vecs,
+                                     float* __restrict__ dpre, float* __restrict__ tile_parts,
+                                     float* __restrict__ tap_parts, int B, int T, int Wp) {
+  const int items = (Wp / kC / 2) * B * ((T + kRows - 1) / kRows);
+  const int stride = gridDim.x / 2;
+  const int n_parts = (T + kPartRows - 1) / kPartRows;
+  const int q = threadIdx.x % (kC / 4);  // the float4 column this thread stages and turns into t1
+  float gacc[kGradMT][kNT][4];  // the grad role's running sum (unused by the other)
+  if constexpr (kGrad) {
+#pragma unroll
+    for (int mi = 0; mi < kGradMT; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) gacc[mi][nt][i] = 0.f;
+  }
+
+  int item = blockIdx.x >> 1;
+  TileAt a = tile_at(item, B, T);
+  for (int buf = 0; item < items; item += stride, buf ^= 1) {
+    const bool more = item + stride < items;
+    const TileAt next = tile_at(more ? item + stride : item, B, T);
+    const float* ds = sm.dslab + buf * kSlabFloats;
+    const float* ys = sm.yslab + buf * kSlabFloats;
+    if (more) {  // the next tile's copies run during this tile's products
+      stage_slab<kBwdThreads>(sm.dslab + (buf ^ 1) * kSlabFloats, dy2, next.clip_row0, next.t0, T, Wp, next.col0);
+      stage_slab<kBwdThreads>(sm.yslab + (buf ^ 1) * kSlabFloats, y, next.clip_row0, next.t0, T, Wp, next.col0);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    block_sync();  // this tile's slabs have landed
+
+    const float4 s1 = __ldg(reinterpret_cast<const float4*>(vecs + a.col0 + 4 * q));
+    const float4 sh1 = __ldg(reinterpret_cast<const float4*>(vecs + Wp + a.col0 + 4 * q));
+    for (int i = threadIdx.x; i < (kRows + 2) * (kC / 4); i += kBwdThreads) {
+      const int r = i / (kC / 4);
+      const int t = a.t0 - 1 + r;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);  // t1 is 0 outside the clip
+      if (t >= 0 && t < T) {
+        v = *reinterpret_cast<const float4*>(ys + slab_index(r, 4 * q));
+        v.x = fmaxf(__fadd_rn(__fmul_rn(v.x, s1.x), sh1.x), 0.f);
+        v.y = fmaxf(__fadd_rn(__fmul_rn(v.y, s1.y), sh1.y), 0.f);
+        v.z = fmaxf(__fadd_rn(__fmul_rn(v.z, s1.z), sh1.z), 0.f);
+        v.w = fmaxf(__fadd_rn(__fmul_rn(v.w, s1.w), sh1.w), 0.f);
+      }
+      *reinterpret_cast<float4*>(sm.tslab + slab_index(r, 4 * q)) = v;
+    }
+    block_sync();  // t1 is built
+
+    if constexpr (kGrad) {
+      // rows past the clip hold dy2 = 0 and add nothing
+      const int k_end = min(kRows, (T - a.t0 + 7) / 8 * 8);
+      grad_tile(sm.tslab, ds, k_end, gacc);
+    } else {
+      dt1_tile(sm, ds, ys, a, dpre, T, Wp);
+    }
+    block_sync();  // the slabs are read and the moment partials written
+
+    {  // the tile's two 64-row parts: its two dt1 warps each, summed in a fixed order
+      const int h = threadIdx.x / (2 * kC);
+      const int moment = (threadIdx.x / kC) % 2;
+      const int col = threadIdx.x % kC;
+      const int part = a.t0 / kPartRows + h;
+      if (part < n_parts) {
+        float total = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarpsPerPart; ++w) total += sm.red[((h * kWarpsPerPart + w) * 2 + moment) * kC + col];
+        tile_parts[((static_cast<size_t>(a.b) * n_parts + part) * 2 + moment) * Wp + a.col0 + col] = total;
+      }
+    }
+    // red is written again only after the next tile's second block_sync
+    a = next;
+  }
+
+  if constexpr (kGrad) {
+    const int gwarp = (threadIdx.x >> 5) - 4;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int c = lane & 3;
+    float* out = tap_parts + static_cast<size_t>(blockIdx.x) * kTapFloats;
+#pragma unroll
+    for (int mi = 0; mi < kGradMT; ++mi) {
+      const int m = kGradMT * gwarp + mi;
+      const int s = m / 4;
+      const int i = (m % 4) * 16 + g;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<float2*>(out + (s * kC + i + 8 * half) * kC + nt * 8 + 2 * c) =
+              make_float2(gacc[mi][nt][2 * half], gacc[mi][nt][2 * half + 1]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 1)
 train_bwd_kernel(const float* __restrict__ dy2, const float* __restrict__ y,
                  const float* __restrict__ vecs, const float* __restrict__ kbt,
-                 float* __restrict__ dpre, float* __restrict__ chunk_parts,
-                 float* __restrict__ tap_parts, int T, int Wp) {
+                 float* __restrict__ dpre, float* __restrict__ tile_parts,
+                 float* __restrict__ tap_parts, int B, int T, int Wp) {
   extern __shared__ __align__(16) float smem[];
-  float* taps = smem;                 // [3][kC][kC], taps[s] = KBT[2 - s] diagonal block
-  float* dslab = taps + kTapFloats;   // [kRows + 2][kSlabStride] of dy2
-  float* tslab = dslab + kSlabFloats; // [kRows + 2][kSlabStride] of t1
-  float* red = tslab + kSlabFloats;   // [2][kThreadRows][kC]
+  Bufs sm;
+  sm.taps = smem;  // taps[s] = KBT[2 - s] diagonal block
+  sm.dslab = smem + kTapFloats;
+  sm.yslab = sm.dslab + 2 * kSlabFloats;
+  sm.tslab = sm.yslab + 2 * kSlabFloats;
+  sm.red = sm.tslab + kSlabFloats;
 
-  const int joint = blockIdx.x;
-  const int col0 = joint * kC;
-  const int chunk = blockIdx.y;
-  const size_t clip_row0 = static_cast<size_t>(blockIdx.z) * T;
-  const int diag = col0 % kLane;
+  // the taps and the first tile's slabs: one copy group
+  const TileAt a = tile_at(blockIdx.x >> 1, B, T);
+  stage_taps<kBwdThreads>(smem, kbt, (blockIdx.x & 1) * kC, true);
+  stage_slab<kBwdThreads>(sm.dslab, dy2, a.clip_row0, a.t0, T, Wp, a.col0);
+  stage_slab<kBwdThreads>(sm.yslab, y, a.clip_row0, a.t0, T, Wp, a.col0);
+  cp_async_commit();
 
-  for (int i = threadIdx.x; i < static_cast<int>(kTapFloats); i += kThreads) {
-    const int s = i / (kC * kC);
-    const int r = (i / kC) % kC;
-    const int c = i % kC;
-    taps[i] = kbt[(static_cast<size_t>(2 - s) * kLane + diag + r) * kLane + diag + c];
+  if (threadIdx.x < kRoleThreads) {
+    walk<false>(sm, dy2, y, vecs, dpre, tile_parts, tap_parts, B, T, Wp);
+  } else {
+    walk<true>(sm, dy2, y, vecs, dpre, tile_parts, tap_parts, B, T, Wp);
   }
+}
 
-  const int tx = threadIdx.x % (kC / kTN);
-  const int ty = threadIdx.x / (kC / kTN);
-  const int c0 = col0 + tx * kTN;
-  float gacc[3][kTM][kTN];
-#pragma unroll
-  for (int s = 0; s < 3; ++s)
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) gacc[s][i][j] = 0.f;
-  float psum[kTN], pdot[kTN];
-#pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    psum[j] = 0.f;
-    pdot[j] = 0.f;
+int configure(int* slots) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(train_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSmemBytes));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, train_bwd_kernel, kBwdThreads, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  *slots = per_sm * sms;
+  return 0;
+}
+
+int slots_or_error(int* slots) {
+  static int cached = 0;  // resident blocks on the card
+  if (cached == 0) {
+    const int err = configure(&cached);
+    if (err != 0) return err;
   }
-
-  const int n_tiles = (T + kRows - 1) / kRows;
-  const int tile_end = min(n_tiles, (chunk + 1) * kTilesPerBlock);
-  for (int tile = chunk * kTilesPerBlock; tile < tile_end; ++tile) {
-    const int t0 = tile * kRows;
-    __syncthreads();  // the previous tile's slabs are no longer read
-    for (int i = threadIdx.x; i < (kRows + 2) * kC; i += kThreads) {
-      const int r = i / kC;
-      const int c = i % kC;
-      const int t = t0 - 1 + r;
-      float d = 0.f, tv = 0.f;
-      if (t >= 0 && t < T) {
-        const size_t idx = (clip_row0 + t) * Wp + col0 + c;
-        d = dy2[idx];
-        const float pre = __fadd_rn(__fmul_rn(y[idx], vecs[col0 + c]),
-                                    vecs[static_cast<size_t>(Wp) + col0 + c]);
-        tv = fmaxf(pre, 0.f);
-      }
-      dslab[r * kSlabStride + c] = d;
-      tslab[r * kSlabStride + c] = tv;
-    }
-    __syncthreads();
-
-    // dt1 = tconv^T(dy2): slab row i+s with reversed tap s
-    float acc[kTM][kTN];
-#pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-#pragma unroll
-    for (int s = 0; s < 3; ++s) {
-      const float* tap = taps + s * kC * kC;
-      const float* rows = dslab + (ty * kTM + s) * kSlabStride;
-#pragma unroll 4
-      for (int k = 0; k < kC; ++k) {
-        const float4 w = *reinterpret_cast<const float4*>(tap + k * kC + tx * kTN);
-        float a[kTM];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) a[i] = rows[i * kSlabStride + k];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          acc[i][0] += a[i] * w.x;
-          acc[i][1] += a[i] * w.y;
-          acc[i][2] += a[i] * w.z;
-          acc[i][3] += a[i] * w.w;
-        }
-      }
-    }
-
-    // ReLU mask from the recomputed t1, dpre and its column moments
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int t = t0 + ty * kTM + i;
-      if (t >= T) continue;
-      const size_t base = (clip_row0 + t) * Wp + c0;
-      const float* trow = tslab + (ty * kTM + i + 1) * kSlabStride + tx * kTN;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const float d = trow[j] > 0.f ? acc[i][j] : 0.f;
-        dpre[base + j] = d;
-        psum[j] += d;
-        pdot[j] += d * y[base + j];
-      }
-    }
-
-    // tap gradient, diagonal block: gacc[s][i][o] += sum_r t1[r+s-1][i] * dy2[r][o]
-#pragma unroll 2
-    for (int r = 0; r < kRows; ++r) {
-      float d[kTN];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) d[j] = dslab[(r + 1) * kSlabStride + tx * kTN + j];
-#pragma unroll
-      for (int s = 0; s < 3; ++s) {
-        const float* trow = tslab + (r + s) * kSlabStride + ty * kTM;
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-          const float a = trow[i];
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) gacc[s][i][j] += a * d[j];
-        }
-      }
-    }
-  }
-
-  const size_t n_chunks = gridDim.y;
-  const size_t slot = static_cast<size_t>(blockIdx.z) * n_chunks + chunk;
-  float* tap_out = tap_parts + (slot * gridDim.x + joint) * 3 * kC * kC;
-#pragma unroll
-  for (int s = 0; s < 3; ++s)
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const float4 v = make_float4(gacc[s][i][0], gacc[s][i][1], gacc[s][i][2], gacc[s][i][3]);
-      *reinterpret_cast<float4*>(tap_out + (s * kC + ty * kTM + i) * kC + tx * kTN) = v;
-    }
-
-#pragma unroll
-  for (int j = 0; j < kTN; ++j) {
-    red[ty * kC + tx * kTN + j] = psum[j];
-    red[(kThreadRows + ty) * kC + tx * kTN + j] = pdot[j];
-  }
-  __syncthreads();
-  const int moment = threadIdx.x / kC;
-  const int c = threadIdx.x % kC;
-  float total = 0.f;
-#pragma unroll
-  for (int r = 0; r < kThreadRows; ++r) total += red[(moment * kThreadRows + r) * kC + c];
-  chunk_parts[(slot * 2 + moment) * Wp + col0 + c] = total;
+  *slots = cached;
+  return 0;
 }
 
 }  // namespace
 
-// dy2, y, dpre: (B*T, Wp) contiguous f32; vecs: (4, Wp) f32 rows
-// [s1, sh1, 0, 0]; kbt: (3, 128, 128) f32 transposed taps;
-// chunk_parts: (B, n_chunks, 2, Wp) f32; tap_parts: (B, n_chunks, Wp/64,
-// 3, 64, 64) f32, n_chunks = ceil(T / 256).  Wp % 128 == 0.
-// Returns the cudaError_t of the launch (0 on success).
+// The number of blocks the launch uses for these shapes (the first dimension
+// of tap_parts), or minus a cudaError_t.
+extern "C" int p2r_stgcn_train_bwd_blocks(int B, int T, int Wp) {
+  int slots = 0;
+  const int err = slots_or_error(&slots);
+  return err != 0 ? -err : grid_size(B, T, Wp, slots);
+}
+
+// dy2, y, dpre: (B*T, Wp) contiguous f32, 16-byte aligned; vecs: (4, Wp) f32
+// rows [s1, sh1, 0, 0]; kbt: (3, 128, 128) f32 transposed taps; tile_parts:
+// (B, ceil(T/64), 2, Wp) f32; tap_parts: (blocks, 3, 64, 64) f32 with blocks
+// from p2r_stgcn_train_bwd_blocks.  Wp % 128 == 0.  Returns the cudaError_t
+// of the launch (0 on success).
 extern "C" int p2r_stgcn_train_bwd_f32(const float* dy2, const float* y, const float* vecs,
-                                       const float* kbt, float* dpre, float* chunk_parts,
-                                       float* tap_parts, int B, int T, int Wp, void* stream) {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        train_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kSmemBytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  const int rows_per_block = kRows * kTilesPerBlock;
-  const dim3 grid(Wp / kC, (T + rows_per_block - 1) / rows_per_block, B);
-  train_bwd_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      dy2, y, vecs, kbt, dpre, chunk_parts, tap_parts, T, Wp);
+                                       const float* kbt, float* dpre, float* tile_parts,
+                                       float* tap_parts, int B, int T, int Wp, int blocks,
+                                       void* stream) {
+  int slots = 0;
+  const int err = slots_or_error(&slots);
+  if (err != 0) return err;
+  if (blocks != grid_size(B, T, Wp, slots)) return static_cast<int>(cudaErrorInvalidValue);
+  train_bwd_kernel<<<blocks, kBwdThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      dy2, y, vecs, kbt, dpre, tile_parts, tap_parts, B, T, Wp);
   return static_cast<int>(cudaGetLastError());
 }

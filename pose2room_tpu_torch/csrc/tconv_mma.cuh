@@ -1,11 +1,15 @@
-// Shared core of kernels 1 (stgcn_epilogue.cu) and 3 (stgcn_train_fwd.cu):
-// the ST-GCN temporal conv of one joint on the tensor cores in 3xTF32.
+// Shared core of kernels 1 (stgcn_epilogue.cu), 3 (stgcn_train_fwd.cu) and
+// 4 (stgcn_train_bwd.cu): the ST-GCN temporal conv of one joint on the
+// tensor cores in 3xTF32.  Kernel 5 (stgcn_sparse.cu) takes its arithmetic
+// (split, mma_tf32, cp_async16).
 //
-// Both kernels compute, per joint (64 columns of the merged (B*T, Wp)
+// Kernels 1 and 3 compute, per joint (64 columns of the merged (B*T, Wp)
 // activations) and per row tile of one clip,
 //   y2[t, n] = sum_s sum_k t1[t+s-1, k] * tap_s[k, n]   rows outside the clip are 0
 // a GEMM with K = 3 taps x 64 channels.  They differ only in how t1 reaches
-// shared memory (kernel 3 builds it from y) and in the epilogue.
+// shared memory (kernel 3 builds it from y) and in the epilogue.  Kernel 4
+// runs the same conv on dy2 with the transposed taps in reverse order (its
+// transpose), and reads the slabs column-wise too for its tap gradient.
 //
 // Arithmetic: 3xTF32 on mma.sync.m16n8k8 (f32 accumulate).  Every operand a
 // is split into big = rna_tf32(a) and small = rna_tf32(a - big) (a - big is
@@ -24,13 +28,18 @@
 // fragment load hits 32 distinct banks and 16-byte cp.async stays aligned):
 //   taps [3][64][64]     element (s, k, n) at s*4096 + k*64 + (n ^ ((k & 3) << 3))
 //   slab [rows + 2][64]  element (r, k)    at r*64 + (k ^ ((r & 7) << 2))
+// Kernel 4's tap gradient also reads the slabs column-wise (lanes over 4
+// consecutive rows and 8 columns); there this swizzle gives 2-way bank
+// conflicts.  k ^ (((r & 3) << 3) | (r & 4)) serves both shapes without
+// conflicts, but measured no faster for kernel 4 and 2.5-4.7% slower for
+// kernels 1 and 3 (the colswizzle variants of scripts/torch_*_variants.py).
 // Slab row r holds t1 at clip row t0 - 1 + r (the t-1 / t+1 halo), zero
 // outside [0, T).  Taps hold the 64x64 diagonal block of KB (3, 128, 128) at
 // (col0 % 128): one joint's temporal tap.
 //
-// A tile is 128 rows of one clip and one joint's 64 columns.  A block has 4
-// warps; warp w owns rows [32w, 32w + 32) of the tile and all 64 columns:
-// 2 m-tiles x 8 n-tiles of 16x8 accumulators, 64 floats a thread.
+// A tile is 128 rows of one clip and one joint's 64 columns, and 4 warps
+// compute its conv; warp w owns rows [32w, 32w + 32) of the tile and all 64
+// columns: 2 m-tiles x 8 n-tiles of 16x8 accumulators, 64 floats a thread.
 
 #pragma once
 
@@ -75,23 +84,28 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Start the copy of the joint's three 64x64 diagonal tap blocks: 16-byte
-// copies of contiguous rows of KB.
-__device__ __forceinline__ void stage_taps(float* taps, const float* __restrict__ kb, int diag) {
-  for (int i = threadIdx.x; i < 3 * kC * (kC / 4); i += kThreads) {
+// copies of contiguous rows of KB.  reverse: taps[s] = KB[2 - s].
+// Threads: the block's thread count.
+template <int Threads = kThreads>
+__device__ __forceinline__ void stage_taps(float* taps, const float* __restrict__ kb, int diag,
+                                           bool reverse = false) {
+  for (int i = threadIdx.x; i < 3 * kC * (kC / 4); i += Threads) {
     const int q = i % (kC / 4);
     const int k = (i / (kC / 4)) % kC;
     const int s = i / (kC * kC / 4);
+    const int from = reverse ? 2 - s : s;
     cp_async16(taps + tap_index(s, k, 4 * q),
-               kb + (static_cast<size_t>(s) * kLane + diag + k) * kLane + diag + 4 * q, true);
+               kb + (static_cast<size_t>(from) * kLane + diag + k) * kLane + diag + 4 * q, true);
   }
 }
 
 // Start the copy of the slab of rows [t0 - 1, t0 + rows] of one clip's
 // 64-column group at col0; rows outside [0, T) are zero-filled.  Thread i
-// always copies float4 column (i % 16) (kThreads is a multiple of 16).
+// always copies float4 column (i % 16) (Threads is a multiple of 16).
+template <int Threads = kThreads>
 __device__ __forceinline__ void stage_slab(float* slab, const float* __restrict__ src,
                                            size_t clip_row0, int t0, int T, int Wp, int col0) {
-  for (int i = threadIdx.x; i < (kRows + 2) * (kC / 4); i += kThreads) {
+  for (int i = threadIdx.x; i < (kRows + 2) * (kC / 4); i += Threads) {
     const int q = i % (kC / 4);
     const int r = i / (kC / 4);
     const int t = t0 - 1 + r;
@@ -101,10 +115,13 @@ __device__ __forceinline__ void stage_slab(float* slab, const float* __restrict_
   }
 }
 
+// The nearest TF32 value to x, ties away from zero, as f32 bits (the low 13
+// bits zero, so the value reads back as a float): an integer add on the
+// sign-magnitude bits and a mask.  The same bits as cvt.rna.tf32.f32 for
+// finite x, and 9-11% faster for kernels 1, 3 and 5 (the cvtsplit variants
+// of scripts/torch_*_variants.py): every split issues two.
 __device__ __forceinline__ uint32_t rna_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r & 0xffffe000u;  // keep only the tf32 bits, so the value reads back as a float
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
 __device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
@@ -176,11 +193,12 @@ __device__ __forceinline__ void tconv_mma(const float* slab, const float* taps, 
 }
 
 // Launch shape: a persistent grid of at most one block per resident slot
-// (2 an SM).  Even blocks walk the tiles of the even joints and odd blocks
-// those of the odd joints, so each block stages the one diagonal tap block
-// its joints read (col0 % 128) once for its whole life.  128-row tiles beat
-// 64-row ones at B = 1 too, where they leave the card part idle: each tap
-// fragment serves twice the rows.  slots: resident blocks on the card.
+// (2 an SM for kernels 1 and 3, 1 for kernel 4).  Even blocks walk the
+// tiles of the even joints and odd blocks those of the odd joints, so each
+// block stages the one diagonal tap block its joints read (col0 % 128) once
+// for its whole life.  128-row tiles beat 64-row ones at B = 1 too, where
+// they leave the card part idle: each tap fragment serves twice the rows.
+// slots: resident blocks on the card.
 inline int grid_size(int B, int T, int Wp, int slots) {
   const int items = (Wp / kC / 2) * B * ((T + kRows - 1) / kRows);  // tiles of one parity
   const int per_parity = slots / 2 > 0 ? slots / 2 : 1;

@@ -97,7 +97,10 @@ def sparse_graph_matmul_bn_relu(x, m_tiles, vecs, col_off, vlist):
     permuted, pad entries zero; col_off (Wp//128 + 1,) and vlist (nnz,)
     int32 tile lists on x's device.  The kernel trusts the lists' contents
     (checking them would copy them to the host on every call): the fold
-    builds them with ``sparse_tile_lists``.  Returns (B, T, Wp) f32.
+    builds them with ``sparse_tile_lists``.  When there are few rows it cuts
+    the long lists into chunks (split-K); this wrapper then allocates the
+    partials' scratch the library asks for and zeroes its counters.
+    Returns (B, T, Wp) f32.
     """
     if x.device.type == "cpu":
         return sparse_graph_matmul_bn_relu_ref(x, m_tiles, vecs, col_off, vlist)
@@ -118,12 +121,22 @@ def sparse_graph_matmul_bn_relu(x, m_tiles, vecs, col_off, vlist):
             raise ValueError(f"{name}: {what} is not 16-byte aligned (the kernel loads float4)")
     out = torch.empty_like(x)
     lib = kernels.load(name)
+    # split-K scratch: the partials of the cut CSR lists and a zeroed counter per output tile
+    scratch_fn = lib.p2r_stgcn_sparse_scratch
+    scratch_fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    scratch_fn.restype = ctypes.c_int
+    sizes = (ctypes.c_longlong * 2)()
+    kernels.check(scratch_fn(B * T, Wp, nnz, sizes), name)
+    partials = torch.empty(sizes[0], dtype=torch.float32, device=x.device) if sizes[0] else None
+    counters = torch.zeros(sizes[1], dtype=torch.int32, device=x.device) if sizes[1] else None
     fn = lib.p2r_stgcn_sparse_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(
         x.data_ptr(), m_tiles.data_ptr(), vecs.data_ptr(), col_off.data_ptr(), vlist.data_ptr(),
-        out.data_ptr(), B * T, Wp, torch.cuda.current_stream(x.device).cuda_stream,
+        out.data_ptr(), None if partials is None else partials.data_ptr(),
+        None if counters is None else counters.data_ptr(), B * T, Wp, nnz,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     kernels.check(err, name)
     kernels.LAUNCHES[name] += 1

@@ -44,12 +44,10 @@ from pose2room_tpu_torch.ops.stgcn_fused import (
 
 BN_EPS = 1e-5
 # csrc/stgcn_train_{fwd,bwd}.cu: one 64-wide column group (one joint's
-# channels) per block; column partials per 64-row tile (the forward computes
-# 128-row tiles and writes two rows of partials each); 4 tiles per block in
-# the backward
+# channels) per tile; column partials per 64-row part (both kernels compute
+# 128-row tiles and write two rows of partials each)
 KERNEL_C = 64
 ROW_TILE = 64
-BWD_TILES_PER_BLOCK = 4
 
 
 def _tile_cols(vec_c, V, C, Wp):
@@ -174,10 +172,11 @@ def tconv_bwd(dy2, y, vecs, KBT, *, T, C):
 
     Returns (dpre (N, Wp), parts (B, 2, Wp), dtaps (3, C, C)), dtaps being
     ``_fold_diag_blocks`` of the dense tap gradient.  The kernel computes the
-    diagonal blocks only: it writes per-(clip, row chunk, joint) partials of
-    the (3, 64, 64) tap gradient, and this wrapper reduces them, and the
-    per-chunk column partials, with a fixed-order ``torch.sum`` (no float
-    atomics, so repeated runs agree bit for bit).
+    diagonal blocks only: each block of its persistent grid writes one
+    partial of the (3, 64, 64) tap gradient over the tiles it walked, and
+    this wrapper reduces them, and the per-(clip, 64-row part) column
+    partials, with a fixed-order ``torch.sum`` (no float atomics, so
+    repeated runs agree bit for bit).
     """
     if y.device.type == "cpu":
         dpre, parts, dkb = tconv_bwd_ref(dy2, y, vecs, KBT, T=T)
@@ -191,22 +190,26 @@ def tconv_bwd(dy2, y, vecs, KBT, *, T, C):
     kernels.check_operands("stgcn_train_bwd", {
         "dy2": (dy2, (N, Wp)), "y": (y, (N, Wp)), "vecs": (vecs, (4, Wp)),
         "KBT": (KBT, (3, LANE, LANE)),
-    }, y.device)
+    }, y.device, align=16)
     B = N // T
-    n_chunks = -(-T // (ROW_TILE * BWD_TILES_PER_BLOCK))
+    lib = kernels.load("stgcn_train_bwd")
+    blocks_fn = lib.p2r_stgcn_train_bwd_blocks
+    blocks_fn.argtypes = [ctypes.c_int] * 3
+    blocks_fn.restype = ctypes.c_int
+    blocks = blocks_fn(B, T, Wp)
+    kernels.check(-min(blocks, 0), "stgcn_train_bwd")  # a negative count is -cudaError
     dpre = torch.empty_like(y)
-    chunk_parts = torch.empty((B, n_chunks, 2, Wp), dtype=torch.float32, device=y.device)
-    tap_parts = torch.empty((B, n_chunks, Wp // KERNEL_C, 3, KERNEL_C, KERNEL_C),
-                            dtype=torch.float32, device=y.device)
-    fn = kernels.load("stgcn_train_bwd").p2r_stgcn_train_bwd_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    tile_parts = torch.empty((B, -(-T // ROW_TILE), 2, Wp), dtype=torch.float32, device=y.device)
+    tap_parts = torch.empty((blocks, 3, KERNEL_C, KERNEL_C), dtype=torch.float32, device=y.device)
+    fn = lib.p2r_stgcn_train_bwd_f32
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(dy2.data_ptr(), y.data_ptr(), vecs.data_ptr(), KBT.data_ptr(), dpre.data_ptr(),
-             chunk_parts.data_ptr(), tap_parts.data_ptr(), B, T, Wp,
+             tile_parts.data_ptr(), tap_parts.data_ptr(), B, T, Wp, blocks,
              torch.cuda.current_stream(y.device).cuda_stream)
     kernels.check(err, "stgcn_train_bwd")
     kernels.LAUNCHES["stgcn_train_bwd"] += 1
-    return dpre, chunk_parts.sum(dim=1), tap_parts.sum(dim=(0, 1, 2))
+    return dpre, tile_parts.sum(dim=1), tap_parts.sum(dim=0)
 
 
 # ---------------------------------------------------------------------------

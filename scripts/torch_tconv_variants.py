@@ -16,13 +16,18 @@ touched.  Variants (default: all, in turns base, ..., base):
            (wrong results; times the splits' share);
 * onepass  big*big only (wrong results; times the two extra passes);
 * nomma    no products at all (wrong results; the loads, the epilogue and
-           the prologue alone).
+           the prologue alone);
+* colswizzle the slab swizzle k ^ (((r & 3) << 3) | (r & 4)), free of bank
+           conflicts for kernel 4's column-wise reads too;
+* cvtsplit the TF32 rounding of the operand split by cvt.rna.tf32.f32
+           instead of an integer add and a mask (the same bits).
 
 At the full width (T = 768, 53 joints x 64 channels padded to 3456) and
 B in {1, 8} it prints, per variant, kernel 1's device time with and without
-the residual, kernel 3's, and kernel 3's conv against float64 (largest
-error and signed bias over sum |a*b|).  Times are device time: CUDA events
-around 20 launches queued behind a sleeping kernel.  Needs a CUDA card.
+the residual, kernel 3's, kernel 3's conv against float64 (largest error
+and signed bias over sum |a*b|), and whether the two kernels' outputs keep
+the first variant's bits.  Times are device time: CUDA events around 20
+launches queued behind a sleeping kernel.  Needs a CUDA card.
 """
 
 import ctypes
@@ -47,6 +52,9 @@ FLUSHED = """          float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[i];
 """
+# the TF32 rounding of the operand split: shipped, and by cvt.rna.tf32.f32
+CVT_NEW = "return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
+CVT_OLD = 'uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) : "f"(x));\n  return r & 0xffffe000u;'
 PATCHES = {
     "base": [],
     "noflush": [(FLUSHED, """          mma_tf32(acc[mt][nt], as[mt], bb0, bb1);
@@ -58,6 +66,8 @@ PATCHES = {
           mma_tf32(part, ab[mt], bs0, bs1);
 """, ""))],
     "nomma": [(FLUSHED, "")],
+    "cvtsplit": [(CVT_NEW, CVT_OLD)],
+    "colswizzle": [("return r * kC + (k ^ ((r & 7) << 2));", "return r * kC + (k ^ (((r & 3) << 3) | (r & 4)));")],
 }
 SLEEP_CYCLES = 100_000_000
 
@@ -143,13 +153,14 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("torch_tconv_variants: needs a CUDA card")
     set_precision_policy()
-    names = sys.argv[1:] or ["base", "noflush", "nosplit", "onepass", "nomma", "base"]
+    names = sys.argv[1:] or ["base", *(n for n in PATCHES if n != "base"), "base"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     libs = build(sorted(set(names)))
     g = torch.Generator().manual_seed(0)
     data = {B: operands(B, g) for B in (1, 8)}
     stream = torch.cuda.current_stream().cuda_stream
+    first = {}  # the first variant's outputs: does a variant keep its bits?
     for name in names:
         epi, fwd = libs[name, "stgcn_epilogue"], libs[name, "stgcn_train_fwd"]
         for B, (t1, x, vecs, y, vecs3, KB) in data.items():
@@ -164,9 +175,12 @@ def main():
             exact, mag = tconv_float64(torch.relu(y * vecs3[0] + vecs3[1]).reshape(B, T, WP), KB)
             d = (y2.reshape(B, T, WP).double() - exact - vecs3[2].double())[..., :W0]
             mag, sign = mag[..., :W0], torch.sign(exact[..., :W0])
+            ref = first.setdefault(B, (out.clone(), y2.clone()))
+            same = torch.equal(out, ref[0]) and torch.equal(y2, ref[1])
             print(f"[{smi}] {name:8s} B={B}: kernel 1 {res_ms:.4f} ms (residual) {nores_ms:.4f} ms (none); "
                   f"kernel 3 {fwd_ms:.4f} ms, conv vs float64: max {(d.abs() / mag).max().item():.2e}, "
-                  f"bias {((d * sign).sum() / mag.sum()).item():.2e} of sum|a*b|")
+                  f"bias {((d * sign).sum() / mag.sum()).item():.2e} of sum|a*b|"
+                  f"{'' if same else '; other bits than the first variant'}")
 
 
 if __name__ == "__main__":

@@ -152,8 +152,11 @@ def test_train_fwd_kernel_same_bits_on_relaunch(cuda_device, B):
     assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
-@pytest.mark.parametrize("B,T,W0", [(1, 768, 3392), (8, 768, 3392), (2, 100, 3392), (3, 17, 320)])
+@pytest.mark.parametrize("B,T,W0", [(1, 768, 3392), (8, 768, 3392), (2, 100, 3392), (3, 17, 320),
+                                    (2, 200, 3392)])
 def test_train_bwd_kernel_matches_plain(cuda_device, B, T, W0):
+    """T = 200: a full and a partial 128-row tile per clip; B = 8 gives each
+    block of the persistent grid several tiles."""
     y, dy2, vecs, KB = _train_operands(B, T, W0, cuda_device)
     KBT = KB.transpose(1, 2).contiguous()
     before = kernels.LAUNCHES["stgcn_train_bwd"]
@@ -251,6 +254,25 @@ def test_sparse_kernel_matches_plain(cuda_device, B, T, natural):
     assert torch.all(got[..., pad * 64:(pad + 1) * 64] == 0)
     # each output element is summed by one thread in a fixed order
     assert torch.equal(got, stgcn_sparse.sparse_graph_matmul_bn_relu(x, tiles, vecs, col_off, vlist))
+
+
+def test_sparse_kernel_output_tile_without_entries(cuda_device):
+    """Output tile 3's list emptied: it gets relu(0 * s1 + b1); at B = 1 the
+    longer lists are cut into chunks, summed by their last chunk."""
+    x, tiles, vecs, col_off, vlist, _ = _sparse_operands(1, 768, SPARSE_JOINT_ORDER, cuda_device)
+    co, vl = col_off.cpu().numpy(), vlist.cpu().numpy()
+    w = 3
+    keep = torch.from_numpy(np.r_[0:co[w], co[w + 1]:len(vl)])
+    co = co.copy()
+    co[w + 1:] -= co[w + 1] - co[w]
+    args = (x, tiles[keep.to(cuda_device)].contiguous(), vecs, torch.from_numpy(co).to(cuda_device),
+            torch.from_numpy(vl[keep.numpy()]).to(cuda_device))
+    got = stgcn_sparse.sparse_graph_matmul_bn_relu(*args)
+    ref = stgcn_sparse.sparse_graph_matmul_bn_relu_ref(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+    empty = got[..., w * 128:(w + 1) * 128]
+    assert torch.equal(empty, torch.relu(vecs[1, w * 128:(w + 1) * 128]).expand_as(empty))
 
 
 def test_sparse_wrapper_rejects_bad_operands(cuda_device):

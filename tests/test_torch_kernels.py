@@ -170,10 +170,12 @@ def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, "CSRC", str(src))
     assert kernels._source_files("stgcn_epilogue") == ["stgcn_epilogue.cu", "tconv_mma.cuh"]
     assert kernels._source_files("stgcn_train_fwd") == ["stgcn_train_fwd.cu", "tconv_mma.cuh"]
+    assert kernels._source_files("stgcn_train_bwd") == ["stgcn_train_bwd.cu", "tconv_mma.cuh"]
+    assert kernels._source_files("stgcn_sparse") == ["stgcn_sparse.cu", "tconv_mma.cuh"]
     assert kernels._source_files("fps") == ["fps.cu"]
     before = {name: kernels._lib_path(name) for name in kernels.SOURCES}
     header = src / "tconv_mma.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     after = {name: kernels._lib_path(name) for name in kernels.SOURCES}
     assert {name for name in kernels.SOURCES if after[name] != before[name]} == {
-        "stgcn_epilogue", "stgcn_train_fwd"}
+        "stgcn_epilogue", "stgcn_train_fwd", "stgcn_train_bwd", "stgcn_sparse"}
