@@ -71,7 +71,38 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    scenes on the card and on the CPU, with the size head's mixture means set
    so that the random boxes are ~1.5 m wide and AP is not trivially 0: every
    AP and recall within 1e-6.
-7. Prints the ``kernels`` JSON line, the nvidia-smi line, and last
+7. bf16 kernel phase (``model.compute_dtype: bfloat16``): the bf16 legs of
+   kernels 1 (residual on/off) and 5 (annealed order) at B in {1, 8}, full
+   width, on bf16 operands in the fold's layout: against their plain
+   versions on the card (within 1 bf16 ulp wherever the plain output is
+   above 1e-3 of its max, within 2^-7 of the max elsewhere; the share of
+   elements that differ printed), against float64 from the same bf16
+   operands (within 1 bf16 ulp of the float64 value rounded to bf16
+   wherever that value is above 2^-12 of the element's term scale
+   S = |s| * sum|a*b| + |b| [+ |x|], within 2^-10 of S elsewhere), the pad
+   columns exactly 0, two launches the same bits; timed beside their bounds
+   at the bf16 tensor-core peak (989 TFLOP/s) and 3.35 TB/s, beside cuDNN's
+   bf16 conv2d (kernel 1, tconv only) and the dense matmul on the densified
+   matrix + BN1 + ReLU (kernel 5; the f32-upcast route and, timing only,
+   bf16 operands).
+8. bf16 serving phase: the demo runner with ``compute_dtype: bfloat16`` at
+   full width on the four demo clips: 6 ``stgcn_epilogue_bf16`` and 1 FPS
+   launches per request; the card's bf16 ``generate`` against the CPU's
+   (seed indices equal, seed features and votes within 1e-2 of their max,
+   proposal agreement printed; over the proposals both pick, each output's
+   median row within 2e-2 of its max and at most a tenth of the rows beyond
+   0.05, the JAX package's bf16 band: a vote at the ball's edge can change
+   one proposal's pooled feature); batch-1 request
+   latency and B=1 / B=32 ``generate`` beside the f32 chain's, in turns; a
+   profile of the B=32 bf16 ``generate``.
+9. bf16 test phase: the test runner with ``compute_dtype: bfloat16`` and
+   ``sparse_eval`` on the 8 synthetic scenes: 6 ``stgcn_sparse_bf16`` + 6
+   ``stgcn_epilogue_bf16`` + 1 FPS launches per batch, finite metrics; the
+   card's bf16 sparse ``generate`` against the CPU's (as in 8); with
+   ``remove_far_box: false`` and metre-sized boxes on 4 scenes, AP and
+   recall on the card against the CPU (mAP and AR within 0.1; one class's AP
+   can move by a step when a vote at a ball's edge changes one box).
+10. Prints the ``kernels`` JSON line, the nvidia-smi line, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -113,6 +144,8 @@ TRAIN_YAML = os.path.join(REPO, "configs", "config_files", "p2rnet_train.yaml")
 # TF32 on the tensor cores (dense), HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
+BF16 = torch.bfloat16
 PEAK_BYTES = 3.35e12
 SLEEP_CYCLES = 100_000_000  # ~50 ms at the H100's clock: time for the host to queue a timing loop
 T, V, C = 768, 53, 64
@@ -505,6 +538,129 @@ def sparse_kernel_phase(dev, smi):
     return rows
 
 
+def bf16_bound_ms(nbytes, flops):
+    """Least time of bf16 products on the tensor cores: (ms, what bounds it)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bf16_ordinal(t):
+    """bf16 tensor -> int64 in value order: adjacent bf16 values differ by 1."""
+    u = t.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF
+    return torch.where(u >= 0x8000, -(u & 0x7FFF), u)
+
+
+def bf16_vs_plain(got, ref, what):
+    """Kernel against its plain version, both bf16 (the same sums in another
+    order): within 1 ulp where |ref| > 1e-3 of its max, within 2^-7 of the
+    max elsewhere.  Returns (max |err|, share of elements that differ)."""
+    scale = ref.float().abs().max().item()
+    diff = (got.float() - ref.float()).abs()
+    live = ref.float().abs() > 1e-3 * scale
+    ulps = (bf16_ordinal(got) - bf16_ordinal(ref)).abs()[live].max().item()
+    err = diff.max().item()
+    check(ulps <= 1 and err <= scale * 2 ** -7, f"{what}: {ulps} ulps from the plain version, max |err| {err}")
+    return err, (got != ref).float().mean().item()
+
+
+def bf16_vs_float64(got, exact, S, what):
+    """Kernel (bf16) against the float64 value of the same function on the
+    same bf16 operands: within 1 bf16 ulp of round_bf16(exact) where |exact|
+    >= 2^-12 S (S: the element's term scale, which bounds the f32 rounding
+    before the one cast, ~2^-22 S), within 2^-10 S elsewhere.  Returns (max
+    ulps, max |err| / S where not checked in ulps, share checked in ulps)."""
+    live = exact.abs() >= 2 ** -12 * S
+    ulps = (bf16_ordinal(got) - bf16_ordinal(exact.float().to(BF16))).abs()[live].max().item()
+    rel = ((got.double() - exact).abs() / S.clamp_min(1e-30))[~live]
+    rel = rel.max().item() if rel.numel() else 0.0
+    check(ulps <= 1 and rel <= 2 ** -10, f"{what}: {ulps} bf16 ulps from float64 (elsewhere |err| {rel:.2e} of S)")
+    return ulps, rel, live.double().mean().item()
+
+
+def bf16_kernel_phase(dev, smi):
+    g = torch.Generator().manual_seed(4)
+    rows = {}
+    for B in (1, 8):
+        # --- kernel 1, bf16 leg ---
+        x, M, vecs, KB = epilogue_operands(B, g, dev)
+        xb, Mb, KBb = x.to(BF16), M.to(BF16), KB.to(BF16)
+        del x, M, KB
+        t1 = stgcn_fused.graph_matmul_bn_relu(xb, Mb, vecs[0], vecs[1])
+        y2, mag = tconv_float64(t1, KBb)
+        s2, b2 = vecs[2].double(), vecs[3].double()
+        for residual in (True, False):
+            xr = xb if residual else None
+            out = stgcn_fused.fused_epilogue(t1, xr, vecs, KBb, residual=residual)
+            again = stgcn_fused.fused_epilogue(t1, xr, vecs, KBb, residual=residual)
+            ref = stgcn_fused.epilogue_merged_ref(t1, xr, vecs, KBb, residual=residual)
+            torch.cuda.synchronize()
+            what = f"epilogue bf16 B={B} residual={residual}"
+            err, share = bf16_vs_plain(out, ref, what)
+            check(bool(torch.all(out[..., W0:] == 0)), f"{what}: pad columns not 0")
+            check(torch.equal(out, again), f"{what}: two launches differ")
+            exact = y2 * s2 + b2
+            S = s2.abs() * mag + b2.abs()
+            if residual:
+                exact, S = exact + xb.double(), S + xb.double().abs()
+            u, rel, cov = bf16_vs_float64(out[..., :W0], torch.relu(exact)[..., :W0], S[..., :W0], what)
+            nbytes = (3 if residual else 2) * B * T * WP * 2 + 8 * WP * 4 + 3 * 128 * 128 * 2
+            b_ms, b_by = bf16_bound_ms(nbytes, 2 * B * T * WP * 3 * C)
+            k_ms = device_ms(lambda: stgcn_fused.fused_epilogue(t1, xr, vecs, KBb, residual=residual))
+            p_ms = device_ms(lambda: stgcn_fused.epilogue_merged_ref(t1, xr, vecs, KBb, residual=residual))
+            # library yardstick, temporal conv only: cuDNN conv2d in bf16 over (B, C, T, V)
+            t_nchw = t1[..., :W0].reshape(B, T, V, C).permute(0, 3, 1, 2).contiguous()
+            w = KBb[:, :C, :C].permute(2, 1, 0)[..., None].contiguous()  # (out, in, 3, 1)
+            l_ms = device_ms(lambda: torch.nn.functional.conv2d(t_nchw, w, padding=(1, 0)))
+            rows[("stgcn_epilogue_bf16", B, residual)] = dict(
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+            print(f"[{smi}] {what}: vs plain max|err| {err:.3e}, {100 * share:.4f}% of elements differ; "
+                  f"vs float64 max {u} ulp ({100 * cov:.2f}% of elements in ulps, elsewhere |err| <= {rel:.2e} S); "
+                  f"same bits on relaunch  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
+                  f"cuDNN bf16 conv2d (tconv only) {l_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; share "
+                  f"{b_ms / k_ms:.3f})")
+            del out, again, ref, exact, S, t_nchw
+        del xb, Mb, KBb, t1, y2, mag
+
+        # --- kernel 5, bf16 leg, annealed order ---
+        x, tiles, vecs, col_off, vlist, Mp, KB, pad = sparse_operands(B, SPARSE_JOINT_ORDER, g, dev)
+        xb, tb, Mpb = x.to(BF16), tiles.to(BF16), Mp.to(BF16)
+        del x, tiles, Mp, KB
+        what = f"sparse bf16 annealed B={B}"
+        out = stgcn_sparse.sparse_graph_matmul_bn_relu(xb, tb, vecs, col_off, vlist)
+        again = stgcn_sparse.sparse_graph_matmul_bn_relu(xb, tb, vecs, col_off, vlist)
+        ref = stgcn_sparse.sparse_graph_matmul_bn_relu_ref(xb, tb, vecs, col_off, vlist)
+        torch.cuda.synchronize()
+        err, share = bf16_vs_plain(out, ref, what)
+        check(bool(torch.all(out[..., pad * C:(pad + 1) * C] == 0)), f"{what}: pad slot {pad} not 0")
+        check(torch.equal(out, again), f"{what}: two launches differ")
+        xd, Md = xb.reshape(B * T, WP).double(), Mpb.double()
+        s1, b1 = vecs[0].double(), vecs[1].double()
+        exact = torch.relu((xd @ Md) * s1 + b1)
+        S = s1.abs() * (xd.abs() @ Md.abs()) + b1.abs()
+        u, rel, cov = bf16_vs_float64(out.reshape(B * T, WP), exact, S, what)
+        del xd, Md, exact, S
+        nnz, N = tb.shape[0], B * T
+        flops = 2 * N * nnz * 128 * 128
+        nbytes = 2 * N * WP * 2 + nnz * 128 * 128 * 2 + 8 * WP * 4 + (col_off.numel() + nnz) * 4
+        b_ms, b_by = bf16_bound_ms(nbytes, flops)
+        k_ms = device_ms(lambda: stgcn_sparse.sparse_graph_matmul_bn_relu(xb, tb, vecs, col_off, vlist))
+        p_ms = device_ms(lambda: stgcn_sparse.sparse_graph_matmul_bn_relu_ref(xb, tb, vecs, col_off, vlist),
+                         iters=5, warmup=1)
+        # library yardsticks: the dense matmul on the densified matrix + BN1 + ReLU, by the
+        # f32-upcast route the dense bf16 chain takes, and (timing only) on bf16 operands
+        l_ms = device_ms(lambda: stgcn_fused.graph_matmul_bn_relu(xb, Mpb, vecs[0], vecs[1]))
+        lb_ms = device_ms(lambda: torch.relu(torch.matmul(xb, Mpb).float() * vecs[0] + vecs[1]).to(BF16))
+        rows[("stgcn_sparse_bf16", B)] = dict(
+            max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms)
+        print(f"[{smi}] {what} ({nnz} tiles): vs plain max|err| {err:.3e}, {100 * share:.4f}% of elements differ; "
+              f"vs float64 max {u} ulp ({100 * cov:.2f}% of elements in ulps, elsewhere |err| <= {rel:.2e} S); "
+              f"same bits on relaunch  kernel {k_ms:.4f} ms ({flops / k_ms / 1e9:.1f} TFLOP/s)  "
+              f"plain {p_ms:.4f} ms  dense matmul+BN1+ReLU f32-upcast {l_ms:.4f} ms, bf16 operands "
+              f"{lb_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; share {b_ms / k_ms:.3f})")
+        del xb, tb, Mpb, out, again, ref
+    return rows
+
+
 def rotated_clip(joints, angle):
     """Rotate a (F, 53, 3) clip about +Y by ``angle``."""
     c, s = np.cos(angle), np.sin(angle)
@@ -588,6 +744,115 @@ def serving_phase(workdir, smi):
         return launches
     finally:
         cfg.close()
+
+
+def bf16_generate_gap(a, b, what):
+    """bf16 generate a (card) against b (CPU): seed indices equal; seed
+    features and votes, which come before FPS, within 1e-2 of their max.
+    Another sum order flips a few bf16 roundings, and FPS and the 0.3 ball
+    query over the bf16-rounded votes meet near ties: a proposal may be
+    picked on one side only (the agreement is returned), and a vote at the
+    ball's edge may enter one side's ball and change that proposal's pooled
+    feature.  So each proposal output is compared row by row over the
+    proposals both pick: the median row within 2e-2 of the output's max, at
+    most a tenth of the rows beyond 0.05 of it (the JAX package's bf16
+    band, tests/test_stgcn_sparse.py:191).  Returns (agreement, gaps)."""
+    check(torch.equal(a["seed_inds"].cpu(), b["seed_inds"].cpu()), f"{what}: seed_inds differ")
+    gaps = {}
+    for key in ("seed_features", "vote_xyz", "vote_features"):
+        ref = b[key].cpu().float()
+        gaps[key] = (a[key].cpu().float() - ref).abs().max().item() / ref.abs().max().item()
+        check(gaps[key] <= 1e-2, f"{what}: {key} differs by {gaps[key]} of its max")
+    ia, ib = a["aggregated_vote_inds"].cpu().numpy(), b["aggregated_vote_inds"].cpu().numpy()
+    outs = {k: (a[k], b[k]) for k in ("center", "size", "heading", "objectness_scores", "sem_cls_scores")}
+    outs.update({f"pi/{k}": (a["pi"][k], b["pi"][k]) for k in ("center", "size", "heading")})
+    rows = {k: [] for k in outs}
+    same = 0
+    for i in range(ia.shape[0]):
+        common, pa, pb = np.intersect1d(ia[i], ib[i], return_indices=True)
+        same += len(common)
+        for k, (ta, tb) in outs.items():
+            ref = tb[i].cpu().float()
+            d = (ta[i].cpu().float()[pa] - ref[pb]).abs().reshape(len(common), -1).amax(dim=1)
+            rows[k].append(d / ref.abs().max())
+    for k, r in rows.items():
+        r = torch.cat(r)
+        median, far = r.median().item(), (r > 0.05).double().mean().item()
+        gaps[k] = {"max": r.max().item(), "median": median, "rows_beyond_0.05": far}
+        check(median <= 2e-2 and far <= 0.1,
+              f"{what}: {k} on the common proposals: median row {median} of its max, {far} of rows beyond 0.05")
+    return same / ia.size, gaps
+
+
+def bf16_serving_phase(workdir, smi):
+    """The demo runner in bf16 at full width; card vs CPU bf16 generate; the
+    bf16 chain's latency and throughput beside the f32 chain's, in turns."""
+    raw = np.load(DEMO_CLIP)
+    demo_dir = os.path.join(workdir, "demo_bf16")
+    os.makedirs(os.path.join(demo_dir, "inputs"))
+    np.save(os.path.join(demo_dir, "inputs", "input_joints_1.npy"), raw)
+    for i, a in enumerate(np.random.RandomState(0).uniform(0, 2 * np.pi, 3)):
+        np.save(os.path.join(demo_dir, "inputs", f"input_joints_1_rot{i}.npy"), rotated_clip(raw, a))
+    configs = {}
+    for dtype in ("bfloat16", "float32"):
+        config = read_to_dict(TEST_YAML)
+        config.update(finetune=False, seed=42, demo_path=demo_dir)
+        config["model"]["compute_dtype"] = dtype
+        config["log"]["path"] = os.path.join(workdir, f"out_{dtype}")
+        configs[dtype] = config
+    cfg = CONFIG(configs["bfloat16"], mode="demo")
+    try:
+        kernels.reset_launch_counts()
+        results = demo.run(cfg)
+        launches = dict(kernels.LAUNCHES)
+        n = len(results)
+        expect = {"stgcn_epilogue_bf16": 6 * n, "fps": n}
+        check(n == 4 and launches == expect, f"bf16 serving: {n} requests, launch counts {launches} != {expect}")
+        for path, dump_dir, n_boxes, _ in results:
+            check(os.path.isfile(os.path.join(dump_dir, "000000_pi_dict.json")), f"{path}: dumps not written")
+        print(f"bf16 serving: main path launch counts over {n} requests: {launches}")
+
+        clip = load_demo_clip(DEMO_CLIP, num_frames=768)[None]
+        gpu = demo.build_model(cfg, device="cuda")
+        cpu = demo.build_model(cfg, device="cpu")
+        folded = gpu.fold_eval()
+        x_gpu = torch.from_numpy(clip).cuda()
+        ep_gpu = gpu.generate(x_gpu, folded=folded)
+        ep_cpu = cpu.generate(torch.from_numpy(clip), folded=cpu.fold_eval())
+        agree, gaps = bf16_generate_gap(ep_gpu, ep_cpu, "bf16 card vs CPU")
+        print(f"bf16 card vs CPU generate: proposals agree {agree:.4f}; max |diff| / max: " + json.dumps(gaps))
+        check(ep_gpu["sem_cls_scores"].dtype == BF16 and ep_gpu["center"].shape == (1, 128, 3),
+              "bf16 generate output dtypes / shapes")
+        for key in ("center", "size", "heading", "sem_cls_scores"):
+            check(bool(torch.isfinite(ep_gpu[key].float()).all()), f"bf16 {key} not finite")
+        del cpu
+    finally:
+        cfg.close()
+
+    f32_cfg = CONFIG(configs["float32"], mode="demo")
+    try:
+        f32_model = demo.build_model(f32_cfg, device="cuda")
+    finally:
+        f32_cfg.close()
+    chains = {"bf16": (gpu, folded), "f32": (f32_model, f32_model.fold_eval())}
+    batch = np.stack([rotated_clip(clip[0], a) for a in np.random.RandomState(1).uniform(0, 2 * np.pi, 32)])
+    x32 = torch.from_numpy(batch).cuda()
+    times = {"bf16": [], "f32": []}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        model, fold = chains[name]
+        times[name].append((cuda_ms(lambda: model.generate(x_gpu, folded=fold), iters=10),
+                            cuda_ms(lambda: model.generate(x32, folded=fold), iters=3, warmup=1)))
+    request_s = [r[3] for r in results[1:]]
+    print(f"[{smi}] bf16 batch-1 request latency (load+generate+parse+NMS+dumps, host clock), "
+          f"requests 2-4: {', '.join(f'{t * 1e3:.3f}' for t in request_s)} ms")
+    for name, runs in times.items():
+        print(f"[{smi}] {name} chain generate (CUDA events, in turns f32/bf16/bf16/f32): batch 1 "
+              f"{' / '.join(f'{b1:.3f}' for b1, _ in runs)} ms (means of 10); B=32 "
+              f"{' / '.join(f'{b32:.3f}' for _, b32 in runs)} ms (means of 3) -> "
+              f"{32e3 / min(b32 for _, b32 in runs):.1f} clips/s")
+    device_profile(lambda i: gpu.generate(x32, folded=folded), 2, "B=32 bf16 generate",
+                   min(b32 for _, b32 in times["bf16"]), smi)
+    return launches
 
 
 def scene_datasets(seed, n_train, n_val):
@@ -897,6 +1162,83 @@ def test_phase(workdir, smi):
     return launches
 
 
+def bf16_test_phase(workdir, smi):
+    """The sparse_eval test runner in bf16 on the 8 synthetic scenes; card vs
+    CPU bf16 sparse generate; AP on the card against the CPU."""
+    dataset = scene_datasets(seed=5, n_train=0, n_val=8)["val"]
+    config = test_config(workdir)
+    config["model"]["compute_dtype"] = "bfloat16"
+    cfg = CONFIG(config, mode="test")
+    try:
+        kernels.reset_launch_counts()
+        metrics = test_runner.run(cfg, dataset=dataset)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        n = len(dataset)
+        expect = {"stgcn_sparse_bf16": 6 * n, "stgcn_epilogue_bf16": 6 * n, "fps": n}
+        check(launches == expect, f"bf16 test run launch counts {launches} != {expect}")
+        for t, m in metrics.items():
+            check(all(np.isfinite(v) for v in m.values()), f"bf16 AP@{t}: a metric is not finite")
+        check(all(np.isfinite(v) for v in cfg.test_summary["mean_losses"].values()), "bf16 test losses not finite")
+        batch_ms = [t * 1e3 for t in cfg.test_summary["batch_seconds"]]
+        print(f"[{smi}] bf16 sparse test run, {n} batches of 1: per-batch time (host clock) median of batches "
+              f"2-{n} {np.median(batch_ms[1:]):.3f} ms; launch counts {launches}")
+
+        clip = torch.from_numpy(dataset[0]["input_joints"][None])
+        gpu = demo.build_model(cfg, device="cuda")
+        cpu = demo.build_model(cfg, device="cpu")
+        ep_gpu = gpu.generate(clip.cuda(), folded=gpu.fold_eval())
+        ep_cpu = cpu.generate(clip, folded=cpu.fold_eval())
+        agree, gaps = bf16_generate_gap(ep_gpu, ep_cpu, "bf16 sparse card vs CPU")
+        print(f"bf16 sparse card vs CPU generate: proposals agree {agree:.4f}; max |diff| / max: " + json.dumps(gaps))
+        x32 = torch.from_numpy(np.stack([dataset[i % n]["input_joints"] for i in range(32)])).cuda()
+        folded = gpu.fold_eval()
+        b32 = min(cuda_ms(lambda: gpu.generate(x32, folded=folded), iters=3, warmup=1) for _ in range(2))
+        print(f"[{smi}] bf16 sparse chain B=32 generate {b32:.3f} ms -> {32e3 / b32:.1f} clips/s")
+        device_profile(lambda i: gpu.generate(x32, folded=folded), 2, "B=32 bf16 sparse generate", b32, smi, top=6)
+        del gpu, cpu, x32
+    finally:
+        cfg.close()
+
+    # remove_far_box off, metre-sized random boxes: AP on the card against the CPU
+    model = P2RNet(P2RNetConfig.from_cfg(cfg), device="cpu", generator=torch.Generator().manual_seed(42))
+    mu = model.detection.gmm_size.mdn.mu
+    with torch.no_grad():
+        mu.fill_(2 * np.log(1.5) / mu.shape[0])
+    ckpt = os.path.join(workdir, "test_weights_bf16.pth")
+    torch.save({"net": model.state_dict()}, ckpt)
+    small = SceneDataset(dataset.samples[:4], num_frames=T, augment=False)
+    results, inds = {}, {}
+    for dev in ("cuda", "cpu"):
+        config = test_config(workdir, remove_far_box=False)
+        config["model"]["compute_dtype"] = "bfloat16"
+        config.update(finetune=True, weight=[ckpt])
+        cfg = CONFIG(config, mode="test")
+        try:
+            results[dev] = test_runner.run(cfg, device=dev, dataset=small)
+            m = demo.build_model(cfg, device=dev)
+            f = m.fold_eval()
+            inds[dev] = [m.generate(torch.from_numpy(small[i]["input_joints"][None]).to(dev),
+                                   folded=f)["aggregated_vote_inds"].cpu() for i in range(len(small))]
+        finally:
+            cfg.close()
+    # bf16 AP on the card against the CPU: even with the same proposals, a
+    # vote at the ball's edge changes one proposal's pooled feature and so
+    # its box, which can move one class's AP by a whole step (one GT box);
+    # mAP and AR, over every class and scene, are held within 0.1
+    all_agree = all(torch.equal(a, b) for a, b in zip(inds["cuda"], inds["cpu"]))
+    for t, want in results["cpu"].items():
+        got = results["cuda"][t]
+        check(list(got) == list(want), f"bf16 AP@{t}: card and CPU report other keys")
+        gap = max(abs(got[k] - v) for k, v in want.items())
+        held = max(abs(got[k] - want[k]) for k in ("mAP", "AR"))
+        check(held <= 0.1, f"bf16 AP@{t}: card vs CPU mAP / AR differ by {held}")
+        print(f"bf16 remove_far_box off, 4 scenes, AP@{t}: card mAP {got['mAP']:.6f} AR {got['AR']:.6f}, "
+              f"CPU mAP {want['mAP']:.6f} AR {want['AR']:.6f}, mAP/AR gap {held:.2e}, largest gap of any "
+              f"class {gap:.2e} (every proposal index agrees: {all_agree})")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
@@ -919,6 +1261,9 @@ def main():
     rows.update(train_kernel_phase(dev, smi))
     rows.update(sparse_kernel_phase(dev, smi))
     print(f"kernel phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows.update(bf16_kernel_phase(dev, smi))
+    print(f"bf16 kernel phase {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
         t0 = time.perf_counter()
         launches = serving_phase(workdir, smi)
@@ -929,6 +1274,12 @@ def main():
         t0 = time.perf_counter()
         test_launches = test_phase(workdir, smi)
         print(f"test phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bf16_launches = bf16_serving_phase(workdir, smi)
+        print(f"bf16 serving phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bf16_test_launches = bf16_test_phase(workdir, smi)
+        print(f"bf16 test phase {time.perf_counter() - t0:.1f} s")
 
     line = {"kernels": [
         {"name": "stgcn_epilogue", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_epilogue.cu",
@@ -946,6 +1297,12 @@ def main():
         {"name": "stgcn_sparse", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_sparse.cu",
          "replaces": "pose2room_tpu/ops/stgcn_sparse.py:115", "launches": test_launches["stgcn_sparse"],
          **rows[("stgcn_sparse", "annealed", 1)]},
+        {"name": "stgcn_epilogue_bf16", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_epilogue.cu",
+         "replaces": "pose2room_tpu/ops/stgcn_fused.py:83", "launches": bf16_launches["stgcn_epilogue_bf16"],
+         **rows[("stgcn_epilogue_bf16", 1, True)]},
+        {"name": "stgcn_sparse_bf16", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_sparse.cu",
+         "replaces": "pose2room_tpu/ops/stgcn_sparse.py:115", "launches": bf16_test_launches["stgcn_sparse_bf16"],
+         **rows[("stgcn_sparse_bf16", 1)]},
     ]}
     print(json.dumps(line))
     print(nvidia_smi())

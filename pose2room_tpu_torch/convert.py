@@ -86,16 +86,12 @@ def state_dict_from_flax(payload, num_joints=53, joint_channels=64):
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
-def load_reference_state_dict(model, state_dict):
-    """Load a reference-layout state_dict (a checkpoint of the reference
-    P2RNet or of this port) into ``model`` with strict key checking.
-
-    Strips DataParallel ``module.`` prefixes, drops the graph buffer ``A``
-    and BatchNorm ``num_batches_tracked`` (architecture constants and torch
-    bookkeeping), and reshapes 1x1 conv weights stored with trailing unit
-    dims (the reference's (out, in, 1[, 1])) to the port's shapes.
-    """
-    own = model.state_dict()
+def _normalized(own, state_dict):
+    """A reference-layout state_dict with DataParallel ``module.`` prefixes
+    stripped, the graph buffer ``A`` and BatchNorm ``num_batches_tracked``
+    dropped (architecture constants and torch bookkeeping), and 1x1 conv
+    weights stored with trailing unit dims (the reference's (out, in, 1[, 1]))
+    reshaped to the port's shapes in ``own``."""
     sd = {}
     for k, v in state_dict.items():
         k = k[len("module."):] if k.startswith("module.") else k
@@ -105,5 +101,34 @@ def load_reference_state_dict(model, state_dict):
         if k in own and v.shape != own[k].shape and v.numel() == own[k].numel():
             v = v.reshape(own[k].shape)
         sd[k] = v
-    model.load_state_dict(sd, strict=True)
+    return sd
+
+
+def load_reference_state_dict(model, state_dict):
+    """Load a reference-layout state_dict (a checkpoint of the reference
+    P2RNet or of this port) into ``model`` with strict key checking, after
+    ``_normalized``'s prefix, buffer and shape handling."""
+    model.load_state_dict(_normalized(model.state_dict(), state_dict), strict=True)
     return model
+
+
+def load_partial_state_dict(model, state_dict, log=print):
+    """Finetune load (JAX train/checkpoint.py:73-102, the reference's
+    parse_state_dict): after ``_normalized``'s handling, copy each tensor
+    whose key and shape match ``model``'s, log ``skip weight <key> (missing
+    or shape mismatch)`` for every other tensor of ``state_dict``, and
+    ``partial weight load: n/m tensors`` when fewer than all m of the model's
+    tensors were loaded.  Returns the number loaded."""
+    own = model.state_dict()
+    merged = dict(own)
+    n_hit = 0
+    for k, v in _normalized(own, state_dict).items():
+        if k in own and v.shape == own[k].shape:
+            merged[k] = v
+            n_hit += 1
+        else:
+            log(f"skip weight {k} (missing or shape mismatch)")
+    if n_hit < len(own):
+        log(f"partial weight load: {n_hit}/{len(own)} tensors")
+    model.load_state_dict(merged, strict=True)
+    return n_hit

@@ -1,4 +1,5 @@
-// Fused ST-GCN block epilogue for the eval chain, f32, Hopper (sm_90a).
+// Fused ST-GCN block epilogue for the eval chain, f32 and bf16 legs, Hopper
+// (sm_90a).
 //
 // Replaces: pose2room_tpu/ops/stgcn_fused.py:_epilogue_kernel (Pallas, TPU),
 // reached through fused_epilogue / fused_stgcn_layer once per ST-GCN block.
@@ -27,9 +28,21 @@
 // overlaps this tile's epilogue, and the other resident block's work
 // overlaps both.  Pad columns (3392..3455) come out exactly 0 because t1,
 // x, s2 and b2' are 0 there.
+//
+// The bf16 leg (p2r_stgcn_epilogue_bf16; model.compute_dtype: bfloat16)
+// takes t1, x, KB and out in bf16 and vecs in f32, and computes what the
+// Pallas kernel's bf16 path computes: every tap product from bf16 operands
+// into an f32 accumulator (one mma.sync.m16n8k16 per k-step, no split,
+// tconv_bf16.cuh), then y2 * s2 + b2' [+ x widened to f32], the ReLU, and
+// one round-to-nearest-even cast to bf16.  Same persistent parity grid and
+// row-offset tap reads; its taps are staged transposed, so that a B
+// fragment is one 32-bit load.  Bound: bytes (2 bytes an element: 10.6 MB,
+// 15.9 MB with the residual, per clip: 3.2 / 4.8 us at 3.35 TB/s; the 1.02
+// GFLOP are 1.0 us at the bf16 tensor-core rate).
 
 #include <cuda_runtime.h>
 
+#include "tconv_bf16.cuh"
 #include "tconv_mma.cuh"
 
 namespace {
@@ -101,6 +114,74 @@ epilogue_kernel(const float* __restrict__ t1, const float* __restrict__ x,
   }
 }
 
+namespace tb = tconv_bf16;
+
+constexpr size_t kSmemBytesBf16 = (tb::kTapElems + tb::kSlabElems) * sizeof(tb::bf16);
+
+template <bool kResidual>
+__global__ void __launch_bounds__(kThreads, 3)
+epilogue_kernel_bf16(const tb::bf16* __restrict__ t1, const tb::bf16* __restrict__ x,
+                     const float* __restrict__ vecs, const tb::bf16* __restrict__ kb,
+                     tb::bf16* __restrict__ out, int B, int T, int Wp) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  tb::bf16* taps = reinterpret_cast<tb::bf16*>(smem_bytes);
+  tb::bf16* slab = taps + tb::kTapElems;
+
+  const int items = (Wp / kC / 2) * B * ((T + kRows - 1) / kRows);
+  const int stride = gridDim.x / 2;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int row0 = warp * 16 * kMT;
+
+  int item = blockIdx.x >> 1;
+  TileAt a = tile_at(item, B, T);
+  tb::stage_taps(taps, kb, (blockIdx.x & 1) * kC);
+  tb::stage_slab(slab, t1, a.clip_row0, a.t0, T, Wp, a.col0);
+  cp_async_commit();
+
+  for (; item < items; item += stride) {
+    const bool more = item + stride < items;
+    const TileAt next = tile_at(more ? item + stride : item, B, T);
+    cp_async_wait<0>();
+    __syncthreads();
+
+    float acc[kMT][kNT][4];
+    tb::tconv_mma(slab, taps, row0, acc);
+    __syncthreads();  // every warp is done reading the slab
+    if (more) {
+      tb::stage_slab(slab, t1, next.clip_row0, next.t0, T, Wp, next.col0);
+      cp_async_commit();
+    }
+
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int n = a.col0 + nt * 8 + 2 * c;
+      const float2 s2 = __ldg(reinterpret_cast<const float2*>(vecs + 2 * static_cast<size_t>(Wp) + n));
+      const float2 b2 = __ldg(reinterpret_cast<const float2*>(vecs + 3 * static_cast<size_t>(Wp) + n));
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t = a.t0 + row0 + mt * 16 + g + 8 * half;
+          if (t >= T) continue;
+          const size_t idx = (a.clip_row0 + t) * Wp + n;
+          // a product, then a sum, then the residual: the plain version's roundings
+          float v0 = __fadd_rn(__fmul_rn(acc[mt][nt][2 * half], s2.x), b2.x);
+          float v1 = __fadd_rn(__fmul_rn(acc[mt][nt][2 * half + 1], s2.y), b2.y);
+          if (kResidual) {
+            const float2 xv = tb::load2(x + idx);
+            v0 = __fadd_rn(v0, xv.x);
+            v1 = __fadd_rn(v1, xv.y);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(out + idx) = tb::pack_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+        }
+    }
+    a = next;
+  }
+}
+
 template <bool R>
 cudaError_t configure(int sms, int* slots) {
   cudaError_t err = cudaFuncSetAttribute(epilogue_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -108,6 +189,17 @@ cudaError_t configure(int sms, int* slots) {
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, epilogue_kernel<R>, kThreads, kSmemBytes);
+  *slots = per_sm * sms;
+  return err;
+}
+
+template <bool R>
+cudaError_t configure_bf16(int sms, int* slots) {
+  cudaError_t err = cudaFuncSetAttribute(epilogue_kernel_bf16<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kSmemBytesBf16));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, epilogue_kernel_bf16<R>, kThreads, kSmemBytesBf16);
   *slots = per_sm * sms;
   return err;
 }
@@ -138,6 +230,35 @@ extern "C" int p2r_stgcn_epilogue_f32(const float* t1, const float* x,
     epilogue_kernel<true><<<grid, kThreads, kSmemBytes, s>>>(t1, x, vecs, kb, out, B, T, Wp);
   } else {
     epilogue_kernel<false><<<grid, kThreads, kSmemBytes, s>>>(t1, nullptr, vecs, kb, out, B, T, Wp);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 leg.  t1, x, out: (B*T, Wp) contiguous bf16, 16-byte aligned (x
+// unused and may be null when residual == 0); vecs: (8, Wp) f32; kb:
+// (3, 128, 128) bf16.  Wp % 128 == 0.  Returns the cudaError_t of the launch
+// (0 on success).
+extern "C" int p2r_stgcn_epilogue_bf16(const __nv_bfloat16* t1, const __nv_bfloat16* x,
+                                       const float* vecs, const __nv_bfloat16* kb,
+                                       __nv_bfloat16* out, int B, int T, int Wp,
+                                       int residual, void* stream) {
+  static bool configured = false;
+  static int slots[2];  // [residual]: resident blocks on the card
+  if (!configured) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = configure_bf16<false>(sms, &slots[0]);
+    if (err == cudaSuccess) err = configure_bf16<true>(sms, &slots[1]);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int grid = grid_size(B, T, Wp, slots[residual ? 1 : 0]);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (residual) {
+    epilogue_kernel_bf16<true><<<grid, kThreads, kSmemBytesBf16, s>>>(t1, x, vecs, kb, out, B, T, Wp);
+  } else {
+    epilogue_kernel_bf16<false><<<grid, kThreads, kSmemBytesBf16, s>>>(t1, nullptr, vecs, kb, out, B, T, Wp);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 // Block-sparse folded graph matmul + BN1 affine + ReLU for the eval chain,
-// f32, Hopper (sm_90a).
+// f32 and bf16 legs, Hopper (sm_90a).
 //
 // Replaces: pose2room_tpu/ops/stgcn_sparse.py:_kernel (Pallas, TPU), reached
 // through sparse_graph_matmul_bn_relu once per ST-GCN block with
@@ -50,43 +50,70 @@
 // depend on which finished last, and applies BN1 and the ReLU.  The pad slot
 // (slot 36 of SPARSE_JOINT_ORDER) stays exactly 0: its x columns, tile rows
 // and columns and vecs are 0.
+//
+// The bf16 leg (p2r_stgcn_sparse_bf16; model.compute_dtype: bfloat16) takes
+// x, the tiles and out in bf16 and vecs in f32: the same units, schedule,
+// split-K and chunk-ordered sum, one mma.sync.m16n8k16 bf16 product per
+// k-step (no split; each in a fresh fragment, tconv_bf16.cuh), 64-deep
+// stages (the same 32 KB a stage), the tile rows read as B fragments by
+// ldmatrix.trans.  The split-K partials stay f32; the unit that finishes
+// its list applies BN1 and the ReLU in f32 and rounds to bf16 once.  Bound:
+// operations at B=1 (7.02 GFLOP: 7.1 us at 989 TFLOP/s; 19.8 MB moved: 5.9
+// us at 3.35 TB/s).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "tconv_bf16.cuh"
 #include "tconv_mma.cuh"
 
 namespace {
 
-using tconv::cp_async16;
 using tconv::cp_async_commit;
 using tconv::cp_async_wait;
 using tconv::mma_tf32;
 using tconv::split;
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kLane = 128;     // tile edge
 constexpr int kBM = 128;       // output rows of a unit
-constexpr int kBK = 32;        // depth of one pipeline stage
 constexpr int kStages = 4;
 constexpr int kThreads = 256;  // 8 warps: 4 along the rows x 2 along the columns
 constexpr int kMT = 2;         // 16-row m-tiles of a warp
 constexpr int kNT = 8;         // 8-column n-tiles of a warp
-constexpr int kStagesPerTile = kLane / kBK;
-constexpr int kAFloats = kBM * kBK;    // x slab of one stage, [row][k]
-constexpr int kBFloats = kBK * kLane;  // tile rows of one stage, [k][column]
-constexpr int kStageFloats = kAFloats + kBFloats;
-constexpr int kUnitFloats = kBM * kLane;  // one unit's partial
-constexpr int kMaxCols = 64;              // output column tiles the schedule holds
-constexpr int kMinChunk = 4;              // shortest chunk a list is cut into
+constexpr int kStageBytes = 2 * kBM * 128;  // x slab [row][k] + tile rows [k][column], 128-byte rows
+constexpr int kUnitFloats = kBM * kLane;    // one unit's partial
+constexpr int kMaxCols = 64;                // output column tiles the schedule holds
+constexpr int kMinChunk = 4;                // shortest chunk a list is cut into
 constexpr int kMaxChunks = kMaxCols + kMaxCols * kMaxCols / kMinChunk;
-constexpr int kSplitWaves = 3;            // the chunks fill the card about this many times
-constexpr size_t kSmemBytes = kStages * kStageFloats * sizeof(float);
+constexpr int kSplitWaves = 3;              // the chunks fill the card about this many times
+constexpr size_t kSmemBytes = kStages * kStageBytes;
 
 static_assert(4 * 16 * kMT == kBM && 2 * 8 * kNT == kLane, "the warps cover the unit");
 
-__device__ __forceinline__ int a_index(int r, int k) { return r * kBK + (k ^ ((r & 7) << 2)); }
-__device__ __forceinline__ int b_index(int k, int n) { return k * kLane + (n ^ ((k & 3) << 3)); }
+// One stage's shared-memory layout for an element type: a stage is kBK
+// deep, so that an x slab row holds 128 bytes (8 chunks of 16 bytes) and the
+// tile rows kBK x 128 elements the same 16 KB.  XOR swizzles keep every
+// fragment load on 32 banks and every 16-byte copy aligned.
+template <typename E>
+struct Stage;
+
+template <>
+struct Stage<float> {
+  static constexpr int kBK = 32;
+  __device__ static int a_index(int r, int k) { return r * kBK + (k ^ ((r & 7) << 2)); }
+  __device__ static int b_index(int k, int n) { return k * kLane + (n ^ ((k & 3) << 3)); }
+};
+
+template <>
+struct Stage<bf16> {
+  static constexpr int kBK = 64;
+  __device__ static int a_index(int r, int k) { return tconv_bf16::swz64(r, k); }
+  __device__ static int b_index(int k, int n) { return k * kLane + ((((n >> 3) ^ (k & 7))) << 3) + (n & 7); }
+};
 
 __device__ __forceinline__ float bn_relu(float acc, float s, float b) {
   return fmaxf(__fadd_rn(__fmul_rn(acc, s), b), 0.f);
@@ -120,12 +147,96 @@ __device__ __forceinline__ Chunk chunk_at(const Schedule& sc, int c) {
   return k;
 }
 
+// The k-steps of one landed stage, f32: 3xTF32 m16n8k8 (tconv_mma.cuh).
+__device__ __forceinline__ void stage_mma(const float* As, const float* Bs, int wrow, int wcol,
+                                          float (&acc)[kMT][kNT][4]) {
+  using L = Stage<float>;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < L::kBK; kk += 8) {
+    uint32_t ab[kMT][4], as[kMT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int r = wrow + mt * 16 + g;
+      split(As[L::a_index(r, kk + c)], ab[mt][0], as[mt][0]);
+      split(As[L::a_index(r + 8, kk + c)], ab[mt][1], as[mt][1]);
+      split(As[L::a_index(r, kk + c + 4)], ab[mt][2], as[mt][2]);
+      split(As[L::a_index(r + 8, kk + c + 4)], ab[mt][3], as[mt][3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      uint32_t bb0, bs0, bb1, bs1;
+      split(Bs[L::b_index(kk + c, wcol + nt * 8 + g)], bb0, bs0);
+      split(Bs[L::b_index(kk + c + 4, wcol + nt * 8 + g)], bb1, bs1);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        float part[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_tf32(part, as[mt], bb0, bb1);
+        mma_tf32(part, ab[mt], bs0, bs1);
+        mma_tf32(part, ab[mt], bb0, bb1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[i];
+      }
+    }
+  }
+}
+
+// The k-steps of one landed stage, bf16: one m16n8k16 product per k-step;
+// A by 32-bit loads, B (tile rows over k) by ldmatrix.trans, two n-tiles a
+// load.
+__device__ __forceinline__ void stage_mma(const bf16* As, const bf16* Bs, int wrow, int wcol,
+                                          float (&acc)[kMT][kNT][4]) {
+  using L = Stage<bf16>;
+  using tconv_bf16::ld32;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < L::kBK; kk += 16) {
+    uint32_t a[kMT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int r = wrow + mt * 16 + g;
+      a[mt][0] = ld32(As + L::a_index(r, kk + 2 * c));
+      a[mt][1] = ld32(As + L::a_index(r + 8, kk + 2 * c));
+      a[mt][2] = ld32(As + L::a_index(r, kk + 8 + 2 * c));
+      a[mt][3] = ld32(As + L::a_index(r + 8, kk + 8 + 2 * c));
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNT; nt += 2) {
+      // lane's row: k = kk + lane % 8 (+8 for matrices 1 and 3), n-tile nt (+1 for matrices 2 and 3)
+      uint32_t b[4];
+      tconv_bf16::ldmatrix_x4_trans(
+          b, Bs + L::b_index(kk + (lane & 7) + ((lane >> 3) & 1) * 8, wcol + (nt + (lane >> 4)) * 8));
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        tconv_bf16::mma_fold(acc[mt][nt], a[mt], b[0], b[1]);
+        tconv_bf16::mma_fold(acc[mt][nt + 1], a[mt], b[2], b[3]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = tconv_bf16::pack_rn(a, b);
+}
+
+template <typename E>
 __global__ void __launch_bounds__(kThreads, 1)
-sparse_kernel(const float* __restrict__ x, const float* __restrict__ tiles,
+sparse_kernel(const E* __restrict__ x, const E* __restrict__ tiles,
               const float* __restrict__ vecs, const int* __restrict__ col_off,
-              const int* __restrict__ vlist, float* __restrict__ out,
+              const int* __restrict__ vlist, E* __restrict__ out,
               float* __restrict__ partials, int* __restrict__ counters, int N, int Wp, int cap) {
-  extern __shared__ __align__(16) float smem[];  // kStages x [A slab | B rows]
+  using L = Stage<E>;
+  constexpr int kVec = 16 / sizeof(E);  // elements of one 16-byte copy
+  constexpr int kStagesPerTile = kLane / L::kBK;
+  extern __shared__ __align__(16) unsigned char smem[];  // kStages x [A slab | B rows]
   __shared__ Schedule sc;
   const int G = Wp / kLane;
   const int n_rb = (N + kBM - 1) / kBM;
@@ -161,23 +272,23 @@ sparse_kernel(const float* __restrict__ x, const float* __restrict__ tiles,
   const int steps = (k.j1 - k.j0) * kStagesPerTile;
 
   auto issue = [&](int step) {  // start the copies of one stage
-    float* As = smem + (step % kStages) * kStageFloats;
-    float* Bs = As + kAFloats;
+    E* As = reinterpret_cast<E*>(smem + (step % kStages) * kStageBytes);
+    E* Bs = As + kBM * L::kBK;
     const int j = k.j0 + step / kStagesPerTile;
-    const int k0 = (step % kStagesPerTile) * kBK;
+    const int k0 = (step % kStagesPerTile) * L::kBK;
     const size_t xcol = static_cast<size_t>(__ldg(vlist + j)) * kLane + k0;
-    for (int i = tid; i < kBM * (kBK / 4); i += kThreads) {
-      const int r = i / (kBK / 4);
-      const int q = i % (kBK / 4);
+    for (int i = tid; i < kBM * (L::kBK / kVec); i += kThreads) {
+      const int r = i / (L::kBK / kVec);
+      const int q = i % (L::kBK / kVec);
       const bool valid = row0 + r < N;  // rows past the end are zero-filled
-      const float* src = valid ? x + static_cast<size_t>(row0 + r) * Wp + xcol + 4 * q : x;
-      cp_async16(As + a_index(r, 4 * q), src, valid);
+      const E* src = valid ? x + static_cast<size_t>(row0 + r) * Wp + xcol + kVec * q : x;
+      tconv_bf16::cp_async16(As + L::a_index(r, kVec * q), src, valid);
     }
-    const float* tile = tiles + (static_cast<size_t>(j) * kLane + k0) * kLane;
-    for (int i = tid; i < kBK * (kLane / 4); i += kThreads) {
-      const int kr = i / (kLane / 4);
-      const int q = i % (kLane / 4);
-      cp_async16(Bs + b_index(kr, 4 * q), tile + kr * kLane + 4 * q, true);
+    const E* tile = tiles + (static_cast<size_t>(j) * kLane + k0) * kLane;
+    for (int i = tid; i < L::kBK * (kLane / kVec); i += kThreads) {
+      const int kr = i / (kLane / kVec);
+      const int q = i % (kLane / kVec);
+      tconv_bf16::cp_async16(Bs + L::b_index(kr, kVec * q), tile + kr * kLane + kVec * q, true);
     }
   };
 
@@ -205,35 +316,8 @@ sparse_kernel(const float* __restrict__ x, const float* __restrict__ tiles,
     __syncthreads();  // this stage has landed; the slot of the last one is free
     if (step + kStages - 1 < steps) issue(step + kStages - 1);
     cp_async_commit();
-    const float* As = smem + (step % kStages) * kStageFloats;
-    const float* Bs = As + kAFloats;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 8) {
-      uint32_t ab[kMT][4], as[kMT][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        const int r = wrow + mt * 16 + g;
-        split(As[a_index(r, kk + c)], ab[mt][0], as[mt][0]);
-        split(As[a_index(r + 8, kk + c)], ab[mt][1], as[mt][1]);
-        split(As[a_index(r, kk + c + 4)], ab[mt][2], as[mt][2]);
-        split(As[a_index(r + 8, kk + c + 4)], ab[mt][3], as[mt][3]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        uint32_t bb0, bs0, bb1, bs1;
-        split(Bs[b_index(kk + c, wcol + nt * 8 + g)], bb0, bs0);
-        split(Bs[b_index(kk + c + 4, wcol + nt * 8 + g)], bb1, bs1);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          float part[4] = {0.f, 0.f, 0.f, 0.f};
-          mma_tf32(part, as[mt], bb0, bb1);
-          mma_tf32(part, ab[mt], bs0, bs1);
-          mma_tf32(part, ab[mt], bb0, bb1);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mt][nt][i] += part[i];
-        }
-      }
-    }
+    const E* As = reinterpret_cast<const E*>(smem + (step % kStages) * kStageBytes);
+    stage_mma(As, As + kBM * L::kBK, wrow, wcol, acc);
   }
   cp_async_wait<0>();
 
@@ -279,8 +363,8 @@ sparse_kernel(const float* __restrict__ x, const float* __restrict__ tiles,
       for (int half = 0; half < 2; ++half) {
         const int row = row0 + wrow + mt * 16 + g + 8 * half;
         if (row >= N) continue;
-        *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * Wp + col) =
-            make_float2(bn_relu(acc[mt][nt][2 * half], s.x, b.x), bn_relu(acc[mt][nt][2 * half + 1], s.y, b.y));
+        store2(out + static_cast<size_t>(row) * Wp + col, bn_relu(acc[mt][nt][2 * half], s.x, b.x),
+               bn_relu(acc[mt][nt][2 * half + 1], s.y, b.y));
       }
   }
 }
@@ -293,17 +377,23 @@ struct Plan {
 };
 
 int make_plan(int N, int Wp, int nnz, Plan* plan) {
-  static int slots = 0;  // resident blocks on the card
+  static int slots = 0;  // resident blocks on the card, the fewer of the two legs'
   if (slots == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
+    int dev = 0, sms = 0, per_f32 = 0, per_bf16 = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(sparse_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      err = cudaFuncSetAttribute(sparse_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(kSmemBytes));
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sparse_kernel, kThreads, kSmemBytes);
+      err = cudaFuncSetAttribute(sparse_kernel<bf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kSmemBytes));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_f32, sparse_kernel<float>, kThreads, kSmemBytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_bf16, sparse_kernel<bf16>, kThreads, kSmemBytes);
     if (err != cudaSuccess) return static_cast<int>(err);
+    const int per_sm = per_f32 < per_bf16 ? per_f32 : per_bf16;
     if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     slots = per_sm * sms;
   }
@@ -342,17 +432,37 @@ extern "C" int p2r_stgcn_sparse_scratch(int N, int Wp, int nnz, long long* sizes
 // p2r_stgcn_sparse_scratch (null when it is 0), counters zeroed.
 // Wp % 128 == 0, Wp / 128 <= 64.  Returns the cudaError_t of the launch (0
 // on success).
-extern "C" int p2r_stgcn_sparse_f32(const float* x, const float* tiles, const float* vecs,
-                                    const int* col_off, const int* vlist, float* out,
-                                    float* partials, int* counters, int N, int Wp, int nnz,
-                                    void* stream) {
+namespace {
+
+template <typename E>
+int launch(const E* x, const E* tiles, const float* vecs, const int* col_off, const int* vlist, E* out,
+           float* partials, int* counters, int N, int Wp, int nnz, void* stream) {
   if (N == 0) return 0;
   Plan plan;
   const int err = make_plan(N, Wp, nnz, &plan);
   if (err != 0) return err;
   if (plan.scratch > 0 && (partials == nullptr || counters == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  sparse_kernel<<<plan.grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  sparse_kernel<E><<<plan.grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       x, tiles, vecs, col_off, vlist, out, partials, counters, N, Wp, plan.cap);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int p2r_stgcn_sparse_f32(const float* x, const float* tiles, const float* vecs,
+                                    const int* col_off, const int* vlist, float* out,
+                                    float* partials, int* counters, int N, int Wp, int nnz,
+                                    void* stream) {
+  return launch(x, tiles, vecs, col_off, vlist, out, partials, counters, N, Wp, nnz, stream);
+}
+
+// The bf16 leg: x, out (N, Wp) and tiles (nnz, 128, 128) contiguous bf16,
+// 16-byte aligned; everything else as p2r_stgcn_sparse_f32, the partials
+// f32 (the same scratch).
+extern "C" int p2r_stgcn_sparse_bf16(const __nv_bfloat16* x, const __nv_bfloat16* tiles, const float* vecs,
+                                     const int* col_off, const int* vlist, __nv_bfloat16* out,
+                                     float* partials, int* counters, int N, int Wp, int nnz,
+                                     void* stream) {
+  return launch(x, tiles, vecs, col_off, vlist, out, partials, counters, N, Wp, nnz, stream);
 }

@@ -8,6 +8,12 @@ sequential greedy NMS and list assembly run on the host in numpy.  The
 test runner dispatches the device half of a batch (``parse_predictions_device``,
 ``gt_corners``) and passes its host copy back in (``device_out``, ``corners``)
 one batch later.
+
+In the bf16 chain the class and objectness logits come out bf16, as in the
+JAX package, which parses them as they are: the softmaxes take the bf16
+logits and give bf16 probabilities (the port's ``torch.softmax`` sums in f32
+and rounds once).  numpy has no bf16, so the host copy widens them to f32
+(value-exact), where the JAX package keeps ml_dtypes bf16 arrays.
 """
 
 import numpy as np
@@ -42,7 +48,11 @@ def device_parse(center, size_log, heading_sincos, sem_cls_scores, objectness_sc
 
 
 def _host(x):
-    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+    """Host numpy copy; bf16 tensors widen to f32."""
+    if not torch.is_tensor(x):
+        return np.asarray(x)
+    x = x.cpu()
+    return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
 
 def parse_predictions_device(end_points, gt_data, config_dict):

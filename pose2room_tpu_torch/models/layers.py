@@ -13,6 +13,11 @@ over every axis but the last, and the running stats follow the flax EMA
 ``ra = m * ra + (1 - m) * batch`` with the keep-rate m = ``bn_momentum``.
 ``torch.nn.BatchNorm*`` would update running_var with the unbiased variance
 and the torch momentum convention, so it is not used.
+
+A compute ``dtype`` (None: float32, or ``torch.bfloat16``) follows flax's
+``nn.Dense(dtype=bf16)`` (``dense``): parameters stay f32, the input and
+kernel are cast to bf16, the product comes out bf16 and the bias is added in
+bf16 (two roundings); BatchNorm upcasts to f32, so ReLU after it runs in f32.
 """
 
 import math
@@ -31,6 +36,18 @@ def lecun_normal_(tensor, fan_in, generator):
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     with torch.no_grad():
         return nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def dense(x, kernel, bias=None, dtype=None):
+    """``x @ kernel + bias`` with flax ``nn.Dense`` semantics; kernel is
+    (in, out).  With ``dtype`` bf16 the operands are cast to bf16, their
+    product (exact in f32, summed in f32) is rounded to bf16 once, and the
+    bf16 bias is added with a second rounding; ``F.linear`` would round once."""
+    if dtype is None:
+        y = x @ kernel
+        return y if bias is None else y + bias
+    y = torch.matmul(x.to(dtype).float(), kernel.to(dtype).float()).to(dtype)
+    return y if bias is None else y + bias.to(dtype)
 
 
 class BatchNorm(nn.Module):
@@ -72,14 +89,15 @@ class BatchNorm(nn.Module):
 class SingleConv(nn.Module):
     """1x1 conv [+ BatchNorm] [+ ReLU]: the reference's SingleConv."""
 
-    def __init__(self, in_dim, out_dim, bias, bn, relu, bn_momentum=0.9):
+    def __init__(self, in_dim, out_dim, bias, bn, relu, bn_momentum=0.9, dtype=None):
         super().__init__()
         self.conv = nn.Linear(in_dim, out_dim, bias=bias)
         self.batchnorm = BatchNorm(out_dim, bn_momentum) if bn else None
         self.relu = relu
+        self.dtype = dtype
 
     def forward(self, x):
-        x = self.conv(x)
+        x = self.conv(x) if self.dtype is None else dense(x, self.conv.weight.t(), self.conv.bias, self.dtype)
         if self.batchnorm is not None:
             x = self.batchnorm(x)
         return torch.relu(x) if self.relu else x
@@ -97,13 +115,13 @@ class MLP1x1(nn.ModuleList):
     With batch norm the Linear before it has no bias (torch convention).
     """
 
-    def __init__(self, in_dim, features, use_bn=True, final_plain=True, bn_momentum=0.9):
+    def __init__(self, in_dim, features, use_bn=True, final_plain=True, bn_momentum=0.9, dtype=None):
         layers = []
         for i, f in enumerate(features):
             plain = i == len(features) - 1 and final_plain
             layers.append(SingleConv(
                 in_dim, f, bias=plain or not use_bn,
-                bn=use_bn and not plain, relu=not plain, bn_momentum=bn_momentum,
+                bn=use_bn and not plain, relu=not plain, bn_momentum=bn_momentum, dtype=dtype,
             ))
             in_dim = f
         super().__init__(layers)
@@ -116,12 +134,15 @@ class MLP1x1(nn.ModuleList):
 
 class TemporalConv(nn.Module):
     """(3, 1) temporal convolution over (B, T, V, C), 'SAME' padding, with the
-    reference Conv2d weight layout (out, in, 3, 1)."""
+    reference Conv2d weight layout (out, in, 3, 1).  With ``dtype`` bf16 it
+    runs as flax's ``conv_general_dilated`` on bf16 operands: the conv
+    rounded to bf16 once, then the bf16 bias added (JAX layers.py:156-166)."""
 
-    def __init__(self, channels, kernel_size=3):
+    def __init__(self, channels, kernel_size=3, dtype=None):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(channels, channels, kernel_size, 1))
         self.bias = nn.Parameter(torch.zeros(channels))
+        self.dtype = dtype
 
     def taps(self):
         """(3, in, out): tap s applies to row t+s-1."""
@@ -129,10 +150,15 @@ class TemporalConv(nn.Module):
 
     def forward(self, x):
         taps = self.taps()
+        if self.dtype is not None:
+            x, taps = x.to(self.dtype).float(), taps.to(self.dtype).float()
         zero = torch.zeros_like(x[:, :1])
         prev = torch.cat([zero, x[:, :-1]], dim=1)
         nxt = torch.cat([x[:, 1:], zero], dim=1)
-        return prev @ taps[0] + x @ taps[1] + nxt @ taps[2] + self.bias
+        y = prev @ taps[0] + x @ taps[1] + nxt @ taps[2]
+        if self.dtype is None:
+            return y + self.bias
+        return y.to(self.dtype) + self.bias.to(self.dtype)
 
 
 class _GraphConv(nn.Module):
@@ -150,10 +176,12 @@ class STGCNBlock(nn.Module):
     the caller's edge-importance weights.  ``forward`` is the per-block
     module path (BatchNorm live in training), the reference of both fused
     chains; ``fold_eval_arrays`` gives the eval chain's operands and
-    ``apply_fused_train`` runs the train chain.
+    ``apply_fused_train`` runs the train chain.  With ``dtype`` bf16 the
+    module path folds M in bf16 and the fused folds fold in f32 and cast
+    once, as the JAX package does (layers.py:241, 305-306, 362-366).
     """
 
-    def __init__(self, in_channels, out_channels, K, num_joints, residual, bn_momentum=0.9):
+    def __init__(self, in_channels, out_channels, K, num_joints, residual, bn_momentum=0.9, dtype=None):
         super().__init__()
         if residual and in_channels != out_channels:
             raise NotImplementedError("only the identity residual is ported")
@@ -161,9 +189,10 @@ class STGCNBlock(nn.Module):
             raise NotImplementedError(f"{out_channels} channels do not divide a {LANE}-lane group")
         self.in_channels, self.out_channels = in_channels, out_channels
         self.K, self.num_joints, self.residual = K, num_joints, residual
+        self.dtype = dtype
         self.gcn = _GraphConv(in_channels, out_channels, K)
         self.tcn = nn.Sequential(
-            BatchNorm(out_channels, bn_momentum), nn.ReLU(), TemporalConv(out_channels),
+            BatchNorm(out_channels, bn_momentum), nn.ReLU(), TemporalConv(out_channels, dtype=dtype),
             BatchNorm(out_channels, bn_momentum),
         )
 
@@ -173,23 +202,31 @@ class STGCNBlock(nn.Module):
         lecun_normal_(self.tcn[2].weight, 3 * self.out_channels, generator)
         nn.init.zeros_(self.tcn[2].bias)
 
-    def folded_graph_matrix(self, A):
+    def folded_graph_matrix(self, A, dtype=None):
         """(V*C_in, V*C_out) folded matrix and (V, C_out) bias term.
 
         out[btwc] = sum_{v,i,k} x[btvi] W[i,kc] A[kvw], so A folds into the
         weights once: M[viwc] = sum_k W[i,kc] A[kvw], and the graph conv is
-        one dense matmul.  The bias enters before the A-contraction.
+        one dense matmul.  The bias enters before the A-contraction.  With
+        ``dtype`` bf16, M is folded from bf16 W and A and rounded to bf16
+        (the module path, JAX layers.py:241); the bias term stays f32.
         """
         K, C, V = self.K, self.out_channels, self.num_joints
         Wk = self.gcn.conv.weight.t().reshape(self.in_channels, K, C)
-        M = torch.einsum("ikc,kvw->viwc", Wk, A).reshape(V * self.in_channels, V * C)
+        if dtype is None:
+            M = torch.einsum("ikc,kvw->viwc", Wk, A)
+        else:
+            M = torch.einsum("ikc,kvw->viwc", Wk.to(dtype).float(), A.to(dtype).float()).to(dtype)
         bias_out = torch.einsum("kc,kw->wc", self.gcn.conv.bias.reshape(K, C), A.sum(1))
-        return M, bias_out
+        return M.reshape(V * self.in_channels, V * C), bias_out
 
     def forward(self, x, A):
         B, T, V, _ = x.shape
-        M, bias_out = self.folded_graph_matrix(A)
-        y = (x.reshape(B, T, V * self.in_channels) @ M).reshape(B, T, V, self.out_channels)
+        M, bias_out = self.folded_graph_matrix(A, self.dtype)
+        xm = x.reshape(B, T, V * self.in_channels)
+        if self.dtype is not None:  # bf16 operands, f32 product (preferred_element_type)
+            xm, M = xm.to(self.dtype).float(), M.float()
+        y = (xm @ M).reshape(B, T, V, self.out_channels)
         y = self.tcn(y + bias_out)
         return torch.relu(y + x) if self.residual else torch.relu(y)
 
@@ -199,7 +236,8 @@ class STGCNBlock(nn.Module):
 
     def fold_eval_arrays(self, A):
         """Operands of ops/stgcn_fused.py: (M padded (Wp, Wp), vecs (8, Wp),
-        KB (3, 128, 128)), all f32, merged layout joint-major (v*C + c).
+        KB (3, 128, 128)), merged layout joint-major (v*C + c); M and KB in
+        the compute dtype (folded in f32, cast once), vecs f32.
 
         Pad rows/columns of M and pad entries of vecs are zero, so pad
         columns stay zero through the whole chain.
@@ -218,11 +256,13 @@ class STGCNBlock(nn.Module):
                 (b2 + self.tcn[2].bias * s2).repeat(V)]
         vecs = M.new_zeros(N_VEC_ROWS, Wp)
         vecs[: len(rows), :W0] = torch.stack(rows)
-        return M.contiguous(), vecs, self.block_diag_taps().contiguous()
+        dt = self.dtype or M.dtype
+        return M.to(dt).contiguous(), vecs, self.block_diag_taps().to(dt).contiguous()
 
     def fold_eval_arrays_sparse(self, A, order, vlist, wlist):
         """Operands of ops/stgcn_sparse.py: (tiles (nnz, 2C, 2C), vecs (8, Wp),
-        KB (3, 128, 128)), f32, in the joint-permuted merged layout.
+        KB (3, 128, 128)) in the joint-permuted merged layout; tiles and KB in
+        the compute dtype (folded in f32, cast once), vecs f32.
 
         order: (Vp,) numpy joint permutation (values >= num_joints are pad
         slots); vlist / wlist: numpy input / output tile of each packed tile
@@ -259,7 +299,8 @@ class STGCNBlock(nn.Module):
                 per_joint(b2 + self.tcn[2].bias * s2)]
         vecs = A.new_zeros(N_VEC_ROWS, Wp)
         vecs[: len(rows)] = torch.stack(rows)
-        return tiles.contiguous(), vecs, self.block_diag_taps().contiguous()
+        dt = self.dtype or tiles.dtype
+        return tiles.to(dt).contiguous(), vecs, self.block_diag_taps().to(dt).contiguous()
 
     def fold_train_arrays(self, A):
         """Operands of ops/stgcn_train.py:FusedTrainLayer, differentiable in

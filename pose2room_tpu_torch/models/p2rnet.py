@@ -9,6 +9,10 @@ L2-normalised vote features, and ProposalNet.
   statistics in ``.eval()`` mode (the validation loss);
 * ``generate`` is the deterministic eval path with MDN ``get_mean`` heads.
 
+``compute_dtype: bfloat16`` runs eval in bf16 as the JAX package does
+(p2rnet.py:96-125): parameters stay f32 and every module casts where flax
+does.  bf16 training is not ported and raises.
+
 ``P2RNet(config, device=None)`` builds its weights on the host and moves
 them to the card; ``device="cpu"`` runs it on the CPU (the kernels' plain
 versions).  Serving folds the graph operands once per weight load
@@ -24,6 +28,10 @@ from pose2room_tpu_torch.device import assert_precision_policy, resolve_device
 from pose2room_tpu_torch.models.proposal import MDN_KEYS, ProposalNet
 from pose2room_tpu_torch.models.stgcn import STGCN
 from pose2room_tpu_torch.models.vote import CenterVote, l2_normalize
+
+
+# model.compute_dtype -> the modules' compute dtype (None: float32 throughout)
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,20 +89,23 @@ class P2RNet(nn.Module):
         a fresh one seeded 0 when None) on the host, then moved to
         ``device``: the card unless ``device="cpu"``."""
         super().__init__()
-        if config.compute_dtype != "float32":
-            raise NotImplementedError(f"compute_dtype {config.compute_dtype!r}: only float32 is ported")
+        if config.compute_dtype not in COMPUTE_DTYPES:
+            raise NotImplementedError(f"compute_dtype {config.compute_dtype!r} is not ported")
         device = resolve_device(device)
         self.config = c = config
+        self.compute_dtype = dtype = COMPUTE_DTYPES[c.compute_dtype]
         self.backbone = STGCN(
             n_seeds=c.num_seeds, num_frames=c.num_frames, origin_joint_id=c.origin_joint_id,
             num_joints=c.num_joints, seed_sampling=c.seed_sampling, fused_eval=c.fused_eval,
             fused_train=c.fused_train, sparse_eval=c.sparse_eval, bn_momentum=c.bn_momentum,
+            dtype=dtype,
         )
         self.centervoting = CenterVote(origin_joint_id=c.origin_joint_id, vote_factor=c.vote_factor,
-                                       bn_momentum=c.bn_momentum)
+                                       bn_momentum=c.bn_momentum, dtype=dtype)
         self.detection = ProposalNet(
             num_class=c.num_class, num_proposals=c.num_proposals,
             sampling=c.cluster_sampling, num_gaussian=c.num_gaussian, bn_momentum=c.bn_momentum,
+            dtype=dtype,
         )
         self.reset_parameters(generator if generator is not None else torch.Generator().manual_seed(0))
         self.eval()
@@ -144,6 +155,8 @@ class P2RNet(nn.Module):
         when None.  BatchNorm is live in ``.train()`` mode and uses the
         running statistics in ``.eval()`` mode.  Returns the end_points dict.
         """
+        if self.training and self.compute_dtype is not None:
+            raise NotImplementedError("bf16 training is not ported")
         assert_precision_policy()
         if eps is None:
             if generator is None:

@@ -15,16 +15,24 @@ bn=False, max pooling):
   for generation, the sampled ``predict`` (injected noise) for training and
   the validation loss.
 
+With a bf16 ``dtype`` the shared MLP runs in bf16 and its max-pool goes to
+f32; the three head stacks end in f32 BatchNorm + ReLU, and conv_sem_obj in
+a plain bf16 Dense, so ``objectness_scores`` and ``sem_cls_scores`` come out
+bf16 as in the JAX package (proposal.py:49-59, 98-99); the MDN heads run in
+f32.
+
 FPS and the ball query take detached coordinates (the JAX package's
 stop_gradient): indices carry no gradient; the gathers of coordinates and
 features do.
 """
 
+import torch
 from torch import nn
 
-from pose2room_tpu_torch.models.layers import MLP1x1, lecun_normal_
+from pose2room_tpu_torch.models.layers import MLP1x1, dense, lecun_normal_
 from pose2room_tpu_torch.models.mdn import MDNHead, center_mu_init, heading_mu_init, size_mu_init
 from pose2room_tpu_torch.models.stgcn import arc_length_seed_inds
+from pose2room_tpu_torch.ops.stgcn_fused import widen
 from pose2room_tpu_torch.ops.sampling import (
     ball_query,
     furthest_point_sample,
@@ -38,26 +46,37 @@ MDN_KEYS = ("center", "size", "heading")
 class _VoteAggregation(nn.Module):
     """Reference key ``vote_aggregation.mlp_module.{0,2}``: plain Sequential."""
 
-    def __init__(self, feature_dim):
+    def __init__(self, feature_dim, dtype=None):
         super().__init__()
         # reference mlp spec [256,256,256] includes the input dim -> 2 layers
         self.mlp_module = nn.Sequential(
             nn.Linear(feature_dim, 256), nn.ReLU(), nn.Linear(256, feature_dim), nn.ReLU()
         )
+        self.dtype = dtype
+
+    def forward(self, x):
+        """The shared MLP and the max-pool over the ball (dim 2), in f32."""
+        if self.dtype is None:
+            return self.mlp_module(x).amax(dim=2)
+        for lin in self.mlp_module[::2]:
+            x = torch.relu(dense(x, lin.weight.t(), lin.bias, self.dtype))
+        return widen(x.amax(dim=2))
 
 
 class ProposalNet(nn.Module):
     def __init__(self, num_class=22, num_proposals=128, sampling="vote_fps", radius=0.3,
-                 nsample=16, feature_dim=256, num_gaussian=100, gmm_dim=128, bn_momentum=0.9):
+                 nsample=16, feature_dim=256, num_gaussian=100, gmm_dim=128, bn_momentum=0.9,
+                 dtype=None):
         super().__init__()
         self.num_proposals, self.sampling = num_proposals, sampling
         self.radius, self.nsample = radius, nsample
-        self.vote_aggregation = _VoteAggregation(feature_dim)
+        self.vote_aggregation = _VoteAggregation(feature_dim, dtype)
         bnm = dict(bn_momentum=bn_momentum)
-        self.conv_center = MLP1x1(feature_dim, [128, gmm_dim], final_plain=False, **bnm)
-        self.conv_size = MLP1x1(feature_dim, [128, gmm_dim], final_plain=False, **bnm)
-        self.conv_heading = MLP1x1(feature_dim, [128, gmm_dim], final_plain=False, **bnm)
-        self.conv_sem_obj = MLP1x1(feature_dim, [128, 128, 2 + num_class], **bnm)
+        heads = dict(bnm, dtype=dtype)
+        self.conv_center = MLP1x1(feature_dim, [128, gmm_dim], final_plain=False, **heads)
+        self.conv_size = MLP1x1(feature_dim, [128, gmm_dim], final_plain=False, **heads)
+        self.conv_heading = MLP1x1(feature_dim, [128, gmm_dim], final_plain=False, **heads)
+        self.conv_sem_obj = MLP1x1(feature_dim, [128, 128, 2 + num_class], **heads)
         self.gmm_center = MDNHead(num_gaussian, 3, center_mu_init(num_gaussian), gmm_dim, **bnm)
         self.gmm_size = MDNHead(num_gaussian, 3, size_mu_init(num_gaussian), gmm_dim, **bnm)
         self.gmm_heading = MDNHead(num_gaussian, 2, heading_mu_init(num_gaussian), gmm_dim, **bnm)
@@ -82,8 +101,7 @@ class ProposalNet(nn.Module):
             raise NotImplementedError(self.sampling)
         new_xyz = gather_points(xyz, inds)
         ball_idx = ball_query(self.radius, new_xyz.detach(), xyz.detach(), self.nsample)  # (B,P,S)
-        h = self.vote_aggregation.mlp_module(group_points(features, ball_idx))
-        return new_xyz, h.amax(dim=2), inds
+        return new_xyz, self.vote_aggregation(group_points(features, ball_idx)), inds
 
     def forward(self, xyz, features, end_points, eps=None):
         """xyz (B,N,3) votes, features (B,N,C) -> end_points with boxes.

@@ -21,6 +21,12 @@ training mode with ``fused_train`` the blocks run on the same layout through
 ``ops/stgcn_train.py`` (BatchNorm on live batch statistics, hand-written
 backward, the CUDA train kernels); ``fused_eval`` / ``fused_train`` off run
 the per-block module path instead.
+
+A compute ``dtype`` of bf16 (eval only) runs the chain on bf16 activations
+with bf16 operands, as the JAX package's bf16 path does (stgcn.py:224-380):
+pos_embed and sk_feat end in bf16 Dense layers, the window mean accumulates
+in f32 and rounds once, the chain takes bf16 input, and conv_joint is a bf16
+Dense whose output goes to f32.
 """
 
 import numpy as np
@@ -28,9 +34,9 @@ import torch
 from torch import nn
 
 from pose2room_tpu_torch.models.graph import SPARSE_JOINT_ORDER, build_spatial_graph
-from pose2room_tpu_torch.models.layers import MLP1x1, STGCNBlock, lecun_normal_
+from pose2room_tpu_torch.models.layers import MLP1x1, STGCNBlock, dense, lecun_normal_
 from pose2room_tpu_torch.ops.sampling import gather_points
-from pose2room_tpu_torch.ops.stgcn_fused import LANE, fused_epilogue, fused_stgcn_layer
+from pose2room_tpu_torch.ops.stgcn_fused import LANE, fused_epilogue, fused_stgcn_layer, widen
 from pose2room_tpu_torch.ops.stgcn_sparse import (
     sparse_graph_matmul_bn_relu,
     sparse_tile_lists,
@@ -88,8 +94,9 @@ def window_index_table(n_frames, knn):
 class STGCN(nn.Module):
     def __init__(self, n_seeds=512, num_frames=768, origin_joint_id=0, num_joints=53,
                  seed_sampling="uniform", fused_eval=True, fused_train=True, sparse_eval=False,
-                 knn=20, in_channels=64, out_channels=256, max_hop=5, bn_momentum=0.9):
+                 knn=20, in_channels=64, out_channels=256, max_hop=5, bn_momentum=0.9, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.n_seeds, self.num_frames = n_seeds, num_frames
         self.origin_joint_id, self.num_joints = origin_joint_id, num_joints
         self.seed_sampling = seed_sampling
@@ -111,11 +118,11 @@ class STGCN(nn.Module):
         self.register_buffer(
             "window_idx", torch.from_numpy(window_index_table(num_frames, knn)), persistent=False
         )
-        self.pos_embed = MLP1x1(3, [64, 64, in_channels], bn_momentum=bn_momentum)
-        self.sk_feat = MLP1x1(3, [64, 64, in_channels], bn_momentum=bn_momentum)
+        self.pos_embed = MLP1x1(3, [64, 64, in_channels], bn_momentum=bn_momentum, dtype=dtype)
+        self.sk_feat = MLP1x1(3, [64, 64, in_channels], bn_momentum=bn_momentum, dtype=dtype)
         self.st_gcn_networks = nn.ModuleList(
             STGCNBlock(in_channels, in_channels, A.shape[0], num_joints, residual=(i != 0),
-                       bn_momentum=bn_momentum)
+                       bn_momentum=bn_momentum, dtype=dtype)
             for i in range(6)
         )
         self.edge_importance = nn.ParameterList(
@@ -203,7 +210,8 @@ class STGCN(nn.Module):
 
         x = input_joints - input_joints[:, :, oid : oid + 1]
         neigh = origin[:, self.window_idx, :]  # (B,T,knn,3)
-        pos = self.pos_embed(neigh - origin[:, :, None, :]).mean(dim=2)  # (B,T,C)
+        pos = self.pos_embed(neigh - origin[:, :, None, :])  # (B,T,knn,C)
+        pos = pos.mean(dim=2) if self.dtype is None else widen(pos).mean(dim=2).to(self.dtype)
         h = self.sk_feat(x) + pos[:, :, None, :]  # (B,T,V,C)
         C = h.shape[-1]
         W0 = V * C
@@ -226,8 +234,7 @@ class STGCN(nn.Module):
             for blk, (tiles, vecs, KB) in zip(self.st_gcn_networks, folded["blocks"]):
                 t1 = sparse_graph_matmul_bn_relu(hm, tiles, vecs, col_off, vlist)
                 hm = fused_epilogue(t1, hm if blk.residual else None, vecs, KB, residual=blk.residual)
-            cj_kernel, cj_bias = folded["conv_joint"]
-            frame_feat = hm @ cj_kernel + cj_bias  # (B,T,256)
+            frame_feat = dense(hm, *folded["conv_joint"], self.dtype)  # (B,T,256)
         elif not self.training and self.fused_eval:
             # no entry pad: block 0 has no residual, so it contracts the
             # unpadded merged input against M's first W0 rows
@@ -235,13 +242,15 @@ class STGCN(nn.Module):
             hm = h.reshape(B, T, W0)
             for blk, (M, vecs, KB) in zip(self.st_gcn_networks, folded["blocks"]):
                 hm = fused_stgcn_layer(hm, M, vecs, KB, residual=blk.residual)
-            cj_kernel, cj_bias = folded["conv_joint"]
-            frame_feat = hm[..., :W0] @ cj_kernel + cj_bias  # (B,T,256)
+            frame_feat = dense(hm[..., :W0], *folded["conv_joint"], self.dtype)  # (B,T,256)
         else:
             for blk, imp in zip(self.st_gcn_networks, self.edge_importance):
                 h = blk(h, self.A * imp)
             # reference flattening: channel-major (c*V + v)
-            frame_feat = self.conv_joint(h.permute(0, 1, 3, 2).reshape(B, T, W0))
+            flat = h.permute(0, 1, 3, 2).reshape(B, T, W0)
+            frame_feat = (self.conv_joint(flat) if self.dtype is None
+                          else dense(flat, self.conv_joint.weight.t(), self.conv_joint.bias, self.dtype))
+        frame_feat = widen(frame_feat)
 
         seed_skeleton = input_joints[..., :3][torch.arange(B, device=input_joints.device)[:, None],
                                               seed_inds.long()]  # (B,S,V,3)

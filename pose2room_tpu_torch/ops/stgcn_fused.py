@@ -15,6 +15,12 @@ hand-written CUDA epilogue kernel (csrc/stgcn_epilogue.cu) on a card, and
 merged layout: a 128-column group is 128/C joints' channels, so it is three
 block-diagonal 128x128 taps over row-shifted activations.
 
+The chain runs in f32 or bf16 (``model.compute_dtype``).  In bf16, x, M,
+t1, KB and out are bf16 and vecs f32; every product takes bf16 operands and
+accumulates in f32 (bf16 x bf16 is exact in f32), BN and ReLU run in f32 and
+each activation is rounded to bf16 once, as the JAX package's bf16 path
+computes.  ``fused_epilogue`` launches each dtype's leg of the kernel.
+
 Padding contract: the merged width 3392 = 53*64 pads to 3456 = 27*128.  Pad
 rows/columns of M and pad entries of the per-column vectors are zero, so pad
 columns stay exactly zero through the whole six-block chain.
@@ -55,31 +61,50 @@ def shift_next(h):
     return torch.cat([h[:, 1:], h.new_zeros(h.shape[0], 1, h.shape[2])], dim=1)
 
 
+def widen(t):
+    """bf16 -> f32 (value-exact, so products of bf16 operands are exact and
+    accumulate in f32); any other dtype as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def tconv_group(h, tap):
-    """Product of each 128-column group of h (B, T, Wp) with one (128, 128) tap."""
+    """Product of each 128-column group of h (B, T, Wp) with one (128, 128)
+    tap; bf16 operands accumulate in f32."""
     B, T, Wp = h.shape
-    return torch.matmul(h.reshape(B, T, Wp // LANE, LANE), tap).reshape(B, T, Wp)
+    return torch.matmul(widen(h).reshape(B, T, Wp // LANE, LANE), widen(tap)).reshape(B, T, Wp)
 
 
 def graph_matmul_bn_relu(x, M, s1, b1):
-    """relu((x @ M) * s1 + b1): the graph matmul, accumulated in f32, then
-    BN1 and ReLU.  x: (B, T, W); M: (W, Wp)."""
-    return torch.relu(torch.matmul(x, M) * s1 + b1)
+    """relu((x @ M) * s1 + b1) in x's dtype: the graph matmul with an f32
+    accumulator, then BN1 and ReLU in f32 and one cast (JAX
+    stgcn_fused.py:59-80).  bf16 operands are widened to f32, where their
+    products are exact: ``torch.matmul`` on bf16 would round the
+    accumulator to bf16 before BN1.  x: (B, T, W); M: (W, Wp)."""
+    return torch.relu(torch.matmul(widen(x), widen(M)) * s1 + b1).to(x.dtype)
 
 
 def epilogue_merged_ref(t1, x, vecs, KB, *, residual):
     """Plain PyTorch version of the epilogue kernel (same operands).
 
-    t1: (B, T, Wp) f32; x: block input of the same shape, read only when
-    ``residual`` (pass None otherwise); vecs: (8, Wp) f32 rows
-    [s1, b1', s2, b2', 0...]; KB: (3, 128, 128) f32 temporal taps, tap s
-    applied to row t+s-1 with zero rows outside the clip.
+    t1: (B, T, Wp) f32 or bf16; x: block input of the same shape and dtype,
+    read only when ``residual`` (pass None otherwise); vecs: (8, Wp) f32 rows
+    [s1, b1', s2, b2', 0...]; KB: (3, 128, 128) temporal taps in t1's dtype,
+    tap s applied to row t+s-1 with zero rows outside the clip.  The taps
+    accumulate in f32, BN2, the residual (widened to f32) and ReLU run in
+    f32, and the result is cast to t1's dtype once.
     """
     y2 = tconv_group(shift_prev(t1), KB[0]) + tconv_group(t1, KB[1]) + tconv_group(shift_next(t1), KB[2])
     out = y2 * vecs[2] + vecs[3]
     if residual:
-        out = out + x
-    return torch.relu(out)
+        out = out + widen(x)
+    return torch.relu(out).to(t1.dtype)
+
+
+# each dtype's leg of the epilogue kernel: (launch-count name, C entry point)
+EPILOGUE_LEGS = {
+    torch.float32: ("stgcn_epilogue", "p2r_stgcn_epilogue_f32"),
+    torch.bfloat16: ("stgcn_epilogue_bf16", "p2r_stgcn_epilogue_bf16"),
+}
 
 
 def fused_epilogue(t1, x, vecs, KB, *, residual):
@@ -88,22 +113,26 @@ def fused_epilogue(t1, x, vecs, KB, *, residual):
 
     The kernel reads only the 64x64 diagonal blocks of KB (one joint's
     channels); ``fold_eval_arrays`` builds KB block-diagonal, so both
-    versions compute the same function.
+    versions compute the same function.  t1's dtype (f32 or bf16) picks the
+    kernel's leg; x and KB share it, vecs are f32.
     """
     if t1.device.type == "cpu":
         return epilogue_merged_ref(t1, x, vecs, KB, residual=residual)
     if t1.device.type != "cuda":
         raise ValueError(f"no epilogue kernel for device {t1.device}")
+    if t1.dtype not in EPILOGUE_LEGS:
+        raise TypeError(f"stgcn_epilogue: t1 is {t1.dtype}; the kernel takes float32 or bfloat16")
+    name, entry = EPILOGUE_LEGS[t1.dtype]
     B, T, Wp = t1.shape
     if Wp % LANE:
         raise ValueError(f"merged width {Wp} is not a multiple of {LANE}")
-    expect = {"t1": (t1, (B, T, Wp)), "vecs": (vecs, (N_VEC_ROWS, Wp)), "KB": (KB, (3, LANE, LANE))}
+    expect = {"t1": (t1, (B, T, Wp)), "KB": (KB, (3, LANE, LANE))}
     if residual:
         expect["x"] = (x, (B, T, Wp))
-    kernels.check_operands("stgcn_epilogue", expect, t1.device, align=16)
+    kernels.check_operands(name, expect, t1.device, dtype=t1.dtype, align=16)
+    kernels.check_operands(name, {"vecs": (vecs, (N_VEC_ROWS, Wp))}, t1.device, align=16)
     out = torch.empty_like(t1)
-    lib = kernels.load("stgcn_epilogue")
-    fn = lib.p2r_stgcn_epilogue_f32
+    fn = getattr(kernels.load("stgcn_epilogue"), entry)
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(
@@ -111,15 +140,16 @@ def fused_epilogue(t1, x, vecs, KB, *, residual):
         KB.data_ptr(), out.data_ptr(), B, T, Wp, int(bool(residual)),
         torch.cuda.current_stream(t1.device).cuda_stream,
     )
-    kernels.check(err, "stgcn_epilogue")
-    kernels.LAUNCHES["stgcn_epilogue"] += 1
+    kernels.check(err, name)
+    kernels.LAUNCHES[name] += 1
     return out
 
 
 def fused_stgcn_layer(x, M, vecs, KB, *, residual):
-    """One ST-GCN block over merged activations: f32 matmul + fused epilogue.
+    """One ST-GCN block over merged activations: the graph matmul (f32
+    accumulator) + the fused epilogue.
 
-    x: (B, T, W) f32.  With ``residual`` W must equal Wp = M.shape[1] (pad
+    x: (B, T, W) in the chain dtype (f32 or bf16; M and KB the same).  With ``residual`` W must equal Wp = M.shape[1] (pad
     columns zero); without, W may be the UNPADDED merged width: the matmul
     contracts against M's first W rows and never touches x again, so the
     first block needs no entry pad or copy.  Returns (B, T, Wp).

@@ -15,6 +15,11 @@ then one f32 matmul) for CPU tensors.  Its output feeds the epilogue kernel
 of ops/stgcn_fused.py, which serves the permuted layout unchanged: its taps
 are the same for every joint and the caller permutes the per-column vectors.
 
+In the bf16 chain x, the tiles and the output are bf16 and vecs f32: the
+products accumulate in f32 and relu(acc * s1 + b1) is rounded to bf16 once
+(JAX stgcn_sparse.py:142-151); the kernel's bf16 leg keeps its split-K
+partials in f32 too.
+
 Padding contract: the pad joint (order value 53, slot 36 of the default
 order, so columns 2304..2367 and not the last 64) has zero rows and columns
 in M and zero per-column vectors, so its columns stay exactly zero.
@@ -26,7 +31,7 @@ import numpy as np
 import torch
 
 from pose2room_tpu_torch import kernels
-from pose2room_tpu_torch.ops.stgcn_fused import LANE, N_VEC_ROWS
+from pose2room_tpu_torch.ops.stgcn_fused import LANE, N_VEC_ROWS, widen
 
 
 def sparse_tile_lists(pair_support, order):
@@ -79,48 +84,59 @@ def densify_tiles(m_tiles, vlist, wlist, G):
 
 def sparse_graph_matmul_bn_relu_ref(x, m_tiles, vecs, col_off, vlist):
     """Plain PyTorch version of the kernel (same operands): densify the
-    tiles, then relu((x @ M) * s1 + b1) in f32."""
+    tiles, then relu((x @ M) * s1 + b1) with an f32 accumulator, cast to x's
+    dtype once (bf16 operands are widened to f32, value-exact)."""
     G = x.shape[-1] // LANE
     col_off = torch.as_tensor(col_off, device=m_tiles.device).long()
     wlist = torch.repeat_interleave(torch.arange(G, device=m_tiles.device), torch.diff(col_off))
     vlist = torch.as_tensor(vlist, device=m_tiles.device).long()
-    dense = densify_tiles(m_tiles, vlist, wlist, G)
-    return torch.relu(torch.matmul(x, dense) * vecs[0] + vecs[1])
+    dense = densify_tiles(widen(m_tiles), vlist, wlist, G)
+    return torch.relu(torch.matmul(widen(x), dense) * vecs[0] + vecs[1]).to(x.dtype)
+
+
+# each dtype's leg of the kernel: (launch-count name, C entry point)
+SPARSE_LEGS = {
+    torch.float32: ("stgcn_sparse", "p2r_stgcn_sparse_f32"),
+    torch.bfloat16: ("stgcn_sparse_bf16", "p2r_stgcn_sparse_bf16"),
+}
 
 
 def sparse_graph_matmul_bn_relu(x, m_tiles, vecs, col_off, vlist):
     """relu((x @ M) * s1 + b1) with M given as its packed nonzero tiles: the
     CUDA kernel for CUDA tensors, the plain version for CPU tensors.
 
-    x: (B, T, Wp) f32 in the joint-permuted merged layout, pad columns zero;
-    m_tiles: (nnz, 128, 128) f32; vecs: (8, Wp) f32 rows [s1, b1', ...],
+    x: (B, T, Wp) f32 or bf16 in the joint-permuted merged layout, pad
+    columns zero; m_tiles: (nnz, 128, 128) in x's dtype (which picks the
+    kernel's leg); vecs: (8, Wp) f32 rows [s1, b1', ...],
     permuted, pad entries zero; col_off (Wp//128 + 1,) and vlist (nnz,)
     int32 tile lists on x's device.  The kernel trusts the lists' contents
     (checking them would copy them to the host on every call): the fold
     builds them with ``sparse_tile_lists``.  When there are few rows it cuts
     the long lists into chunks (split-K); this wrapper then allocates the
-    partials' scratch the library asks for and zeroes its counters.
-    Returns (B, T, Wp) f32.
+    partials' scratch (f32 for both legs) the library asks for and zeroes
+    its counters.  Returns (B, T, Wp) in x's dtype.
     """
     if x.device.type == "cpu":
         return sparse_graph_matmul_bn_relu_ref(x, m_tiles, vecs, col_off, vlist)
     if x.device.type != "cuda":
         raise ValueError(f"no sparse graph matmul kernel for device {x.device}")
+    if x.dtype not in SPARSE_LEGS:
+        raise TypeError(f"stgcn_sparse: x is {x.dtype}; the kernel takes float32 or bfloat16")
+    name, entry = SPARSE_LEGS[x.dtype]
     B, T, Wp = x.shape
     if Wp % LANE:
         raise ValueError(f"merged width {Wp} is not a multiple of {LANE}")
     nnz = m_tiles.shape[0]
-    name = "stgcn_sparse"
-    kernels.check_operands(name, {
-        "x": (x, (B, T, Wp)), "m_tiles": (m_tiles, (nnz, LANE, LANE)), "vecs": (vecs, (N_VEC_ROWS, Wp)),
-    }, x.device)
+    kernels.check_operands(name, {"x": (x, (B, T, Wp)), "m_tiles": (m_tiles, (nnz, LANE, LANE))},
+                           x.device, dtype=x.dtype)
+    kernels.check_operands(name, {"vecs": (vecs, (N_VEC_ROWS, Wp))}, x.device)
     kernels.check_operands(name, {"col_off": (col_off, (Wp // LANE + 1,)), "vlist": (vlist, (nnz,))},
                            x.device, dtype=torch.int32)
     for what, t in (("x", x), ("m_tiles", m_tiles), ("vecs", vecs)):
         if t.data_ptr() % 16:
-            raise ValueError(f"{name}: {what} is not 16-byte aligned (the kernel loads float4)")
+            raise ValueError(f"{name}: {what} is not 16-byte aligned (the kernel copies 16 bytes at a time)")
     out = torch.empty_like(x)
-    lib = kernels.load(name)
+    lib = kernels.load("stgcn_sparse")
     # split-K scratch: the partials of the cut CSR lists and a zeroed counter per output tile
     scratch_fn = lib.p2r_stgcn_sparse_scratch
     scratch_fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -129,7 +145,7 @@ def sparse_graph_matmul_bn_relu(x, m_tiles, vecs, col_off, vlist):
     kernels.check(scratch_fn(B * T, Wp, nnz, sizes), name)
     partials = torch.empty(sizes[0], dtype=torch.float32, device=x.device) if sizes[0] else None
     counters = torch.zeros(sizes[1], dtype=torch.int32, device=x.device) if sizes[1] else None
-    fn = lib.p2r_stgcn_sparse_f32
+    fn = getattr(lib, entry)
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(

@@ -14,17 +14,20 @@ import numpy as np
 import torch
 
 from pose2room_tpu_torch.config.loader import mount_external_config
-from pose2room_tpu_torch.convert import load_reference_state_dict
+from pose2room_tpu_torch.convert import load_partial_state_dict
 from pose2room_tpu_torch.data.dataset import load_demo_clip
 from pose2room_tpu_torch.device import resolve_device
 from pose2room_tpu_torch.eval.parse import assembly_pred_map_cls, parse_predictions
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
+from pose2room_tpu_torch.train.state import check_unported_keys
 from pose2room_tpu_torch.utils.vis import dump_predictions, write_ply_boxes, write_ply_points
 
 
 def build_model(cfg, device=None):
-    """P2RNet from the config: reference-layout weights from ``weight:`` when
-    ``finetune`` is set, else initialised from ``seed`` with a torch.Generator.
+    """P2RNet from the config: initialised from ``seed`` with a
+    torch.Generator, then, when ``finetune`` is set, each ``weight:``
+    checkpoint (reference or port layout) loaded partially: tensors whose key
+    and shape match, each skip logged (``convert.load_partial_state_dict``).
     Also mounts the dataset and eval configs on ``cfg``."""
     mount_external_config(cfg)
     seed = int(cfg.config.get("seed", 42))
@@ -36,7 +39,7 @@ def build_model(cfg, device=None):
         for path in cfg.config.get("weight", []) or []:
             cfg.log_string(f"Loading weights from {path}")
             ckpt = torch.load(path, map_location="cpu", weights_only=True)
-            load_reference_state_dict(model, ckpt.get("net", ckpt))
+            load_partial_state_dict(model, ckpt.get("net", ckpt), log=cfg.log_string)
     return model
 
 
@@ -47,6 +50,7 @@ def run(cfg, device=None):
     request is load, generate, parse, NMS and dumps, timed on the host clock
     (the parse copies its results to the host, which waits for the card).
     """
+    check_unported_keys(cfg.config)
     demo_path = cfg.config.get("demo_path", "demo")
     inputs = sorted(glob.glob(os.path.join(demo_path, "inputs", "*.npy")))
     if not inputs:

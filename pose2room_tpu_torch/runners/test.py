@@ -31,6 +31,7 @@ from pose2room_tpu_torch.eval.parse import (
 from pose2room_tpu_torch.models.loss import detection_loss
 from pose2room_tpu_torch.runners.demo import build_model
 from pose2room_tpu_torch.runners.train import split_datasets
+from pose2room_tpu_torch.train.state import check_unported_keys
 from pose2room_tpu_torch.train.step import batch_to_device
 from pose2room_tpu_torch.utils.logger import LossRecorder
 from pose2room_tpu_torch.utils.vis import dump_predictions
@@ -64,6 +65,7 @@ def run(cfg, device=None, dataset=None):
     Also sets ``cfg.test_summary``: the mean losses, the seconds between
     successive batch completions, and the IoU path ('native' or 'numpy').
     """
+    check_unported_keys(cfg.config)
     test_cfg = cfg.config.get("test", {}) or {}
     if test_cfg.get("multi_mode", False):
         raise NotImplementedError("multi_mode evaluation is not ported")

@@ -2,8 +2,9 @@
 train.py:11-61): model from the config's seed, AdamW, HDF5 loaders over
 ``data.split`` and the epoch loop; checkpoints under the run directory.
 
-Resume, finetune, ``freeze``, ``optim_spec`` and ``bnscheduler`` are not
-ported and raise.
+Resume, finetune, ``freeze``, ``optim_spec``, ``bnscheduler``, bf16
+(``model.compute_dtype: bfloat16``) and the keys of
+``train.state.check_unported_keys`` are not ported and raise.
 """
 
 import os

@@ -27,9 +27,26 @@ def set_learning_rate(optimizer, lr):
         group["lr"] = lr
 
 
+def check_unported_keys(config):
+    """Raise for each config key that the JAX package acts on and this port
+    does not, when it is set: every runner calls this, so a run never goes
+    on without an option it was given."""
+    device_cfg = config.get("device", {}) or {}
+    if int(device_cfg.get("model_parallel", 1) or 1) > 1:
+        raise NotImplementedError("device.model_parallel (tensor-parallel mesh) is not ported")
+    if (config.get("train", {}) or {}).get("h2d_dtype"):
+        raise NotImplementedError("train.h2d_dtype (compressed host-to-device batches) is not ported")
+    if int((config.get("log", {}) or {}).get("profile_steps", 0) or 0) > 0:
+        raise NotImplementedError("log.profile_steps (profiler windows) is not ported")
+
+
 def check_supported(config):
-    """Raise for the train-config options this port does not run yet."""
+    """Raise for the train-config options this port does not run yet,
+    ``check_unported_keys`` included."""
+    check_unported_keys(config)
     model_cfg = config.get("model", {}) or {}
+    if model_cfg.get("compute_dtype", "float32") != "float32":
+        raise NotImplementedError("bf16 training is not ported")
     if config.get("train", {}).get("freeze"):
         raise NotImplementedError("train.freeze is not ported")
     if any(isinstance(v, dict) and v.get("optim_spec") for v in model_cfg.values()):

@@ -351,3 +351,114 @@ def test_generate_card_matches_cpu_small(cuda_device):
         assert torch.equal(a[key].cpu(), b[key]), key
     for key in ("center", "size", "heading", "objectness_scores", "sem_cls_scores"):
         torch.testing.assert_close(a[key].cpu(), b[key], atol=5e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# bf16 legs of kernels 1 and 5 (model.compute_dtype: bfloat16)
+# ---------------------------------------------------------------------------
+
+def _bf16_ordinal(t):
+    """bf16 tensor -> int64 in value order: adjacent bf16 values differ by 1."""
+    u = t.contiguous().view(torch.int16).to(torch.int64) & 0xFFFF
+    return torch.where(u >= 0x8000, -(u & 0x7FFF), u)
+
+
+def _assert_bf16_close(got, ref):
+    """Both bf16, the same sums in another order: within 1 bf16 ulp wherever
+    |ref| is above 1e-3 of its max (nearer 0 an f32 rounding moves more
+    ulps), and within 2^-7 of the max everywhere (1 ulp of the max's
+    binade)."""
+    assert got.dtype == ref.dtype == torch.bfloat16
+    scale = ref.float().abs().max()
+    live = ref.float().abs() > 1e-3 * scale
+    assert (_bf16_ordinal(got) - _bf16_ordinal(ref)).abs()[live].max().item() <= 1
+    assert (got.float() - ref.float()).abs().max().item() <= scale.item() * 2 ** -7
+
+
+@pytest.mark.parametrize("B,T,W0", [(1, 768, 3392), (8, 768, 3392), (2, 200, 3392), (3, 17, 192)])
+@pytest.mark.parametrize("residual", [True, False])
+def test_epilogue_bf16_kernel_matches_plain(cuda_device, B, T, W0, residual):
+    x, M, vecs, KB = _operands(B, T, W0, cuda_device)
+    xb, KBb = x.to(torch.bfloat16), KB.to(torch.bfloat16)
+    t1 = stgcn_fused.graph_matmul_bn_relu(xb, M.to(torch.bfloat16), vecs[0], vecs[1])
+    assert t1.dtype == torch.bfloat16
+    xr = xb if residual else None
+    before = dict(kernels.LAUNCHES)
+    got = stgcn_fused.fused_epilogue(t1, xr, vecs, KBb, residual=residual)
+    assert kernels.LAUNCHES["stgcn_epilogue_bf16"] == before.get("stgcn_epilogue_bf16", 0) + 1
+    assert kernels.LAUNCHES["stgcn_epilogue"] == before.get("stgcn_epilogue", 0)
+    ref = stgcn_fused.epilogue_merged_ref(t1, xr, vecs, KBb, residual=residual)
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, ref)
+    assert torch.all(got[..., W0:] == 0)
+    assert torch.equal(got, stgcn_fused.fused_epilogue(t1, xr, vecs, KBb, residual=residual))
+
+
+@pytest.mark.parametrize("B,T", [(1, 768), (8, 768), (3, 17)])
+@pytest.mark.parametrize("natural", [False, True])
+def test_sparse_bf16_kernel_matches_plain(cuda_device, B, T, natural):
+    order = np.arange(54, dtype=np.int32) if natural else SPARSE_JOINT_ORDER
+    x, tiles, vecs, col_off, vlist, pad = _sparse_operands(B, T, order, cuda_device)
+    xb, tb = x.to(torch.bfloat16), tiles.to(torch.bfloat16)
+    before = dict(kernels.LAUNCHES)
+    got = stgcn_sparse.sparse_graph_matmul_bn_relu(xb, tb, vecs, col_off, vlist)
+    assert kernels.LAUNCHES["stgcn_sparse_bf16"] == before.get("stgcn_sparse_bf16", 0) + 1
+    assert kernels.LAUNCHES["stgcn_sparse"] == before.get("stgcn_sparse", 0)
+    ref = stgcn_sparse.sparse_graph_matmul_bn_relu_ref(xb, tb, vecs, col_off, vlist)
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, ref)
+    assert torch.all(got[..., pad * 64:(pad + 1) * 64] == 0)
+    assert torch.equal(got, stgcn_sparse.sparse_graph_matmul_bn_relu(xb, tb, vecs, col_off, vlist))
+
+
+def test_sparse_bf16_output_tile_without_entries(cuda_device):
+    x, tiles, vecs, col_off, vlist, _ = _sparse_operands(1, 768, SPARSE_JOINT_ORDER, cuda_device)
+    co, vl = col_off.cpu().numpy(), vlist.cpu().numpy()
+    w = 3
+    keep = torch.from_numpy(np.r_[0:co[w], co[w + 1]:len(vl)])
+    co = co.copy()
+    co[w + 1:] -= co[w + 1] - co[w]
+    args = (x.to(torch.bfloat16), tiles[keep.to(cuda_device)].to(torch.bfloat16).contiguous(), vecs,
+            torch.from_numpy(co).to(cuda_device), torch.from_numpy(vl[keep.numpy()]).to(cuda_device))
+    got = stgcn_sparse.sparse_graph_matmul_bn_relu(*args)
+    ref = stgcn_sparse.sparse_graph_matmul_bn_relu_ref(*args)
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, ref)
+    empty = got[..., w * 128:(w + 1) * 128]
+    want = torch.relu(vecs[1, w * 128:(w + 1) * 128]).to(torch.bfloat16)
+    assert torch.equal(empty, want.expand_as(empty))
+
+
+def test_bf16_wrappers_reject_mixed_dtypes(cuda_device):
+    x, M, vecs, KB = _operands(2, 16, 192, cuda_device)
+    xb = x.to(torch.bfloat16)
+    t1 = stgcn_fused.graph_matmul_bn_relu(xb, M.to(torch.bfloat16), vecs[0], vecs[1])
+    with pytest.raises(TypeError):  # taps in f32 with a bf16 chain
+        stgcn_fused.fused_epilogue(t1, xb, vecs, KB, residual=True)
+    with pytest.raises(TypeError):  # per-column vectors stay f32
+        stgcn_fused.fused_epilogue(t1, xb, vecs.to(torch.bfloat16), KB.to(torch.bfloat16), residual=True)
+    sx, tiles, svecs, col_off, vlist, _ = _sparse_operands(1, 16, SPARSE_JOINT_ORDER, cuda_device)
+    with pytest.raises(TypeError):
+        stgcn_sparse.sparse_graph_matmul_bn_relu(sx.to(torch.bfloat16), tiles, svecs, col_off, vlist)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+def test_generate_bf16_card_matches_cpu_small(cuda_device, sparse):
+    cfg = P2RNetConfig(num_frames=96, num_seeds=64, num_proposals=16, num_gaussian=10,
+                       compute_dtype="bfloat16", sparse_eval=sparse)
+    rng = np.random.RandomState(2)
+    x = (rng.randn(2, 96, 53, 3) * 0.4).astype(np.float32)
+    x[..., 0] += np.linspace(0, 3, 96, dtype=np.float32)[None, :, None]
+    gpu = P2RNet(cfg, device=cuda_device)
+    cpu = P2RNet(cfg, device="cpu")
+    kernels.reset_launch_counts()
+    a = gpu.generate(torch.from_numpy(x).to(cuda_device), folded=gpu.fold_eval())
+    want = {"stgcn_epilogue_bf16": 6, "fps": 1}
+    if sparse:
+        want["stgcn_sparse_bf16"] = 6
+    assert dict(kernels.LAUNCHES) == want
+    b = cpu.generate(torch.from_numpy(x), folded=cpu.fold_eval())
+    assert torch.equal(a["seed_inds"].cpu(), b["seed_inds"])
+    for key in ("seed_features", "vote_xyz"):
+        ref = b[key].float()
+        assert (a[key].cpu().float() - ref).abs().max().item() <= 1e-2 * ref.abs().max().item(), key

@@ -164,18 +164,22 @@ def test_cpu_wrappers_never_count_launches(rng):
 
 
 def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
-    """Editing csrc/tconv_mma.cuh rebuilds exactly the kernels that include it."""
+    """Editing csrc/tconv_mma.cuh rebuilds exactly the kernels that include
+    it, directly or through csrc/tconv_bf16.cuh; editing tconv_bf16.cuh
+    exactly the two with a bf16 leg."""
     src = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, src)
     monkeypatch.setattr(kernels, "CSRC", str(src))
-    assert kernels._source_files("stgcn_epilogue") == ["stgcn_epilogue.cu", "tconv_mma.cuh"]
+    both = ["tconv_bf16.cuh", "tconv_mma.cuh"]
+    assert kernels._source_files("stgcn_epilogue") == ["stgcn_epilogue.cu", *both]
     assert kernels._source_files("stgcn_train_fwd") == ["stgcn_train_fwd.cu", "tconv_mma.cuh"]
     assert kernels._source_files("stgcn_train_bwd") == ["stgcn_train_bwd.cu", "tconv_mma.cuh"]
-    assert kernels._source_files("stgcn_sparse") == ["stgcn_sparse.cu", "tconv_mma.cuh"]
+    assert kernels._source_files("stgcn_sparse") == ["stgcn_sparse.cu", *both]
     assert kernels._source_files("fps") == ["fps.cu"]
-    before = {name: kernels._lib_path(name) for name in kernels.SOURCES}
-    header = src / "tconv_mma.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    after = {name: kernels._lib_path(name) for name in kernels.SOURCES}
-    assert {name for name in kernels.SOURCES if after[name] != before[name]} == {
-        "stgcn_epilogue", "stgcn_train_fwd", "stgcn_train_bwd", "stgcn_sparse"}
+    for edited, rebuilt in (("tconv_mma.cuh", {"stgcn_epilogue", "stgcn_train_fwd", "stgcn_train_bwd", "stgcn_sparse"}),
+                            ("tconv_bf16.cuh", {"stgcn_epilogue", "stgcn_sparse"})):
+        before = {name: kernels._lib_path(name) for name in kernels.SOURCES}
+        header = src / edited
+        header.write_text(header.read_text() + "\n// edited\n")
+        after = {name: kernels._lib_path(name) for name in kernels.SOURCES}
+        assert {name for name in kernels.SOURCES if after[name] != before[name]} == rebuilt

@@ -2,9 +2,12 @@
 16 proposals, 10 gaussians): graph, fold, weight bridge, backbone, votes and
 the whole ``generate``, on the CPU with the same seeded weights and inputs."""
 
+import os
+
 import numpy as np
 import pytest
 import torch
+import yaml
 
 import jax
 import jax.numpy as jnp
@@ -13,10 +16,12 @@ from pose2room_tpu.convert import export_to_reference_state_dict
 from pose2room_tpu.models import P2RNet as JaxP2RNet
 from pose2room_tpu.models.graph import build_spatial_graph as jax_build_spatial_graph
 from pose2room_tpu.models.stgcn import STGCN as JaxSTGCN
+from pose2room_tpu_torch.config.loader import CONFIG
 from pose2room_tpu_torch.convert import load_reference_state_dict, state_dict_from_flax
 from pose2room_tpu_torch.models.graph import build_spatial_graph
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
 from pose2room_tpu_torch.models.stgcn import blocked_cumsum
+from pose2room_tpu_torch.runners import train as train_runner
 from torch_port_util import (
     SMALL,
     assert_generate_close,
@@ -26,6 +31,9 @@ from torch_port_util import (
     to_numpy,
     walking_clip,
 )
+
+TRAIN_YAML = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "configs", "config_files", "p2rnet_train.yaml")
 
 
 @pytest.fixture(scope="module")
@@ -160,10 +168,27 @@ def test_linspace_seeds_when_seeds_cover_frames(payload):
     np.testing.assert_array_equal(got, ref)
 
 
-@pytest.mark.parametrize("kw", [dict(compute_dtype="bfloat16"), dict(compute_dtype="bfloat16", sparse_eval=True)])
-def test_unported_options_raise(kw):
+@pytest.mark.parametrize("path", ["train_forward", "train_runner"])
+def test_unported_options_raise(path, tmp_path):
+    """bf16 eval is ported; bf16 training is not: the train-mode forward and
+    the train runner raise."""
+    if path == "train_forward":
+        model = P2RNet(P2RNetConfig(**SMALL, compute_dtype="bfloat16"), device="cpu").train()
+        x = torch.from_numpy(walking_clip(np.random.RandomState(5), 1, SMALL["num_frames"]))
+        with pytest.raises(NotImplementedError, match="bf16 training"):
+            model(x, generator=torch.Generator().manual_seed(0))
+        return
+    config = yaml.safe_load(open(TRAIN_YAML))
+    config["model"] = {**(config.get("model") or {}), "compute_dtype": "bfloat16"}
+    config["log"]["path"] = str(tmp_path / "out")
+    cfg = CONFIG(config, mode="train")
+    try:
+        with pytest.raises(NotImplementedError, match="bf16 training"):
+            train_runner.run(cfg, device="cpu", datasets={"train": [], "val": []})
+    finally:
+        cfg.close()
     with pytest.raises(NotImplementedError):
-        P2RNet(P2RNetConfig(**SMALL, **kw), device="cpu")
+        P2RNet(P2RNetConfig(**SMALL, compute_dtype="float16"), device="cpu")
 
 
 def test_multi_mode_raises(port):

@@ -21,6 +21,8 @@ from pose2room_tpu_torch.config.loader import CONFIG
 from pose2room_tpu_torch.eval import parse
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
 from pose2room_tpu_torch.runners import demo
+from pose2room_tpu_torch.runners import test as test_runner
+from pose2room_tpu_torch.runners import train as train_runner
 from torch_port_util import SMALL
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -130,6 +132,61 @@ def test_demo_finetune_loads_reference_layout_weights(tmp_path):
         cfg.close()
     for k, v in src.state_dict().items():
         assert torch.equal(model.state_dict()[k], v), k
+
+
+def test_demo_finetune_load_is_partial(tmp_path, monkeypatch):
+    """As the JAX package's load_weights (train/checkpoint.py:73-102): a
+    checkpoint whose class head has another shape, and a tensor the model
+    does not have, loads every other tensor and logs each skip and the
+    partial count."""
+    src = P2RNet(P2RNetConfig(**SMALL), device="cpu", generator=torch.Generator().manual_seed(9))
+    sd = dict(src.state_dict())
+    head = "detection.conv_sem_obj.2.conv.weight"
+    sd[head] = torch.randn(2 + 30, sd[head].shape[1])  # a 30-class head
+    sd["detection.extra.weight"] = torch.zeros(3)
+    ckpt = str(tmp_path / "model.pth")
+    torch.save({"net": {f"module.{k}": v for k, v in sd.items()}}, ckpt)
+    cfg = CONFIG(_small_config(tmp_path, finetune=True, weight=[ckpt]), mode="demo")
+    logged = []
+    monkeypatch.setattr(cfg, "log_string", lambda msg: logged.append(str(msg)))
+    try:
+        model = demo.build_model(cfg, device="cpu")
+    finally:
+        cfg.close()
+    fresh = P2RNet(P2RNetConfig(**SMALL), device="cpu", generator=torch.Generator().manual_seed(42))
+    own = model.state_dict()
+    for k, v in src.state_dict().items():
+        assert torch.equal(own[k], fresh.state_dict()[k] if k == head else v), k
+    assert f"skip weight {head} (missing or shape mismatch)" in logged
+    assert "skip weight detection.extra.weight (missing or shape mismatch)" in logged
+    assert f"partial weight load: {len(own) - 1}/{len(own)} tensors" in logged
+
+
+@pytest.mark.parametrize("section", [
+    {"device": {"model_parallel": 2}},
+    {"train": {"h2d_dtype": "float16"}},
+    {"log": {"profile_steps": 3}},
+])
+@pytest.mark.parametrize("runner", ["demo", "test", "train"])
+def test_unported_keys_raise_in_every_runner(tmp_path, section, runner):
+    """device.model_parallel, train.h2d_dtype and log.profile_steps, which
+    the JAX package acts on, raise in every runner instead of being
+    ignored."""
+    config = _small_config(tmp_path, demo_path=_demo_dir(tmp_path))
+    for key, value in section.items():
+        config[key] = {**(config.get(key) or {}), **value}
+    config["log"].setdefault("path", str(tmp_path / "out"))
+    cfg = CONFIG(config, mode=runner)
+    try:
+        with pytest.raises(NotImplementedError):
+            if runner == "demo":
+                demo.run(cfg, device="cpu")
+            elif runner == "test":
+                test_runner.run(cfg, device="cpu", dataset=[])
+            else:
+                train_runner.run(cfg, device="cpu", datasets={"train": [], "val": []})
+    finally:
+        cfg.close()
 
 
 def test_cli_demo_on_cpu(tmp_path):

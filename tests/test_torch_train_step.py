@@ -158,6 +158,9 @@ def test_optimizer_matches_optax(optim_cfg):
     {"train": {"freeze": ["backbone"]}},
     {"model": {"backbone": {"optim_spec": {"lr": 1e-4}}}},
     {"bnscheduler": {"bn_momentum_init": 0.5}},
+    {"device": {"model_parallel": 2}},
+    {"train": {"h2d_dtype": "float16"}},
+    {"log": {"profile_steps": 3}},
 ])
 def test_unported_train_options_raise(section):
     with pytest.raises(NotImplementedError):

@@ -79,7 +79,8 @@ def to_numpy(tree):
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     if torch.is_tensor(tree):
-        return tree.detach().cpu().numpy()
+        tree = tree.detach().cpu()
+        return (tree.float() if tree.dtype == torch.bfloat16 else tree).numpy()
     return np.asarray(tree)
 
 
