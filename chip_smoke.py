@@ -102,8 +102,36 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    ``remove_far_box: false`` and metre-sized boxes on 4 scenes, AP and
    recall on the card against the CPU (mAP and AR within 0.1; one class's AP
    can move by a step when a vote at a ball's edge changes one box).
-10. Prints the ``kernels`` JSON line, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+10. bf16 train phase (``compute_dtype: bfloat16`` training): the
+   full-width ``FusedTrainLayer`` (B=2, the residual block) on the card
+   against the CPU (at most 1e-3 of the output's elements differing, the
+   output and each gradient in the JAX package's bulk band, the batch
+   statistics within 1e-3 of their max: a y rounding that flips between the
+   two sum orders moves what follows it); one bf16 ``--mode train`` epoch
+   through the runner at global batch 8 (6 ``stgcn_train_fwd_bf16`` + 6
+   ``stgcn_train_bwd_bf16`` + 1 FPS launches per train step, 6
+   ``stgcn_epilogue_bf16`` + 1 FPS per val step, no f32 leg; finite losses;
+   f32 state, moved; ``model_final.pth`` loaded by the bf16 demo runner);
+   a B=2 bf16 step on the card against the CPU (before FPS: seed indices
+   equal, seed features and votes within 1e-2 of their max, the vote loss
+   within 2e-2 and the backbone's running statistics within 2e-2; FPS's
+   picks over bf16 votes meet near ties, so their agreement is printed and
+   the later loss terms are held only where every pick agrees; each
+   gradient's relative L2 gap within twice the larger of the two devices'
+   batch-order spreads, the step with the clips in the other order: bf16
+   rounding noise dominates the backbone's gradient); the B=8 bf16 step beside the
+   f32 step, in turns (samples/s, peak memory, launch counts of one bf16
+   step) and a profile of the bf16 step.  The bf16 kernel phase (7) also
+   holds the bf16 legs of kernels 3 and 4 at B in {1, 8} (and T=50, which
+   16 does not divide): against their plain versions (y2, dpre within 1
+   bf16 ulp; kernel 4's moments within 1e-5 of scale, dtaps within 1e-4 of
+   max), against float64 on the same bf16 operands (y2, dpre within 1 bf16
+   ulp above 2^-12 of the term scale; the moments and dtaps within 5e-7 of
+   sum|a*b|, bias within 5e-8), pad columns 0, two launches the same bits;
+   timed beside their bounds and cuDNN's bf16 conv2d (kernel 3) and
+   conv2d_input + conv2d_weight (kernel 4).
+11. Prints the ``kernels`` JSON line (nine entries), the nvidia-smi line,
+   and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA card and the repository around it.
@@ -661,6 +689,152 @@ def bf16_kernel_phase(dev, smi):
     return rows
 
 
+def moments_float64(v):
+    """Per-(clip, column) [sum(v), sum(v^2)] of v (B, T, Wp) in float64, and
+    the sums of the terms' magnitudes."""
+    v = v.double()
+    return (torch.stack([v.sum(1), (v * v).sum(1)], dim=1),
+            torch.stack([v.abs().sum(1), (v * v).sum(1)], dim=1))
+
+
+def bf16_train_legs_vs_plain(y, dy2, vecs, KB, T_, what):
+    """Kernels 3 and 4, bf16 legs, against their plain versions on the card
+    (y2 and dpre within 1 bf16 ulp; kernel 4's moments, sums of the unrounded
+    dpre, within 1e-5 of each column's scale, its dtaps within 1e-4 of max),
+    pad columns 0, two launches the same bits.  Returns the outputs and the
+    errors."""
+    vecs_b = vecs.clone()
+    vecs_b[2] = 0.0
+    KBT = KB.transpose(1, 2).contiguous()
+    B_ = y.shape[0] // T_
+    y2, parts = stgcn_train.tconv_stats_fwd(y, vecs, KB, T=T_)
+    again = stgcn_train.tconv_stats_fwd(y, vecs, KB, T=T_)
+    y2_ref, _ = stgcn_train.tconv_stats_fwd_ref(y, vecs, KB, T=T_)
+    dpre, dparts, dtaps = stgcn_train.tconv_bwd(dy2, y, vecs_b, KBT, T=T_, C=C)
+    dagain = stgcn_train.tconv_bwd(dy2, y, vecs_b, KBT, T=T_, C=C)
+    dpre_ref, dparts_ref, dkb_ref = stgcn_train.tconv_bwd_ref(dy2, y, vecs_b, KBT, T=T_)
+    dtaps_ref = stgcn_train._fold_diag_blocks(dkb_ref, C)
+    torch.cuda.synchronize()
+    err3, share3 = bf16_vs_plain(y2, y2_ref, f"train_fwd bf16 {what}")
+    err4, share4 = bf16_vs_plain(dpre, dpre_ref, f"train_bwd bf16 {what}")
+    # the plain moments of the unrounded dpre: kernel 4's dt1 where the mask passes it
+    t1f = torch.relu(y.float() * vecs_b[0] + vecs_b[1]).reshape(B_, T_, WP)
+    dt1 = stgcn_fused.tconv_group(stgcn_fused.shift_next(dy2.reshape(B_, T_, WP)), KBT[0]) + \
+        stgcn_fused.tconv_group(dy2.reshape(B_, T_, WP), KBT[1]) + \
+        stgcn_fused.tconv_group(stgcn_fused.shift_prev(dy2.reshape(B_, T_, WP)), KBT[2])
+    d3 = torch.where(t1f > 0, dt1, torch.zeros_like(dt1))
+    y3 = y.float().reshape(B_, T_, WP)
+    perr = parts_err(dparts, dparts_ref, [d3.abs().sum(1), (d3 * y3).abs().sum(1)])
+    terr = (dtaps - dtaps_ref).abs().max().item() / dtaps_ref.abs().max().item()
+    check(perr <= 1e-5, f"train_bwd bf16 {what}: column moments off by {perr} of their scale")
+    check(terr <= 1e-4, f"train_bwd bf16 {what}: dtaps off by {terr} of its max")
+    for name, out in (("train_fwd", y2), ("train_bwd", dpre)):
+        check(bool(torch.all(out[:, W0:] == 0)), f"{name} bf16 {what}: pad columns not 0")
+    check(torch.equal(y2, again[0]) and torch.equal(parts, again[1]), f"train_fwd bf16 {what}: two launches differ")
+    check(all(torch.equal(a, b) for a, b in zip((dpre, dparts, dtaps), dagain)),
+          f"train_bwd bf16 {what}: two launches differ")
+    return dict(y2=y2, parts=parts, dpre=dpre, dparts=dparts, dtaps=dtaps, vecs_b=vecs_b, KBT=KBT,
+                err3=err3, share3=share3, err4=max(err4, terr * dtaps_ref.abs().max().item()), share4=share4,
+                perr4=perr, terr4=terr)
+
+
+def bf16_train_kernel_phase(dev, smi):
+    """The bf16 legs of kernels 3 and 4 at B in {1, 8} (and T = 50, which
+    16 does not divide, at B = 2): against their plain versions and
+    against float64 on the same bf16 operands; timed beside their bounds
+    and cuDNN's bf16 convolutions."""
+    g = torch.Generator().manual_seed(5)
+    y, dy2, vecs, KB = train_kernel_operands(2, g, dev)
+    T50 = 50
+    r = bf16_train_legs_vs_plain(y[: 2 * T50].to(BF16), dy2[: 2 * T50].to(BF16), vecs, KB.to(BF16), T50, "T=50")
+    print(f"[{smi}] train_fwd / train_bwd bf16 B=2 T=50: vs plain max|err| {r['err3']:.3e} / {r['err4']:.3e}, "
+          f"{100 * r['share3']:.4f}% / {100 * r['share4']:.4f}% of elements differ; same bits on relaunch")
+    del y, dy2, vecs, KB, r
+    rows = {}
+    for B in (1, 8):
+        y, dy2, vecs, KB = train_kernel_operands(B, g, dev)
+        yb, dy2b, KBb = y.to(BF16), dy2.to(BF16), KB.to(BF16)
+        del y, dy2, KB
+        N = B * T
+        r = bf16_train_legs_vs_plain(yb, dy2b, vecs, KBb, T, f"B={B}")
+
+        # --- kernel 3 against float64: the conv of the bf16 t1 (the same
+        # f32 ops and one rounding, so the same bits) with the bf16 taps ---
+        t1 = torch.relu(yb.float() * vecs[0] + vecs[1]).to(BF16).reshape(B, T, WP)
+        exact, mag = tconv_float64(t1, KBb)
+        cb = vecs[2].double()
+        what = f"train_fwd bf16 B={B}"
+        u, rel, cov = bf16_vs_float64(r["y2"].reshape(B, T, WP)[..., :W0], (exact + cb)[..., :W0],
+                                      (mag + cb.abs())[..., :W0], what)
+        m_exact, m_mag = moments_float64(r["y2"].reshape(B, T, WP))
+        m_max, m_bias = float64_gap(r["parts"], m_exact, m_mag.clamp_min(1e-30))
+        check(m_max <= 5e-7 and abs(m_bias) <= 5e-8,
+              f"{what}: moments off float64 by {m_max} of sum|terms| (bias {m_bias})")
+        del exact, mag, m_exact, m_mag
+        nbytes = 2 * N * WP * 2 + 4 * WP * 4 + 3 * 128 * 128 * 2 + B * 2 * WP * 4
+        b_ms, b_by = bf16_bound_ms(nbytes, 2 * N * WP * 3 * C)
+        k_ms = device_ms(lambda: stgcn_train.tconv_stats_fwd(yb, vecs, KBb, T=T))
+        p_ms = device_ms(lambda: stgcn_train.tconv_stats_fwd_ref(yb, vecs, KBb, T=T))
+        t_nchw = t1[..., :W0].reshape(B, T, V, C).permute(0, 3, 1, 2).contiguous()
+        w = KBb[:, :C, :C].permute(2, 1, 0)[..., None].contiguous()  # (out, in, 3, 1)
+        l_ms = device_ms(lambda: torch.nn.functional.conv2d(t_nchw, w, padding=(1, 0)))
+        rows[("stgcn_train_fwd_bf16", B)] = dict(max_abs_err=r["err3"], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                                 bound_by=b_by, library_ms=l_ms)
+        print(f"[{smi}] {what}: vs plain max|err| {r['err3']:.3e}, {100 * r['share3']:.4f}% of elements differ; "
+              f"vs float64 max {u} ulp ({100 * cov:.2f}% of elements in ulps, elsewhere |err| <= {rel:.2e} S), "
+              f"moments max {m_max:.2e} bias {m_bias:.2e} of sum|terms|; same bits on relaunch  "
+              f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  cuDNN bf16 conv2d (tconv only) {l_ms:.4f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by}; share {b_ms / k_ms:.3f})")
+
+        # --- kernel 4 against float64: dt1 of the bf16 dy2 and taps where
+        # the mask passes it, the moments of the unrounded dpre, and the tap
+        # gradient of the bf16 t1 and dy2 ---
+        what = f"train_bwd bf16 B={B}"
+        vecs_b, KBT = r["vecs_b"], r["KBT"]
+        pre = yb.float() * vecs_b[0] + vecs_b[1]
+        live = (pre > 0).reshape(B, T, WP)
+        t1 = torch.relu(pre).to(BF16).reshape(B, T, WP)
+        del pre
+        exact, mag = tconv_float64(dy2b.reshape(B, T, WP), KBT.flip(0))
+        exact, mag = exact * live, mag * live
+        lw = live[..., :W0]
+        u4, rel4, cov4 = bf16_vs_float64(r["dpre"].reshape(B, T, WP)[..., :W0][lw], exact[..., :W0][lw],
+                                         mag[..., :W0][lw], what)
+        m_exact = torch.stack([exact.sum(1), (exact * yb.double().reshape(B, T, WP)).sum(1)], dim=1)
+        m_mag = torch.stack([mag.sum(1), (mag * yb.double().abs().reshape(B, T, WP)).sum(1)], dim=1)
+        dm_max, dm_bias = float64_gap(r["dparts"][..., :W0], m_exact[..., :W0], m_mag[..., :W0].clamp_min(1e-30))
+        del exact, mag, live, lw, m_exact, m_mag
+        g_exact, g_mag = tap_grad_float64(t1, dy2b.reshape(B, T, WP))
+        g_max, g_bias = float64_gap(r["dtaps"], g_exact, g_mag)
+        check(dm_max <= 5e-7 and abs(dm_bias) <= 5e-8,
+              f"{what}: moments off float64 by {dm_max} of sum|terms| (bias {dm_bias})")
+        check(g_max <= 5e-7 and abs(g_bias) <= 5e-8,
+              f"{what}: dtaps off float64 by {g_max} of sum|a*b| (bias {g_bias})")
+        del g_exact, g_mag
+        nbytes = 3 * N * WP * 2 + 4 * WP * 4 + 3 * 128 * 128 * 2 + B * 2 * WP * 4 + 3 * C * C * 4
+        b_ms, b_by = bf16_bound_ms(nbytes, 2 * 2 * N * WP * 3 * C)
+        k_ms = device_ms(lambda: stgcn_train.tconv_bwd(dy2b, yb, vecs_b, KBT, T=T, C=C))
+        p_ms = device_ms(lambda: stgcn_train.tconv_bwd_ref(dy2b, yb, vecs_b, KBT, T=T), iters=5, warmup=1)
+        t_nchw = t1[..., :W0].reshape(B, T, V, C).permute(0, 3, 1, 2).contiguous()
+        dy_nchw = dy2b[:, :W0].reshape(B, T, V, C).permute(0, 3, 1, 2).contiguous()
+
+        def library_bwd():
+            torch.nn.grad.conv2d_input(t_nchw.shape, w, dy_nchw, padding=(1, 0))
+            torch.nn.grad.conv2d_weight(t_nchw, w.shape, dy_nchw, padding=(1, 0))
+
+        l_ms = device_ms(library_bwd)
+        rows[("stgcn_train_bwd_bf16", B)] = dict(max_abs_err=r["err4"], ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                                 bound_by=b_by, library_ms=l_ms)
+        print(f"[{smi}] {what}: vs plain max|err| dpre {r['err4']:.3e}, {100 * r['share4']:.4f}% of elements "
+              f"differ, moments {r['perr4']:.2e} of scale, dtaps {r['terr4']:.2e} of max; vs float64 dpre max {u4} "
+              f"ulp ({100 * cov4:.2f}% of the live elements in ulps, elsewhere |err| <= {rel4:.2e} S), moments max "
+              f"{dm_max:.2e} bias {dm_bias:.2e}, dtaps max {g_max:.2e} bias {g_bias:.2e} of sum|a*b|; same bits on "
+              f"relaunch  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  cuDNN bf16 conv2d_input+conv2d_weight "
+              f"{l_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by}; share {b_ms / k_ms:.3f})")
+        del yb, dy2b, KBb, vecs, r, t1, t_nchw, dy_nchw, w
+    return rows
+
+
 def rotated_clip(joints, angle):
     """Rotate a (F, 53, 3) clip about +Y by ``angle``."""
     c, s = np.cos(angle), np.sin(angle)
@@ -1046,6 +1220,278 @@ def train_phase(workdir, smi):
         cfg.close()
 
 
+def bulk_gap(a, b):
+    """The JAX package's bulk statistics of a against b for tensors that
+    cross bf16 roundings at other points (tests/test_stgcn_train.py:
+    270-283): errors over max(|b|, 1e-3); (median, share beyond 7e-2, max)."""
+    err = (a.double() - b.double()).abs() / max(b.double().abs().max().item(), 1e-3)
+    return err.median().item(), (err > 7e-2).double().mean().item(), err.max().item()
+
+
+def bulk_ok(gap):
+    median, far, largest = gap
+    return median < 3e-2 and far < 0.02 and largest < 0.5
+
+
+def bf16_layer_card_vs_cpu(smi):
+    """The full-width FusedTrainLayer in bf16 (B=2, T=768, 53 joints, the
+    residual block) on the card against the CPU.  The two sum y = x @ M in
+    other orders, so about 1e-4 of y's bf16 roundings differ, and every
+    rounding and ReLU downstream can amplify one: an output near a
+    cancellation moves many ulps, a ReLU mask that flips moves dx by the
+    whole incoming gradient there.  So: at most 1e-3 of the output's
+    elements differ at all; the output and each gradient in the JAX
+    package's bulk band (median error < 3e-2 of the max, under 2% beyond
+    7e-2, max < 0.5); the batch statistics within 1e-3 of each one's max;
+    one launch of each bf16 train leg, none of the f32 legs."""
+    g = torch.Generator().manual_seed(8)
+    B2 = 2
+    x = torch.zeros(B2, T, WP)
+    x[..., :W0] = torch.randn(B2, T, W0, generator=g) * 0.6
+    M = torch.zeros(WP, WP)
+    M[:W0, :W0] = torch.randn(W0, W0, generator=g) * 0.02
+    bias_col = torch.zeros(WP)
+    bias_col[:W0] = torch.randn(W0, generator=g) * 0.1
+    rest = [0.7 + torch.rand(C, generator=g), torch.randn(C, generator=g) * 0.2,
+            torch.randn(3, C, C, generator=g) * 0.15, torch.randn(C, generator=g) * 0.1,
+            0.7 + torch.rand(C, generator=g), torch.randn(C, generator=g) * 0.2]
+    w = torch.randn(B2, T, WP, generator=g).to(BF16).float()
+    results = []
+    for dev in ("cuda", "cpu"):
+        args = [t.to(dev).to(BF16 if i < 2 else torch.float32).requires_grad_()
+                for i, t in enumerate([x, M, bias_col, *rest])]
+        kernels.reset_launch_counts()
+        outs = stgcn_train.FusedTrainLayer.apply(*args, True, V, C, T)
+        (outs[0].float() * w.to(dev)).sum().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            check(dict(kernels.LAUNCHES) == {"stgcn_train_fwd_bf16": 1, "stgcn_train_bwd_bf16": 1},
+                  f"bf16 layer on the card: launch counts {dict(kernels.LAUNCHES)}")
+        results.append(([o.detach().cpu() for o in outs], [a.grad.cpu().float() for a in args]))
+    (outs_g, grads_g), (outs_c, grads_c) = results
+    out_g, out_c = outs_g[0], outs_c[0]
+    check(out_g.dtype == out_c.dtype == BF16, "bf16 layer output dtype")
+    live = out_c.float().abs() > 1e-3 * out_c.float().abs().max()
+    ulps = (bf16_ordinal(out_g) - bf16_ordinal(out_c)).abs()
+    share = (out_g != out_c).double().mean().item()
+    out_gap = bulk_gap(out_g, out_c)
+    stat_gap = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                   for a, b in zip(outs_g[1:], outs_c[1:]))
+    names = ["x", "M", "bias_col", "g1", "b1", "taps", "cb", "g2", "b2"]
+    grad_gap = {n: bulk_gap(a, b) for n, a, b in zip(names, grads_g, grads_c) if n != "cb"}
+    print(f"[{smi}] bf16 FusedTrainLayer B=2 full width, card vs CPU: output {100 * share:.4f}% of elements "
+          f"differ, {100 * (ulps[live] > 1).double().mean().item():.5f}% of the live ones by more than 1 ulp "
+          f"(max {ulps[live].max().item()}), bulk (median, share > 7e-2, max) {out_gap}; batch statistics max "
+          f"gap / max {stat_gap:.2e}; gradients, bulk: " + json.dumps(
+              {k: [float(f"{v:.3e}") for v in gap] for k, gap in grad_gap.items()}))
+    check(share <= 1e-3 and bulk_ok(out_gap), f"bf16 layer: card vs CPU output: {share} of elements differ, "
+          f"bulk {out_gap}")
+    check(stat_gap <= 1e-3, f"bf16 layer: card vs CPU batch statistics differ by {stat_gap} of their max")
+    for k, gap in grad_gap.items():
+        check(bulk_ok(gap), f"bf16 layer: card vs CPU gradient {k} outside the bulk band: {gap}")
+    check(bool(torch.all(grads_g[6] == 0)) and bool(torch.all(grads_c[6] == 0)), "bf16 layer: conv bias gradient")
+
+
+def relative_l2(a, b):
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+# the loss terms that FPS's picks do not feed (the votes' loss) and the
+# running statistics computed before FPS (backbone, vote head)
+PRE_FPS_LOSSES = ("vote_loss",)
+PRE_FPS_STATS = ("backbone.", "centervoting.")
+
+
+def bf16_card_vs_cpu_step(cfg, datasets):
+    """One bf16 train step at B=2, full width, on the card and on the CPU
+    (same weights, batch and MDN noise), each also with the two clips in
+    the other order: the same function summed in another order.
+
+    Everything before FPS is held in the bf16 bands: seed indices equal,
+    seed features and votes within 1e-2 of their max (as bf16 generate),
+    the vote loss within 2e-2 relative, the backbone's and the vote head's
+    running statistics within 2e-2 of their max.  FPS over bf16-rounded
+    votes meets near ties (ROADMAP "Faults found"): at full width a 1-ulp
+    vote flip reselects proposals, so their agreement is printed, and the
+    loss terms after FPS are held (within 2e-2, counts within one proposal)
+    only where every proposal agrees.  The bf16 gradient is dominated by
+    rounding noise (the JAX package's jit and eager runs differ by 0.40-0.97
+    in relative L2 on the backbone), so each parameter's card gradient must
+    be no further from the CPU's, in relative L2, than twice the larger
+    batch-order spread of the two devices (+1e-3)."""
+    model_cfg = P2RNetConfig.from_cfg(cfg)
+    items = [datasets["val"].__getitem__(i, rng=np.random.RandomState(i)) for i in range(2)]
+    results = {}
+    for dev in ("cuda", "cpu"):
+        for swap in (False, True):
+            model = P2RNet(model_cfg, device=dev, generator=torch.Generator().manual_seed(42))
+            optimizer, _, _ = make_optimizer(model, cfg.config["optimizer"])
+            eps = model.mdn_eps(2, torch.Generator().manual_seed(7))
+            batch = batch_to_device(collate(items[::-1] if swap else items), dev)
+            losses, ep = train_step(model, optimizer, batch,
+                                    eps={k: v.flip(0) for k, v in eps.items()} if swap else eps)
+            outs = {k: ep[k].detach().cpu().float() for k in
+                    ("seed_inds", "aggregated_vote_inds", "seed_features", "vote_xyz", "vote_features")}
+            results[dev, swap] = (
+                {k: float(v) for k, v in losses.items()},
+                {k: v.flip(0) for k, v in outs.items()} if swap else outs,
+                {k: p.grad.cpu().double() for k, p in model.named_parameters()},
+                {k: b.cpu() for k, b in model.named_buffers() if k.endswith(("running_mean", "running_var"))},
+            )
+    (l_g, o_g, g_g, s_g), (l_c, o_c, g_c, s_c) = results["cuda", False], results["cpu", False]
+    agree = (o_g["aggregated_vote_inds"] == o_c["aggregated_vote_inds"]).double().mean().item()
+    same_picks = {dev: bool(torch.equal(results[dev, True][1]["aggregated_vote_inds"],
+                                        results[dev, False][1]["aggregated_vote_inds"])) for dev in ("cuda", "cpu")}
+    pre_gap = {k: relative_gap(o_g[k], o_c[k]) for k in ("seed_features", "vote_xyz", "vote_features")}
+    n_prop = o_c["aggregated_vote_inds"].numel()
+    counts = ("pos_ratio", "neg_ratio", "obj_acc")
+    loss_gap = {k: abs(l_g[k] - l_c[k]) / max(abs(l_c[k]), 1e-7) for k in l_c if k not in counts}
+    count_gap = {k: abs(l_g[k] - l_c[k]) * n_prop for k in counts}
+    params = [k for k in g_c if not k.endswith("tcn.2.bias")]
+    grad_gap = {k: relative_l2(g_g[k], g_c[k]) for k in params}
+    spread = {k: max(relative_l2(results[dev, True][2][k], results[dev, False][2][k]) for dev in ("cuda", "cpu"))
+              for k in params}
+    stat_gap = {k: relative_gap(s_g[k], s_c[k]) for k in s_c}
+    pre_stats = [k for k in stat_gap if k.startswith(PRE_FPS_STATS)]
+    worst = sorted(params, key=lambda k: -grad_gap[k] / max(spread[k], 1e-12))[:5]
+    print(f"bf16 card vs CPU train step (B=2): seed features / votes / vote features max gap over max "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in pre_gap.items()})}; proposals agree {agree:.4f} "
+          f"(the clip order changes no pick: {json.dumps(same_picks)}); loss terms rel gap "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in loss_gap.items()})}; proposal counts gap (proposals) "
+          f"{json.dumps(count_gap)}; running stats max gap / max: before FPS "
+          f"{max(stat_gap[k] for k in pre_stats):.2e}, all {max(stat_gap.values()):.2e}; gradients, relative L2 "
+          f"card vs CPU: median {np.median(list(grad_gap.values())):.3e}, max {max(grad_gap.values()):.3e}; "
+          f"batch-order spread: median {np.median(list(spread.values())):.3e}, max {max(spread.values()):.3e}")
+    print("  largest card-vs-CPU gaps over the batch-order spread: " + ", ".join(
+        f"{k} {grad_gap[k]:.3e} / {spread[k]:.3e}" for k in worst))
+    check(torch.equal(o_g["seed_inds"], o_c["seed_inds"]), "bf16 card vs CPU train step: seed_inds differ")
+    for k, v in pre_gap.items():
+        check(v <= 1e-2, f"bf16 card vs CPU train step: {k} differs by {v} of its max")
+    for k in pre_stats:
+        check(stat_gap[k] <= 2e-2, f"bf16 card vs CPU: running stat {k} differs by {stat_gap[k]} of its max")
+    held = PRE_FPS_LOSSES if agree < 1 else [k for k in loss_gap]
+    for k in held:
+        check(loss_gap[k] <= 2e-2, f"bf16 card vs CPU: loss {k} differs by {loss_gap[k]} relative")
+    if agree == 1:
+        for k, v in count_gap.items():
+            check(v <= 1 + 1e-6 * n_prop, f"bf16 card vs CPU: {k} differs by {v} proposals")
+    for k, v in grad_gap.items():
+        check(v <= 2 * spread[k] + 1e-3, f"bf16 card vs CPU: gradient {k} relative L2 gap {v}, "
+              f"twice the batch-order spread is {2 * spread[k]}")
+    conv_bias = [k for k in g_g if k.endswith("tcn.2.bias")]
+    check(all(bool(torch.all(g_g[k] == 0)) for k in conv_bias), "fused chain: conv bias gradient not 0")
+
+
+def time_train_steps_in_turns(cfgs, datasets, smi):
+    """The B=8 train step of each compute dtype, in turns f32/bf16/bf16/f32:
+    each turn the CUDA-event median of 5 steps after 2 warm-ups; peak
+    memory; a bf16 step's launch counts (6 of each bf16 train leg, 1 FPS,
+    no f32 train leg); a profile of the bf16 step."""
+    items = [datasets["train"].__getitem__(i, rng=np.random.RandomState(i)) for i in range(8)]
+    batch = batch_to_device(collate(items), "cuda")
+    runs = {}
+    for name, cfg in cfgs.items():
+        model = P2RNet(P2RNetConfig.from_cfg(cfg), device="cuda", generator=torch.Generator().manual_seed(42))
+        optimizer, _, _ = make_optimizer(model, cfg.config["optimizer"])
+        runs[name] = (model, optimizer)
+
+    def step(name, i):
+        model, optimizer = runs[name]
+        return train_step(model, optimizer, batch, generator=torch.Generator().manual_seed(i))
+
+    kernels.reset_launch_counts()
+    step("bf16", 0)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    expect = {"stgcn_train_fwd_bf16": 6, "stgcn_train_bwd_bf16": 6, "fps": 1}
+    check(launches == expect, f"bf16 train step launch counts {launches} != {expect}")
+    times, peaks = {name: [] for name in cfgs}, {}
+    for name in ("f32", "bf16", "bf16", "f32"):
+        for i in range(2):
+            step(name, 1 + i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        turn = []
+        for i in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(name, 3 + i)
+            end.record()
+            torch.cuda.synchronize()
+            turn.append(start.elapsed_time(end))
+        times[name].append(float(np.median(turn)))
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+    for name, t in times.items():
+        print(f"[{smi}] B=8 {name} train step (CUDA events, median of 5 after 2 warm-ups, in turns "
+              f"f32/bf16/bf16/f32): {' / '.join(f'{v:.3f}' for v in t)} ms -> "
+              f"{8e3 / min(t):.2f} samples/s; peak memory {peaks[name]:.2f} GiB")
+    print(f"bf16 train step launch counts: {launches}")
+    device_profile(lambda i: step("bf16", 10 + i), 3, "B=8 bf16 train step", min(times["bf16"]), smi)
+    return times, peaks
+
+
+def bf16_train_phase(workdir, smi):
+    """bf16 training: the full-width layer and a B=2 step, card vs CPU; the
+    B=8 bf16 step beside the f32 step; one bf16 ``--mode train`` epoch
+    through the runner, whose checkpoint the demo runner loads."""
+    bf16_layer_card_vs_cpu(smi)
+    configs = {}
+    for name, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        config = train_config(os.path.join(workdir, f"train_{name}"))
+        config["model"] = {**(config.get("model") or {}), "compute_dtype": dtype}
+        configs[name] = config
+    cfgs = {name: CONFIG(config, mode="train") for name, config in configs.items()}
+    try:
+        for cfg in cfgs.values():
+            mount_external_config(cfg)
+        cfg = cfgs["bf16"]
+        datasets = scene_datasets(seed=3, n_train=16, n_val=8)
+        initial = P2RNet(P2RNetConfig.from_cfg(cfg), device="cpu",
+                         generator=torch.Generator().manual_seed(42)).state_dict()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, history = train_runner.run(cfg, datasets=datasets)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        print(f"bf16 train run (1 epoch: 2 train steps of 8, 1 val step of 8) {time.perf_counter() - t0:.1f} s; "
+              f"launch counts {launches}")
+        expect = {"stgcn_train_fwd_bf16": 6 * 2, "stgcn_train_bwd_bf16": 6 * 2, "stgcn_epilogue_bf16": 6 * 1,
+                  "fps": 2 + 1}
+        check(launches == expect, f"bf16 train run launch counts {launches} != {expect} (6 train_fwd_bf16 + "
+              "6 train_bwd_bf16 + 1 fps per train step, 6 epilogue_bf16 + 1 fps per val step)")
+        for phase in ("train", "val"):
+            means = history[0][phase]
+            check(all(np.isfinite(v) for v in means.values()), f"bf16 {phase} losses not finite: {means}")
+            print(f"bf16 mean {phase} losses: " + json.dumps({k: round(v, 5) for k, v in means.items()}))
+        final = model.state_dict()
+        check(all(v.dtype in (torch.float32, torch.int64) for v in final.values()), "bf16 run: state not f32")
+        moved = [k for k in initial if not torch.equal(initial[k], final[k].cpu())]
+        weights = [k for k, _ in model.named_parameters()]
+        check(all(k in moved for k in initial if k.endswith(("running_mean", "running_var"))),
+              "bf16 run: some BN running statistics did not move")
+        check(sum(k in moved for k in weights) >= len(weights) - 6, "bf16 run: weights did not move")
+        ckpt = os.path.join(cfg.save_path, "model_final.pth")
+        check(os.path.isfile(ckpt), "bf16 run: model_final.pth not written")
+        demo_cfg = CONFIG(dict(configs["bf16"], finetune=True, weight=[ckpt], seed=0,
+                               log={"path": os.path.join(workdir, "demo_out_bf16")}), mode="demo")
+        try:
+            served = demo.build_model(demo_cfg, device="cuda")
+        finally:
+            demo_cfg.close()
+        check(served.compute_dtype == BF16 and all(torch.equal(served.state_dict()[k], v) for k, v in final.items()),
+              "demo build_model did not load the bf16 run's model_final.pth")
+        print(f"bf16 checkpoint {os.path.basename(ckpt)} written and loaded by the bf16 demo runner; "
+              f"{len(moved)} of {len(initial)} state tensors moved")
+        del model, served
+
+        bf16_card_vs_cpu_step(cfg, datasets)
+        time_train_steps_in_turns(cfgs, datasets, smi)
+        return launches
+    finally:
+        for cfg in cfgs.values():
+            cfg.close()
+
+
 def test_config(workdir, **test_knobs):
     config = read_to_dict(TEST_YAML)
     config.update(finetune=False, seed=42)
@@ -1263,6 +1709,7 @@ def main():
     print(f"kernel phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rows.update(bf16_kernel_phase(dev, smi))
+    rows.update(bf16_train_kernel_phase(dev, smi))
     print(f"bf16 kernel phase {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
         t0 = time.perf_counter()
@@ -1280,6 +1727,9 @@ def main():
         t0 = time.perf_counter()
         bf16_test_launches = bf16_test_phase(workdir, smi)
         print(f"bf16 test phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        bf16_train_launches = bf16_train_phase(workdir, smi)
+        print(f"bf16 train phase {time.perf_counter() - t0:.1f} s")
 
     line = {"kernels": [
         {"name": "stgcn_epilogue", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_epilogue.cu",
@@ -1303,6 +1753,12 @@ def main():
         {"name": "stgcn_sparse_bf16", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_sparse.cu",
          "replaces": "pose2room_tpu/ops/stgcn_sparse.py:115", "launches": bf16_test_launches["stgcn_sparse_bf16"],
          **rows[("stgcn_sparse_bf16", 1)]},
+        {"name": "stgcn_train_fwd_bf16", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_train_fwd.cu",
+         "replaces": "pose2room_tpu/ops/stgcn_train.py:103",
+         "launches": bf16_train_launches["stgcn_train_fwd_bf16"], **rows[("stgcn_train_fwd_bf16", 8)]},
+        {"name": "stgcn_train_bwd_bf16", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_train_bwd.cu",
+         "replaces": "pose2room_tpu/ops/stgcn_train.py:227",
+         "launches": bf16_train_launches["stgcn_train_bwd_bf16"], **rows[("stgcn_train_bwd_bf16", 8)]},
     ]}
     print(json.dumps(line))
     print(nvidia_smi())

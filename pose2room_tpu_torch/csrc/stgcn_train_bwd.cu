@@ -1,5 +1,5 @@
 // Fused ST-GCN train backward: temporal-conv transpose + ReLU mask + BN1
-// column moments + tap gradient, f32, Hopper (sm_90a).
+// column moments + tap gradient, f32 and bf16 legs, Hopper (sm_90a).
 //
 // Replaces: pose2room_tpu/ops/stgcn_train.py:_bwd_kernel (Pallas, TPU),
 // reached through _tconv_bwd once per ST-GCN block in the train step's
@@ -48,11 +48,34 @@
 // Shared memory: taps 48 KB, two dy2 and two y slabs and the t1 slab 33 KB
 // each, 2 KB of moment partials: 212.5 KB.  Pad columns (3392..3455) come
 // out exactly 0 because y, vecs and dy2 are 0 there.
+//
+// The bf16 leg (p2r_stgcn_train_bwd_bf16; model.compute_dtype: bfloat16)
+// takes dy2, y, KBT and dpre in bf16 and vecs, tile_parts and tap_parts in
+// f32, and rounds where the Pallas kernel's bf16 path rounds: dt1 from bf16
+// dy2 and bf16 taps into an f32 accumulator; the mask pre > 0 with pre =
+// y * s1 + sh1 in f32 from the bf16 y (a product then a sum); dpre rounded
+// to nearest even into bf16, its column moments from the UNROUNDED f32
+// dpre; the tap gradient from bf16 t1 = round(relu(pre)) and bf16 dy2 into
+// f32.  Each 16-deep k-step is one mma.sync.m16n8k16 into a fresh fragment
+// folded in by an IEEE add (tconv_bf16.cuh): the tap gradient sums hundreds
+// of k-steps a block into one accumulator, where the tensor cores'
+// truncating adds would bias it most.  Same grid, roles and fixed-order
+// reductions as the f32 leg.  The tap gradient contracts over rows, so both
+// its operands sit k-major in the slabs (rows over k) and come in by
+// ldmatrix.trans: A = the t1 slab from row offset s (8 rows x 16 bytes a
+// matrix, conflict-free on the 16-byte XOR swizzle), B = the dy2 slab.  It
+// steps 16 rows at a time, up to the clip's last row rounded up to 16 (the
+// zero-filled rows past the clip add nothing).  Shared memory: taps 24 KB,
+// five slabs of 16.25 KB, 2 KB of moment partials: 107.25 KB.  Bound: bytes
+// (dy2, y and dpre are 127 MB at B=8, 0.038 ms at 3.35 TB/s; the 16.3
+// GFLOP are 0.016 ms at the bf16 tensor-core rate).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "tconv_bf16.cuh"
 #include "tconv_mma.cuh"
 
 namespace {
@@ -82,6 +105,44 @@ struct Bufs {
   float* tslab;  // t1 of the current tile
   float* red;
 };
+
+// The tile's two 64-row parts of column moments: its two dt1 warps' rows
+// each, summed in a fixed order (one thread per part, moment and column).
+__device__ __forceinline__ void write_tile_parts(const float* red, const TileAt& a, float* __restrict__ tile_parts,
+                                                 int n_parts, int Wp) {
+  const int h = threadIdx.x / (2 * kC);
+  const int moment = (threadIdx.x / kC) % 2;
+  const int col = threadIdx.x % kC;
+  const int part = a.t0 / kPartRows + h;
+  if (part < n_parts) {
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarpsPerPart; ++w) total += red[((h * kWarpsPerPart + w) * 2 + moment) * kC + col];
+    tile_parts[((static_cast<size_t>(a.b) * n_parts + part) * 2 + moment) * Wp + a.col0 + col] = total;
+  }
+}
+
+// The grad role's running sum, once per block: m-tile (3 * gwarp + mi) of
+// the stacked (tap, input channel) rows of tap_parts[block].
+__device__ __forceinline__ void write_tap_parts(const float (&gacc)[kGradMT][kNT][4], float* __restrict__ tap_parts) {
+  const int gwarp = (threadIdx.x >> 5) - 4;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  float* out = tap_parts + static_cast<size_t>(blockIdx.x) * kTapFloats;
+#pragma unroll
+  for (int mi = 0; mi < kGradMT; ++mi) {
+    const int m = kGradMT * gwarp + mi;
+    const int s = m / 4;
+    const int i = (m % 4) * 16 + g;
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<float2*>(out + (s * kC + i + 8 * half) * kC + nt * 8 + 2 * c) =
+            make_float2(gacc[mi][nt][2 * half], gacc[mi][nt][2 * half + 1]);
+  }
+}
 
 // dt1 of the warp's 32 rows, the mask, dpre and the warp's column moments
 __device__ __forceinline__ void dt1_tile(const Bufs& sm, const float* ds, const float* ys,
@@ -242,41 +303,11 @@ __device__ __forceinline__ void walk(const Bufs& sm, const float* __restrict__ d
     }
     block_sync();  // the slabs are read and the moment partials written
 
-    {  // the tile's two 64-row parts: its two dt1 warps each, summed in a fixed order
-      const int h = threadIdx.x / (2 * kC);
-      const int moment = (threadIdx.x / kC) % 2;
-      const int col = threadIdx.x % kC;
-      const int part = a.t0 / kPartRows + h;
-      if (part < n_parts) {
-        float total = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarpsPerPart; ++w) total += sm.red[((h * kWarpsPerPart + w) * 2 + moment) * kC + col];
-        tile_parts[((static_cast<size_t>(a.b) * n_parts + part) * 2 + moment) * Wp + a.col0 + col] = total;
-      }
-    }
+    write_tile_parts(sm.red, a, tile_parts, n_parts, Wp);
     // red is written again only after the next tile's second block_sync
     a = next;
   }
-
-  if constexpr (kGrad) {
-    const int gwarp = (threadIdx.x >> 5) - 4;
-    const int lane = threadIdx.x & 31;
-    const int g = lane >> 2;
-    const int c = lane & 3;
-    float* out = tap_parts + static_cast<size_t>(blockIdx.x) * kTapFloats;
-#pragma unroll
-    for (int mi = 0; mi < kGradMT; ++mi) {
-      const int m = kGradMT * gwarp + mi;
-      const int s = m / 4;
-      const int i = (m % 4) * 16 + g;
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half)
-          *reinterpret_cast<float2*>(out + (s * kC + i + 8 * half) * kC + nt * 8 + 2 * c) =
-              make_float2(gacc[mi][nt][2 * half], gacc[mi][nt][2 * half + 1]);
-    }
-  }
+  if constexpr (kGrad) write_tap_parts(gacc, tap_parts);
 }
 
 __global__ void __launch_bounds__(kBwdThreads, 1)
@@ -306,40 +337,251 @@ train_bwd_kernel(const float* __restrict__ dy2, const float* __restrict__ y,
   }
 }
 
-int configure(int* slots) {
+namespace tb = tconv_bf16;
+
+constexpr size_t kSmemBytesBf16 =
+    (tb::kTapElems + 5 * tb::kSlabElems) * sizeof(tb::bf16) + kRedFloats * sizeof(float);
+
+struct BufsBf16 {
+  const tb::bf16* taps;
+  tb::bf16* dslab;  // [2][kSlabElems] dy2
+  tb::bf16* yslab;  // [2][kSlabElems] y
+  tb::bf16* tslab;  // t1 of the current tile, rounded to bf16
+  float* red;
+};
+
+// dt1 of the warp's 32 rows, the mask (pre > 0 from the bf16 y, in f32),
+// dpre rounded to bf16, and the warp's column moments of the unrounded dpre
+__device__ __forceinline__ void dt1_tile_bf16(const BufsBf16& sm, const tb::bf16* ds, const tb::bf16* ys,
+                                              const float* __restrict__ vecs, const TileAt& a,
+                                              tb::bf16* __restrict__ dpre, int T, int Wp) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int row0 = warp * 16 * kMT;
+  float acc[kMT][kNT][4];
+  tb::tconv_mma(ds, sm.taps, row0, acc);
+
+  float sum[kNT][2], dot[kNT][2];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int k = nt * 8 + 2 * c;
+    const float2 s1 = __ldg(reinterpret_cast<const float2*>(vecs + a.col0 + k));
+    const float2 sh1 = __ldg(reinterpret_cast<const float2*>(vecs + Wp + a.col0 + k));
+    sum[nt][0] = sum[nt][1] = dot[nt][0] = dot[nt][1] = 0.f;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row0 + mt * 16 + g + 8 * half;
+        const int t = a.t0 + r;
+        if (t >= T) continue;
+        const float2 yv = tb::unpack2(tb::ld32(ys + tb::slab_index(r + 1, k)));
+        const float d0 = __fadd_rn(__fmul_rn(yv.x, s1.x), sh1.x) > 0.f ? acc[mt][nt][2 * half] : 0.f;
+        const float d1 = __fadd_rn(__fmul_rn(yv.y, s1.y), sh1.y) > 0.f ? acc[mt][nt][2 * half + 1] : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(dpre + (a.clip_row0 + t) * Wp + a.col0 + k) = tb::pack_rn(d0, d1);
+        sum[nt][0] += d0;
+        sum[nt][1] += d1;
+        dot[nt][0] += d0 * yv.x;
+        dot[nt][1] += d1 * yv.y;
+      }
+  }
+  // sum over the warp's 8 row groups (lanes of equal c), then one lane per c writes
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        sum[nt][j] += __shfl_xor_sync(0xffffffffu, sum[nt][j], off);
+        dot[nt][j] += __shfl_xor_sync(0xffffffffu, dot[nt][j], off);
+      }
+  if (g == 0) {
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        sm.red[(warp * 2 + 0) * kC + nt * 8 + 2 * c + j] = sum[nt][j];
+        sm.red[(warp * 2 + 1) * kC + nt * 8 + 2 * c + j] = dot[nt][j];
+      }
+  }
+}
+
+// gacc[mi] += the tile's share of m-tile (3 * gwarp + mi) of the stacked
+// tap gradient, rows (s, i0 .. i0 + 16) of dKB[s] = sum_r t1[r + s - 1]^T
+// dy2[r], 16 tile rows a k-step.  A (16 x 16, m = input channel, k = row)
+// is the t1 slab from row k0 + s on, stored k-major: ldmatrix.trans gives
+// each lane A(g, 2c..2c+1) etc.; B (16 x 8, k = row, n = output channel)
+// is the dy2 slab from row k0 + 1 on (tile row 0 is slab row 1).
+__device__ __forceinline__ void grad_tile_bf16(const tb::bf16* tslab, const tb::bf16* ds, int k_end,
+                                               float (&gacc)[kGradMT][kNT][4]) {
+  const int gwarp = (threadIdx.x >> 5) - 4;
+  const int lane = threadIdx.x & 31;
+  const int lrow = (lane & 7) + ((lane >> 4) & 1) * 8;  // A: matrices 2, 3 hold k 8..15
+  const int lcol = ((lane >> 3) & 1) * 8;                // A: matrices 1, 3 hold m 8..15
+  const int brow = (lane & 7) + ((lane >> 3) & 1) * 8;  // B: matrices 1, 3 hold k 8..15
+#pragma unroll 1
+  for (int k0 = 0; k0 < k_end; k0 += 16) {
+    uint32_t af[kGradMT][4];
+#pragma unroll
+    for (int mi = 0; mi < kGradMT; ++mi) {
+      const int m = kGradMT * gwarp + mi;
+      tb::ldmatrix_x4_trans(af[mi], tslab + tb::slab_index(k0 + m / 4 + lrow, (m % 4) * 16 + lcol));
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNT; nt += 2) {
+      uint32_t bf[4];  // n-tiles nt (matrices 0, 1) and nt + 1 (matrices 2, 3)
+      tb::ldmatrix_x4_trans(bf, ds + tb::slab_index(k0 + 1 + brow, (nt + (lane >> 4)) * 8));
+#pragma unroll
+      for (int mi = 0; mi < kGradMT; ++mi) {
+        tb::mma_fold(gacc[mi][nt], af[mi], bf[0], bf[1]);
+        tb::mma_fold(gacc[mi][nt + 1], af[mi], bf[2], bf[3]);
+      }
+    }
+  }
+}
+
+// The bf16 leg's walk over the block's tiles, as one role (walk's shape).
+template <bool kGrad>
+__device__ __forceinline__ void walk_bf16(const BufsBf16& sm, const tb::bf16* __restrict__ dy2,
+                                          const tb::bf16* __restrict__ y, const float* __restrict__ vecs,
+                                          tb::bf16* __restrict__ dpre, float* __restrict__ tile_parts,
+                                          float* __restrict__ tap_parts, int B, int T, int Wp) {
+  const int items = (Wp / kC / 2) * B * ((T + kRows - 1) / kRows);
+  const int stride = gridDim.x / 2;
+  const int n_parts = (T + kPartRows - 1) / kPartRows;
+  const int q = threadIdx.x % (kC / 8);  // the 16-byte chunk this thread turns into t1
+  float gacc[kGradMT][kNT][4];  // the grad role's running sum (unused by the other)
+  if constexpr (kGrad) {
+#pragma unroll
+    for (int mi = 0; mi < kGradMT; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) gacc[mi][nt][i] = 0.f;
+  }
+
+  int item = blockIdx.x >> 1;
+  TileAt a = tile_at(item, B, T);
+  for (int buf = 0; item < items; item += stride, buf ^= 1) {
+    const bool more = item + stride < items;
+    const TileAt next = tile_at(more ? item + stride : item, B, T);
+    const tb::bf16* ds = sm.dslab + buf * tb::kSlabElems;
+    const tb::bf16* ys = sm.yslab + buf * tb::kSlabElems;
+    if (more) {  // the next tile's copies run during this tile's products
+      tb::stage_slab<kBwdThreads>(sm.dslab + (buf ^ 1) * tb::kSlabElems, dy2, next.clip_row0, next.t0, T, Wp,
+                                  next.col0);
+      tb::stage_slab<kBwdThreads>(sm.yslab + (buf ^ 1) * tb::kSlabElems, y, next.clip_row0, next.t0, T, Wp,
+                                  next.col0);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    block_sync();  // this tile's slabs have landed
+
+    float s1[8], sh1[8];
+    tb::load8(s1, vecs, 0, Wp, a.col0 + 8 * q);
+    tb::load8(sh1, vecs, 1, Wp, a.col0 + 8 * q);
+    for (int i = threadIdx.x; i < (kRows + 2) * (kC / 8); i += kBwdThreads) {
+      const int r = i / (kC / 8);
+      const int t = a.t0 - 1 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);  // t1 is 0 outside the clip
+      if (t >= 0 && t < T) {
+        v = *reinterpret_cast<const uint4*>(ys + tb::slab_index(r, 8 * q));
+        tb::bn_relu_chunk(v, s1, sh1);
+      }
+      *reinterpret_cast<uint4*>(sm.tslab + tb::slab_index(r, 8 * q)) = v;
+    }
+    block_sync();  // t1 is built
+
+    if constexpr (kGrad) {
+      // rows past the clip hold dy2 = 0 and t1 = 0 and add nothing
+      const int k_end = min(kRows, (T - a.t0 + 15) / 16 * 16);
+      grad_tile_bf16(sm.tslab, ds, k_end, gacc);
+    } else {
+      dt1_tile_bf16(sm, ds, ys, vecs, a, dpre, T, Wp);
+    }
+    block_sync();  // the slabs are read and the moment partials written
+
+    write_tile_parts(sm.red, a, tile_parts, n_parts, Wp);
+    // red is written again only after the next tile's second block_sync
+    a = next;
+  }
+  if constexpr (kGrad) write_tap_parts(gacc, tap_parts);
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 1)
+train_bwd_kernel_bf16(const tb::bf16* __restrict__ dy2, const tb::bf16* __restrict__ y,
+                      const float* __restrict__ vecs, const tb::bf16* __restrict__ kbt,
+                      tb::bf16* __restrict__ dpre, float* __restrict__ tile_parts,
+                      float* __restrict__ tap_parts, int B, int T, int Wp) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  tb::bf16* taps = reinterpret_cast<tb::bf16*>(smem_bytes);  // taps[s] = KBT[2 - s] diagonal block
+  BufsBf16 sm;
+  sm.taps = taps;
+  sm.dslab = taps + tb::kTapElems;
+  sm.yslab = sm.dslab + 2 * tb::kSlabElems;
+  sm.tslab = sm.yslab + 2 * tb::kSlabElems;
+  sm.red = reinterpret_cast<float*>(sm.tslab + tb::kSlabElems);
+
+  // the first tile's slabs: one copy group; the taps by plain stores, seen after the first block_sync
+  const TileAt a = tile_at(blockIdx.x >> 1, B, T);
+  tb::stage_taps<kBwdThreads>(taps, kbt, (blockIdx.x & 1) * kC, true);
+  tb::stage_slab<kBwdThreads>(sm.dslab, dy2, a.clip_row0, a.t0, T, Wp, a.col0);
+  tb::stage_slab<kBwdThreads>(sm.yslab, y, a.clip_row0, a.t0, T, Wp, a.col0);
+  cp_async_commit();
+
+  if (threadIdx.x < kRoleThreads) {
+    walk_bf16<false>(sm, dy2, y, vecs, dpre, tile_parts, tap_parts, B, T, Wp);
+  } else {
+    walk_bf16<true>(sm, dy2, y, vecs, dpre, tile_parts, tap_parts, B, T, Wp);
+  }
+}
+
+// Resident blocks of `kernel` on the card, or a cudaError_t.
+template <typename Kernel>
+int configure(Kernel kernel, size_t smem, int* slots) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(train_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kSmemBytes));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, train_bwd_kernel, kBwdThreads, kSmemBytes);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBwdThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   *slots = per_sm * sms;
   return 0;
 }
 
-int slots_or_error(int* slots) {
-  static int cached = 0;  // resident blocks on the card
-  if (cached == 0) {
-    const int err = configure(&cached);
+// [bf16]: resident blocks of each leg's kernel, configured at first use
+int slots_or_error(bool bf16, int* slots) {
+  static int cached[2] = {0, 0};
+  int& slot = cached[bf16 ? 1 : 0];
+  if (slot == 0) {
+    const int err = bf16 ? configure(train_bwd_kernel_bf16, kSmemBytesBf16, &slot)
+                         : configure(train_bwd_kernel, kSmemBytes, &slot);
     if (err != 0) return err;
   }
-  *slots = cached;
+  *slots = slot;
   return 0;
+}
+
+int blocks_or_error(bool bf16, int B, int T, int Wp) {
+  int slots = 0;
+  const int err = slots_or_error(bf16, &slots);
+  return err != 0 ? -err : grid_size(B, T, Wp, slots);
 }
 
 }  // namespace
 
 // The number of blocks the launch uses for these shapes (the first dimension
 // of tap_parts), or minus a cudaError_t.
-extern "C" int p2r_stgcn_train_bwd_blocks(int B, int T, int Wp) {
-  int slots = 0;
-  const int err = slots_or_error(&slots);
-  return err != 0 ? -err : grid_size(B, T, Wp, slots);
-}
+extern "C" int p2r_stgcn_train_bwd_blocks(int B, int T, int Wp) { return blocks_or_error(false, B, T, Wp); }
+
+// The same for the bf16 leg.
+extern "C" int p2r_stgcn_train_bwd_bf16_blocks(int B, int T, int Wp) { return blocks_or_error(true, B, T, Wp); }
 
 // dy2, y, dpre: (B*T, Wp) contiguous f32, 16-byte aligned; vecs: (4, Wp) f32
 // rows [s1, sh1, 0, 0]; kbt: (3, 128, 128) f32 transposed taps; tile_parts:
@@ -350,11 +592,26 @@ extern "C" int p2r_stgcn_train_bwd_f32(const float* dy2, const float* y, const f
                                        const float* kbt, float* dpre, float* tile_parts,
                                        float* tap_parts, int B, int T, int Wp, int blocks,
                                        void* stream) {
-  int slots = 0;
-  const int err = slots_or_error(&slots);
-  if (err != 0) return err;
-  if (blocks != grid_size(B, T, Wp, slots)) return static_cast<int>(cudaErrorInvalidValue);
+  const int expect = blocks_or_error(false, B, T, Wp);
+  if (expect < 0) return -expect;
+  if (blocks != expect) return static_cast<int>(cudaErrorInvalidValue);
   train_bwd_kernel<<<blocks, kBwdThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      dy2, y, vecs, kbt, dpre, tile_parts, tap_parts, B, T, Wp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 leg.  dy2, y, dpre: (B*T, Wp) contiguous bf16, 16-byte aligned;
+// vecs: (4, Wp) f32 rows [s1, sh1, 0, 0]; kbt: (3, 128, 128) bf16 transposed
+// taps; tile_parts: (B, ceil(T/64), 2, Wp) f32; tap_parts: (blocks, 3, 64,
+// 64) f32 with blocks from p2r_stgcn_train_bwd_bf16_blocks.  Wp % 128 == 0.
+// Returns the cudaError_t of the launch (0 on success).
+extern "C" int p2r_stgcn_train_bwd_bf16(const __nv_bfloat16* dy2, const __nv_bfloat16* y, const float* vecs,
+                                        const __nv_bfloat16* kbt, __nv_bfloat16* dpre, float* tile_parts,
+                                        float* tap_parts, int B, int T, int Wp, int blocks, void* stream) {
+  const int expect = blocks_or_error(true, B, T, Wp);
+  if (expect < 0) return -expect;
+  if (blocks != expect) return static_cast<int>(cudaErrorInvalidValue);
+  train_bwd_kernel_bf16<<<blocks, kBwdThreads, kSmemBytesBf16, static_cast<cudaStream_t>(stream)>>>(
       dy2, y, vecs, kbt, dpre, tile_parts, tap_parts, B, T, Wp);
   return static_cast<int>(cudaGetLastError());
 }

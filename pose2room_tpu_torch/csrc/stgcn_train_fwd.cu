@@ -1,5 +1,5 @@
 // Fused ST-GCN train forward: BN1 affine + ReLU + temporal conv + column
-// moments, f32, Hopper (sm_90a).
+// moments, f32 and bf16 legs, Hopper (sm_90a).
 //
 // Replaces: pose2room_tpu/ops/stgcn_train.py:_fwd_kernel (Pallas, TPU),
 // reached through _tconv_stats_fwd once per ST-GCN block in the train step.
@@ -31,9 +31,24 @@
 // shared memory in a fixed order; a 128-row tile writes two rows of
 // tile_parts.  Pad columns (3392..3455) come out exactly 0 because y and
 // vecs are 0 there.
+//
+// The bf16 leg (p2r_stgcn_train_fwd_bf16; model.compute_dtype: bfloat16)
+// takes y, KB and y2 in bf16 and vecs and tile_parts in f32, and rounds
+// where the Pallas kernel's bf16 path rounds: t1 = relu(y * s1 + sh1) in f32
+// (a product then a sum), rounded to nearest even into bf16 in the slab;
+// each tap product from bf16 operands into an f32 accumulator (one
+// mma.sync.m16n8k16 per 16-deep k-step into a fresh fragment, folded in by
+// an IEEE add, tconv_bf16.cuh); y2 = acc + cb rounded to nearest even; the
+// column moments from the ROUNDED y2, in f32, in the f32 leg's fixed order.
+// Same persistent parity grid; its taps are staged transposed, so that a B
+// fragment is one 32-bit load.  Bound: bytes (2 bytes an element: y and y2
+// are 85 MB at B=8, 0.025 ms at 3.35 TB/s; the 8.15 GFLOP are 0.008 ms at
+// the bf16 tensor-core rate).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "tconv_bf16.cuh"
 #include "tconv_mma.cuh"
 
 namespace {
@@ -158,6 +173,135 @@ train_fwd_kernel(const float* __restrict__ y, const float* __restrict__ vecs,
   }
 }
 
+namespace tb = tconv_bf16;
+
+constexpr size_t kSmemBytesBf16 = (tb::kTapElems + tb::kSlabElems) * sizeof(tb::bf16) + kRedFloats * sizeof(float);
+
+__global__ void __launch_bounds__(kThreads, 3)
+train_fwd_kernel_bf16(const tb::bf16* __restrict__ y, const float* __restrict__ vecs,
+                      const tb::bf16* __restrict__ kb, tb::bf16* __restrict__ y2,
+                      float* __restrict__ tile_parts, int B, int T, int Wp) {
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  tb::bf16* taps = reinterpret_cast<tb::bf16*>(smem_bytes);
+  tb::bf16* slab = taps + tb::kTapElems;
+  float* red = reinterpret_cast<float*>(slab + tb::kSlabElems);
+
+  const int items = (Wp / kC / 2) * B * ((T + kRows - 1) / kRows);
+  const int stride = gridDim.x / 2;
+  const int n_parts = (T + kPartRows - 1) / kPartRows;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int row0 = warp * 16 * kMT;
+  // the 16-byte chunk of 8 columns this thread stages and turns into t1 (stage_slab's)
+  const int q = threadIdx.x % (kC / 8);
+
+  int item = blockIdx.x >> 1;
+  TileAt a = tile_at(item, B, T);
+  tb::stage_taps(taps, kb, (blockIdx.x & 1) * kC);
+  tb::stage_slab(slab, y, a.clip_row0, a.t0, T, Wp, a.col0);
+  cp_async_commit();
+
+  for (; item < items; item += stride) {
+    const bool more = item + stride < items;
+    const TileAt next = tile_at(more ? item + stride : item, B, T);
+    float s1[8], sh1[8];
+    tb::load8(s1, vecs, 0, Wp, a.col0 + 8 * q);
+    tb::load8(sh1, vecs, 1, Wp, a.col0 + 8 * q);
+    cp_async_wait<0>();
+    __syncthreads();
+
+    for (int i = threadIdx.x; i < (kRows + 2) * (kC / 8); i += kThreads) {
+      const int r = i / (kC / 8);
+      const int t = a.t0 - 1 + r;
+      if (t < 0 || t >= T) continue;  // zero-filled, and t1 is 0 there
+      uint4* p = reinterpret_cast<uint4*>(slab + tb::slab_index(r, 8 * q));
+      uint4 v = *p;
+      tb::bn_relu_chunk(v, s1, sh1);
+      *p = v;
+    }
+    __syncthreads();
+
+    float acc[kMT][kNT][4];
+    tb::tconv_mma(slab, taps, row0, acc);
+    __syncthreads();  // every warp is done reading the slab
+    if (more) {
+      tb::stage_slab(slab, y, next.clip_row0, next.t0, T, Wp, next.col0);
+      cp_async_commit();
+    }
+
+    float sum[kNT][2], sumsq[kNT][2];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      const int n = a.col0 + nt * 8 + 2 * c;
+      const float2 cb = __ldg(reinterpret_cast<const float2*>(vecs + 2 * static_cast<size_t>(Wp) + n));
+      sum[nt][0] = sum[nt][1] = sumsq[nt][0] = sumsq[nt][1] = 0.f;
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int t = a.t0 + row0 + mt * 16 + g + 8 * half;
+          if (t >= T) continue;
+          const __nv_bfloat162 r2 = tb::pack_rn(__fadd_rn(acc[mt][nt][2 * half], cb.x),
+                                                __fadd_rn(acc[mt][nt][2 * half + 1], cb.y));
+          *reinterpret_cast<__nv_bfloat162*>(y2 + (a.clip_row0 + t) * Wp + n) = r2;
+          const float2 v = tb::unpack2(*reinterpret_cast<const uint32_t*>(&r2));  // BN2 sees the rounded y2
+          sum[nt][0] += v.x;
+          sum[nt][1] += v.y;
+          sumsq[nt][0] += v.x * v.x;
+          sumsq[nt][1] += v.y * v.y;
+        }
+    }
+    // sum over the warp's 8 row groups (lanes of equal c), then one lane per c writes
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          sum[nt][j] += __shfl_xor_sync(0xffffffffu, sum[nt][j], off);
+          sumsq[nt][j] += __shfl_xor_sync(0xffffffffu, sumsq[nt][j], off);
+        }
+    if (g == 0) {
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          red[(warp * 2 + 0) * kC + nt * 8 + 2 * c + j] = sum[nt][j];
+          red[(warp * 2 + 1) * kC + nt * 8 + 2 * c + j] = sumsq[nt][j];
+        }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < (kRows / kPartRows) * 2 * kC; i += kThreads) {
+      const int h = i / (2 * kC);  // 64-row part of this tile
+      const int moment = (i / kC) % 2;
+      const int col = i % kC;
+      const int part = a.t0 / kPartRows + h;
+      if (part >= n_parts) continue;
+      float total = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarpsPerPart; ++w) total += red[((h * kWarpsPerPart + w) * 2 + moment) * kC + col];
+      tile_parts[((static_cast<size_t>(a.b) * n_parts + part) * 2 + moment) * Wp + a.col0 + col] = total;
+    }
+    // red is written again only after the next tile's first __syncthreads
+    a = next;
+  }
+}
+
+// resident blocks of `kernel` on the card (cached by the caller)
+template <typename Kernel>
+cudaError_t resident_slots(Kernel kernel, size_t smem, int* slots) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  *slots = per_sm * sms;
+  return err;
+}
+
 }  // namespace
 
 // y, y2: (B*T, Wp) contiguous f32, 16-byte aligned; vecs: (4, Wp) f32 rows
@@ -166,22 +310,29 @@ train_fwd_kernel(const float* __restrict__ y, const float* __restrict__ vecs,
 extern "C" int p2r_stgcn_train_fwd_f32(const float* y, const float* vecs, const float* kb,
                                        float* y2, float* tile_parts, int B, int T, int Wp,
                                        void* stream) {
-  static bool configured = false;
   static int slots = 0;  // resident blocks on the card
-  if (!configured) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(train_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(kSmemBytes));
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, train_fwd_kernel, kThreads, kSmemBytes);
+  if (slots == 0) {
+    const cudaError_t err = resident_slots(train_fwd_kernel, kSmemBytes, &slots);
     if (err != cudaSuccess) return static_cast<int>(err);
-    slots = per_sm * sms;
-    configured = true;
   }
   train_fwd_kernel<<<grid_size(B, T, Wp, slots), kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       y, vecs, kb, y2, tile_parts, B, T, Wp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 leg.  y, y2: (B*T, Wp) contiguous bf16, 16-byte aligned; vecs:
+// (4, Wp) f32 rows [s1, sh1, cb, 0]; kb: (3, 128, 128) bf16; tile_parts:
+// (B, ceil(T/64), 2, Wp) f32.  Wp % 128 == 0.  Returns the cudaError_t of
+// the launch (0 on success).
+extern "C" int p2r_stgcn_train_fwd_bf16(const __nv_bfloat16* y, const float* vecs, const __nv_bfloat16* kb,
+                                        __nv_bfloat16* y2, float* tile_parts, int B, int T, int Wp,
+                                        void* stream) {
+  static int slots = 0;  // resident blocks on the card
+  if (slots == 0) {
+    const cudaError_t err = resident_slots(train_fwd_kernel_bf16, kSmemBytesBf16, &slots);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  train_fwd_kernel_bf16<<<grid_size(B, T, Wp, slots), kThreads, kSmemBytesBf16,
+                          static_cast<cudaStream_t>(stream)>>>(y, vecs, kb, y2, tile_parts, B, T, Wp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
-// bf16 legs of kernels 1 (stgcn_epilogue.cu) and 5 (stgcn_sparse.cu): the
-// tensor-core arithmetic and the shared-memory layouts for bf16 operands.
+// bf16 legs of kernels 1 (stgcn_epilogue.cu), 3 (stgcn_train_fwd.cu), 4
+// (stgcn_train_bwd.cu) and 5 (stgcn_sparse.cu): the tensor-core arithmetic
+// and the shared-memory layouts for bf16 operands.
 //
 // Arithmetic: one mma.sync.m16n8k16 bf16 product per k-step (bf16 x bf16 is
 // exact in f32; no split, unlike the f32 legs' 3xTF32).  The tensor cores
@@ -89,14 +90,17 @@ __device__ __forceinline__ void mma_fold(float (&acc)[4], const uint32_t (&a)[4]
 
 // Copy the joint's three 64x64 diagonal tap blocks of KB (3, 128, 128) into
 // taps[s][n][k] (once per block of the persistent grid: plain loads and
-// stores, made visible by the caller's next __syncthreads).
+// stores, made visible by the caller's next barrier).  reverse: taps[s] =
+// KB[2 - s].
 template <int Threads = kThreads>
-__device__ __forceinline__ void stage_taps(bf16* taps, const bf16* __restrict__ kb, int diag) {
+__device__ __forceinline__ void stage_taps(bf16* taps, const bf16* __restrict__ kb, int diag,
+                                           bool reverse = false) {
   for (int i = threadIdx.x; i < kTapElems; i += Threads) {
     const int n = i % kC;
     const int k = (i / kC) % kC;
     const int s = i / (kC * kC);
-    taps[tap_index(s, n, k)] = kb[(static_cast<size_t>(s) * kLane + diag + k) * kLane + diag + n];
+    const int from = reverse ? 2 - s : s;
+    taps[tap_index(s, n, k)] = kb[(static_cast<size_t>(from) * kLane + diag + k) * kLane + diag + n];
   }
 }
 
@@ -156,13 +160,41 @@ __device__ __forceinline__ void tconv_mma(const bf16* slab, const bf16* taps, in
   }
 }
 
+// t1 = relu(y * s1 + sh1) of 8 consecutive bf16 y (one 16-byte chunk), in
+// f32 as a product then a sum (no FMA contraction, as the plain versions
+// compute it), rounded to nearest even into bf16 in place.
+__device__ __forceinline__ void bn_relu_chunk(uint4& v, const float (&s1)[8], const float (&sh1)[8]) {
+  uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float lo = fmaxf(__fadd_rn(__fmul_rn(__uint_as_float(w[j] << 16), s1[2 * j]), sh1[2 * j]), 0.f);
+    const float hi =
+        fmaxf(__fadd_rn(__fmul_rn(__uint_as_float(w[j] & 0xffff0000u), s1[2 * j + 1]), sh1[2 * j + 1]), 0.f);
+    const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+    w[j] = *reinterpret_cast<const uint32_t*>(&p);
+  }
+  v = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The 8 floats of row `row` of vecs (rows of Wp floats) from column col on.
+__device__ __forceinline__ void load8(float (&out)[8], const float* __restrict__ vecs, int row, int Wp, int col) {
+  const float4* p = reinterpret_cast<const float4*>(vecs + static_cast<size_t>(row) * Wp + col);
+  const float4 a = __ldg(p), b = __ldg(p + 1);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
 // Two f32 values -> two bf16, round to nearest even, as one 32-bit word.
 __device__ __forceinline__ __nv_bfloat162 pack_rn(float lo, float hi) { return __floats2bfloat162_rn(lo, hi); }
 
-// Two consecutive bf16 at p -> f32 (exact).
-__device__ __forceinline__ float2 load2(const bf16* __restrict__ p) {
-  const uint32_t u = __ldg(reinterpret_cast<const unsigned int*>(p));
+// Two bf16 in one 32-bit word (the lower index in the low half) -> f32 (exact).
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
   return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+// Two consecutive bf16 at p in global memory -> f32 (exact).
+__device__ __forceinline__ float2 load2(const bf16* __restrict__ p) {
+  return unpack2(__ldg(reinterpret_cast<const unsigned int*>(p)));
 }
 
 }  // namespace tconv_bf16

@@ -17,7 +17,8 @@ and the torch momentum convention, so it is not used.
 A compute ``dtype`` (None: float32, or ``torch.bfloat16``) follows flax's
 ``nn.Dense(dtype=bf16)`` (``dense``): parameters stay f32, the input and
 kernel are cast to bf16, the product comes out bf16 and the bias is added in
-bf16 (two roundings); BatchNorm upcasts to f32, so ReLU after it runs in f32.
+bf16 (two roundings); BatchNorm upcasts to f32 (its train-mode statistics
+too, as flax's ``BatchNorm(dtype=float32)``), so ReLU after it runs in f32.
 """
 
 import math
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from pose2room_tpu_torch.ops.stgcn_fused import LANE, N_VEC_ROWS, block_diag_taps, pad_merged
+from pose2room_tpu_torch.ops.stgcn_fused import LANE, N_VEC_ROWS, block_diag_taps, pad_merged, widen
 from pose2room_tpu_torch.ops.stgcn_train import BN_EPS, FusedTrainLayer
 
 
@@ -75,6 +76,7 @@ class BatchNorm(nn.Module):
         self.running_var.copy_(m * self.running_var + (1 - m) * var)
 
     def forward(self, x):
+        x = widen(x)
         if self.training:
             axes = tuple(range(x.dim() - 1))
             mean = x.mean(axes)
@@ -305,24 +307,25 @@ class STGCNBlock(nn.Module):
     def fold_train_arrays(self, A):
         """Operands of ops/stgcn_train.py:FusedTrainLayer, differentiable in
         the weights: (M padded (Wp, Wp), bias_col (Wp,), g1, b1, taps
-        (3, C, C) as (tap, in, out), cb, g2, b2).  BN folding happens inside
-        the layer each step, from the live batch statistics."""
+        (3, C, C) as (tap, in, out), cb, g2, b2).  M is folded in f32, padded
+        and cast to the compute dtype once; the rest stays f32.  BN folding
+        happens inside the layer each step, from the live batch statistics."""
         C, V = self.out_channels, self.num_joints
         W0 = V * C
         Wp = pad_merged(W0)
         M, bias_out = self.folded_graph_matrix(A)
         bn1, conv, bn2 = self.tcn[0], self.tcn[2], self.tcn[3]
         return (
-            nn.functional.pad(M, (0, Wp - W0, 0, Wp - W0)),
+            nn.functional.pad(M, (0, Wp - W0, 0, Wp - W0)).to(self.dtype or M.dtype),
             nn.functional.pad(bias_out.reshape(W0), (0, Wp - W0)),
             bn1.weight, bn1.bias, conv.taps(), conv.bias, bn2.weight, bn2.bias,
         )
 
     def apply_fused_train(self, hm, A, T):
-        """The block in training mode on merged (B, T, W) activations
-        through the fused train layer; updates both BatchNorms' running
-        statistics from the layer's batch moments, as the module path
-        would.  Returns (B, T, Wp)."""
+        """The block in training mode on merged (B, T, W) activations in the
+        compute dtype through the fused train layer; updates both
+        BatchNorms' running statistics from the layer's batch moments, as
+        the module path would.  Returns (B, T, Wp) in the compute dtype."""
         args = self.fold_train_arrays(A)
         Wp = args[0].shape[1]
         if self.residual and hm.shape[-1] < Wp:

@@ -28,10 +28,13 @@ _BIG = 1e9
 
 
 def _weighted_ce(logits, labels, weights=None):
-    """Per-element cross entropy -w_y * log p_y."""
+    """Per-element cross entropy -w_y * log p_y.  bf16 logits give a bf16
+    log-softmax, as in the JAX package; the class weights are f32 (so a
+    weighted bf16 term comes out f32, as JAX promotes it)."""
     ce = -torch.gather(F.log_softmax(logits, dim=-1), -1, labels[..., None])[..., 0]
     if weights is not None:
-        ce = ce * torch.tensor(weights, dtype=ce.dtype, device=ce.device)[labels]
+        w = torch.tensor(weights, dtype=torch.promote_types(ce.dtype, torch.float32), device=ce.device)
+        ce = ce * w[labels]
     return ce
 
 

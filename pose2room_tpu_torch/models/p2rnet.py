@@ -9,9 +9,10 @@ L2-normalised vote features, and ProposalNet.
   statistics in ``.eval()`` mode (the validation loss);
 * ``generate`` is the deterministic eval path with MDN ``get_mean`` heads.
 
-``compute_dtype: bfloat16`` runs eval in bf16 as the JAX package does
-(p2rnet.py:96-125): parameters stay f32 and every module casts where flax
-does.  bf16 training is not ported and raises.
+``compute_dtype: bfloat16`` runs eval and training in bf16 as the JAX
+package does (p2rnet.py:96-125): parameters, optimizer state and
+checkpoints stay f32, every module casts where flax does, and gradients
+flow back through the casts to the f32 parameters.
 
 ``P2RNet(config, device=None)`` builds its weights on the host and moves
 them to the card; ``device="cpu"`` runs it on the CPU (the kernels' plain
@@ -155,8 +156,6 @@ class P2RNet(nn.Module):
         when None.  BatchNorm is live in ``.train()`` mode and uses the
         running statistics in ``.eval()`` mode.  Returns the end_points dict.
         """
-        if self.training and self.compute_dtype is not None:
-            raise NotImplementedError("bf16 training is not ported")
         assert_precision_policy()
         if eps is None:
             if generator is None:

@@ -22,11 +22,12 @@ training mode with ``fused_train`` the blocks run on the same layout through
 backward, the CUDA train kernels); ``fused_eval`` / ``fused_train`` off run
 the per-block module path instead.
 
-A compute ``dtype`` of bf16 (eval only) runs the chain on bf16 activations
-with bf16 operands, as the JAX package's bf16 path does (stgcn.py:224-380):
-pos_embed and sk_feat end in bf16 Dense layers, the window mean accumulates
-in f32 and rounds once, the chain takes bf16 input, and conv_joint is a bf16
-Dense whose output goes to f32.
+A compute ``dtype`` of bf16 (eval and training) runs the chain on bf16
+activations with bf16 operands, as the JAX package's bf16 path does
+(stgcn.py:224-380): pos_embed and sk_feat end in bf16 Dense layers, the
+window mean accumulates in f32 and rounds once, the chain takes bf16 input
+(the fused train chain keeps bf16 between blocks, the module path f32), and
+conv_joint is a bf16 Dense whose output goes to f32.
 """
 
 import numpy as np
@@ -219,10 +220,10 @@ class STGCN(nn.Module):
         if self.training and self.fused_train:
             # same no-entry-pad trick as eval; gradients reach every weight
             # through the fold (M = einsum(W, A * importance), bias_col)
-            hm = h.reshape(B, T, W0)
+            hm = h.reshape(B, T, W0)  # already in the compute dtype (sk_feat + pos)
             for blk, imp in zip(self.st_gcn_networks, self.edge_importance):
                 hm = blk.apply_fused_train(hm, self.A * imp, T)
-            frame_feat = hm[..., :W0] @ self._conv_joint_joint_major() + self.conv_joint.bias
+            frame_feat = dense(hm[..., :W0], self._conv_joint_joint_major(), self.conv_joint.bias, self.dtype)
         elif not self.training and self.sparse_eval:
             # joint-permuted padded layout from the entry: pad to Vp joints,
             # gather the order; the permutation leaves through conv_joint's rows

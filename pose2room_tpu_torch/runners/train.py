@@ -1,10 +1,11 @@
 """Train runner (port of pose2room_tpu/runners/train.py, reference
 train.py:11-61): model from the config's seed, AdamW, HDF5 loaders over
 ``data.split`` and the epoch loop; checkpoints under the run directory.
+``model.compute_dtype: bfloat16`` trains in bf16 (f32 parameters, optimizer
+state and checkpoints; the val step runs the bf16 eval chain).
 
-Resume, finetune, ``freeze``, ``optim_spec``, ``bnscheduler``, bf16
-(``model.compute_dtype: bfloat16``) and the keys of
-``train.state.check_unported_keys`` are not ported and raise.
+Resume, finetune, ``freeze``, ``optim_spec``, ``bnscheduler`` and the keys
+of ``train.state.check_unported_keys`` are not ported and raise.
 """
 
 import os

@@ -45,8 +45,6 @@ def check_supported(config):
     ``check_unported_keys`` included."""
     check_unported_keys(config)
     model_cfg = config.get("model", {}) or {}
-    if model_cfg.get("compute_dtype", "float32") != "float32":
-        raise NotImplementedError("bf16 training is not ported")
     if config.get("train", {}).get("freeze"):
         raise NotImplementedError("train.freeze is not ported")
     if any(isinstance(v, dict) and v.get("optim_spec") for v in model_cfg.values()):

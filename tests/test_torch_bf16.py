@@ -32,28 +32,12 @@ from pose2room_tpu_torch.models.graph import SPARSE_JOINT_ORDER, build_spatial_g
 from pose2room_tpu_torch.models.layers import MLP1x1
 from pose2room_tpu_torch.ops import stgcn_fused, stgcn_sparse
 from pose2room_tpu_torch.runners import test as test_runner
-from torch_port_util import SMALL, flax_payload, jax_model, port_model, to_numpy, walking_clip
+from torch_port_util import SMALL, f32, flax_payload, jax_model, ordinal, port_model, ulps, walking_clip
 
 TEST_YAML = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "configs", "config_files", "p2rnet_test.yaml")
 BF16 = torch.bfloat16
 VARIANTS = {"dense": dict(), "sparse": dict(sparse_eval=True), "module": dict(fused_eval=False)}
-
-
-def ordinal(a):
-    """bf16 values (as an f32 array) -> integers in value order: adjacent
-    bf16 values differ by 1, +0 and -0 are both 0."""
-    u = (np.ascontiguousarray(np.asarray(a, np.float32)).view(np.uint32) >> 16).astype(np.int64)
-    return np.where(u & 0x8000, -(u & 0x7FFF), u)
-
-
-def ulps(a, b):
-    """Largest distance in bf16 ulps between two arrays of bf16 values."""
-    return int(np.abs(ordinal(a) - ordinal(b)).max())
-
-
-def f32(a):
-    return to_numpy(a).astype(np.float32) if torch.is_tensor(a) else np.asarray(a, np.float32)
 
 
 @pytest.fixture(scope="module")

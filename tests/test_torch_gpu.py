@@ -462,3 +462,124 @@ def test_generate_bf16_card_matches_cpu_small(cuda_device, sparse):
     for key in ("seed_features", "vote_xyz"):
         ref = b[key].float()
         assert (a[key].cpu().float() - ref).abs().max().item() <= 1e-2 * ref.abs().max().item(), key
+
+
+def _train_operands_bf16(B, T, W0, dev, seed=0):
+    """Kernel 3/4 operands in bf16 (y, dy2, KB; vecs f32)."""
+    y, dy2, vecs, KB = _train_operands(B, T, W0, dev, seed)
+    return y.to(torch.bfloat16), dy2.to(torch.bfloat16), vecs, KB.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,T,W0", [(1, 768, 3392), (8, 768, 3392), (2, 50, 3392), (3, 17, 320),
+                                    (2, 200, 3392), (8, 130, 192)])
+def test_train_fwd_bf16_kernel_matches_plain(cuda_device, B, T, W0):
+    """T = 50 and 17: clips that 16 does not divide; 130: a 128-row tile
+    whose second 64-row part of partials lies past the clip.  y2 within 1
+    bf16 ulp of the plain version; the moments within 1e-5 of each column's
+    scale of the float64 moments of the kernel's own rounded y2."""
+    y, _, vecs, KB = _train_operands_bf16(B, T, W0, cuda_device)
+    before = dict(kernels.LAUNCHES)
+    y2, parts = stgcn_train.tconv_stats_fwd(y, vecs, KB, T=T)
+    assert kernels.LAUNCHES["stgcn_train_fwd_bf16"] == before.get("stgcn_train_fwd_bf16", 0) + 1
+    assert kernels.LAUNCHES["stgcn_train_fwd"] == before.get("stgcn_train_fwd", 0)
+    y2_ref, _ = stgcn_train.tconv_stats_fwd_ref(y, vecs, KB, T=T)
+    torch.cuda.synchronize()
+    _assert_bf16_close(y2, y2_ref)
+    v = y2.double().reshape(B, T, -1)
+    own = torch.stack([v.sum(1), (v * v).sum(1)], dim=1)
+    _assert_parts_close(parts.double(), own, [v.abs().sum(1), (v * v).sum(1)])
+    assert torch.all(y2[:, W0:] == 0) and torch.all(parts[..., W0:] == 0)
+    again = stgcn_train.tconv_stats_fwd(y, vecs, KB, T=T)
+    assert torch.equal(y2, again[0]) and torch.equal(parts, again[1])
+
+
+@pytest.mark.parametrize("B,T,W0", [(1, 768, 3392), (8, 768, 3392), (2, 50, 3392), (3, 17, 320),
+                                    (2, 200, 3392)])
+def test_train_bwd_bf16_kernel_matches_plain(cuda_device, B, T, W0):
+    """dpre within 1 bf16 ulp of the plain version, its moments (of the
+    unrounded dpre) within 1e-5 of each column's scale, dtaps within 1e-4
+    of its max; pad columns 0; the same bits on relaunch."""
+    y, dy2, vecs, KB = _train_operands_bf16(B, T, W0, cuda_device)
+    vecs[2] = 0.0
+    KBT = KB.transpose(1, 2).contiguous()
+    before = dict(kernels.LAUNCHES)
+    dpre, parts, dtaps = stgcn_train.tconv_bwd(dy2, y, vecs, KBT, T=T, C=64)
+    assert kernels.LAUNCHES["stgcn_train_bwd_bf16"] == before.get("stgcn_train_bwd_bf16", 0) + 1
+    assert kernels.LAUNCHES["stgcn_train_bwd"] == before.get("stgcn_train_bwd", 0)
+    dpre_ref, parts_ref, dkb_ref = stgcn_train.tconv_bwd_ref(dy2, y, vecs, KBT, T=T)
+    dtaps_ref = stgcn_train._fold_diag_blocks(dkb_ref, 64)
+    torch.cuda.synchronize()
+    _assert_bf16_close(dpre, dpre_ref)
+    d3, y3 = dpre_ref.float().reshape(B, T, -1), y.float().reshape(B, T, -1)
+    _assert_parts_close(parts, parts_ref, [d3.abs().sum(1), (d3 * y3).abs().sum(1)])
+    torch.testing.assert_close(dtaps, dtaps_ref, atol=1e-4 * dtaps_ref.abs().max().item(), rtol=0)
+    assert torch.all(dpre[:, W0:] == 0) and torch.all(parts[..., W0:] == 0)
+    again = stgcn_train.tconv_bwd(dy2, y, vecs, KBT, T=T, C=64)
+    assert all(torch.equal(a, b) for a, b in zip((dpre, parts, dtaps), again))
+
+
+def test_train_bf16_wrappers_reject_bad_operands(cuda_device):
+    y, dy2, vecs, KB = _train_operands_bf16(2, 16, 192, cuda_device)
+    KBT = KB.transpose(1, 2).contiguous()
+    with pytest.raises(TypeError):  # float16 has no leg
+        stgcn_train.tconv_stats_fwd(y.half(), vecs, KB.half(), T=16)
+    with pytest.raises(TypeError):  # taps in f32 with a bf16 chain
+        stgcn_train.tconv_stats_fwd(y, vecs, KB.float(), T=16)
+    with pytest.raises(TypeError):  # per-column vectors stay f32
+        stgcn_train.tconv_stats_fwd(y, vecs.to(torch.bfloat16), KB, T=16)
+    with pytest.raises(TypeError):  # dy2 in f32 with a bf16 y
+        stgcn_train.tconv_bwd(dy2.float(), y, vecs, KBT, T=16, C=64)
+    with pytest.raises(TypeError):
+        stgcn_train.tconv_bwd(dy2.half(), y.half(), vecs, KBT.half(), T=16, C=64)
+
+
+def _bulk_ok(a, b):
+    """The JAX package's bulk band for tensors that cross bf16 roundings at
+    other points (tests/test_stgcn_train.py:270-283): errors over
+    max(|b|, 1e-3), median < 3e-2, under 2% beyond 7e-2, max < 0.5."""
+    err = (a.double() - b.double()).abs() / max(b.double().abs().max().item(), 1e-3)
+    return err.median().item() < 3e-2 and (err > 7e-2).double().mean().item() < 0.02 and err.max().item() < 0.5
+
+
+def test_fused_train_layer_bf16_card_matches_cpu(cuda_device):
+    """The bf16 custom-backward block on the card against the CPU (plain
+    versions).  The two sum y = x @ M in other orders, so some of y's bf16
+    roundings differ and every rounding and ReLU downstream can amplify
+    one (an output near a cancellation moves many ulps; a flipped ReLU
+    mask moves dx by the incoming gradient).  So: at most 1e-3 of the
+    output's elements differ, the output and each gradient in the JAX
+    package's bulk band, the statistics within 1e-3 of their max; one
+    launch of each bf16 train leg and none of the f32 legs."""
+    V, C, T, B = 53, 64, 64, 2
+    W0, Wp = V * C, 3456
+    g = torch.Generator().manual_seed(1)
+    x = torch.zeros(B, T, Wp)
+    x[..., :W0] = torch.randn(B, T, W0, generator=g) * 0.6
+    M = torch.zeros(Wp, Wp)
+    M[:W0, :W0] = torch.randn(W0, W0, generator=g) * 0.02
+    bias_col = torch.zeros(Wp)
+    bias_col[:W0] = torch.randn(W0, generator=g) * 0.1
+    rest = [0.7 + torch.rand(C, generator=g), torch.randn(C, generator=g) * 0.2,
+            torch.randn(3, C, C, generator=g) * 0.15, torch.randn(C, generator=g) * 0.1,
+            0.7 + torch.rand(C, generator=g), torch.randn(C, generator=g) * 0.2]
+    w = torch.randn(B, T, Wp, generator=g).to(torch.bfloat16).float()
+    results = []
+    for dev in (cuda_device, torch.device("cpu")):
+        args = [t.to(dev).to(torch.bfloat16 if i < 2 else torch.float32).requires_grad_()
+                for i, t in enumerate([x, M, bias_col, *rest])]
+        kernels.reset_launch_counts()
+        outs = stgcn_train.FusedTrainLayer.apply(*args, True, V, C, T)
+        (outs[0].float() * w.to(dev)).sum().backward()
+        if dev.type == "cuda":
+            assert dict(kernels.LAUNCHES) == {"stgcn_train_fwd_bf16": 1, "stgcn_train_bwd_bf16": 1}
+        results.append(([o.detach().cpu() for o in outs], [a.grad.cpu().float() for a in args]))
+    (outs_g, grads_g), (outs_c, grads_c) = results
+    assert outs_g[0].dtype == torch.bfloat16
+    assert (outs_g[0] != outs_c[0]).double().mean().item() <= 1e-3
+    assert _bulk_ok(outs_g[0], outs_c[0])
+    for a, b in zip(outs_g[1:], outs_c[1:]):
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+    for i, (a, b) in enumerate(zip(grads_g, grads_c)):
+        if i != 6:
+            assert _bulk_ok(a, b), f"grad {i}"
+    assert torch.all(grads_g[6] == 0)  # conv bias: the analytic zero

@@ -18,6 +18,8 @@ from pose2room_tpu.models.graph import build_spatial_graph as jax_build_spatial_
 from pose2room_tpu.models.stgcn import STGCN as JaxSTGCN
 from pose2room_tpu_torch.config.loader import CONFIG
 from pose2room_tpu_torch.convert import load_reference_state_dict, state_dict_from_flax
+from pose2room_tpu_torch.data import synth
+from pose2room_tpu_torch.data.dataset import SceneDataset
 from pose2room_tpu_torch.models.graph import build_spatial_graph
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
 from pose2room_tpu_torch.models.stgcn import blocked_cumsum
@@ -170,23 +172,42 @@ def test_linspace_seeds_when_seeds_cover_frames(payload):
 
 @pytest.mark.parametrize("path", ["train_forward", "train_runner"])
 def test_unported_options_raise(path, tmp_path):
-    """bf16 eval is ported; bf16 training is not: the train-mode forward and
-    the train runner raise."""
+    """bf16 training is ported: the train-mode forward gives finite outputs
+    (bf16 logits, as in JAX) and gradients that reach every f32 parameter,
+    and the train runner finishes an epoch; an unported compute dtype still
+    raises."""
     if path == "train_forward":
         model = P2RNet(P2RNetConfig(**SMALL, compute_dtype="bfloat16"), device="cpu").train()
         x = torch.from_numpy(walking_clip(np.random.RandomState(5), 1, SMALL["num_frames"]))
-        with pytest.raises(NotImplementedError, match="bf16 training"):
-            model(x, generator=torch.Generator().manual_seed(0))
-        return
-    config = yaml.safe_load(open(TRAIN_YAML))
-    config["model"] = {**(config.get("model") or {}), "compute_dtype": "bfloat16"}
-    config["log"]["path"] = str(tmp_path / "out")
-    cfg = CONFIG(config, mode="train")
-    try:
-        with pytest.raises(NotImplementedError, match="bf16 training"):
-            train_runner.run(cfg, device="cpu", datasets={"train": [], "val": []})
-    finally:
-        cfg.close()
+        out = model(x, generator=torch.Generator().manual_seed(0))
+        for k in ("seed_features", "vote_xyz", "center", "size", "heading", "objectness_scores", "sem_cls_scores"):
+            assert torch.isfinite(out[k].float()).all(), k
+        assert out["sem_cls_scores"].dtype == torch.bfloat16 and out["center"].dtype == torch.float32
+        (out["center"].sum() + out["size"].sum() + out["sem_cls_scores"].float().sum()).backward()
+        grads = {k: p.grad for k, p in model.named_parameters() if p.grad is not None}
+        assert grads and all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in grads.values())
+        assert "backbone.st_gcn_networks.0.gcn.conv.weight" in grads and "backbone.edge_importance.5" in grads
+    else:
+        config = yaml.safe_load(open(TRAIN_YAML))
+        config["model"] = {**(config.get("model") or {}), "compute_dtype": "bfloat16"}
+        config["data"].update(num_frames=SMALL["num_frames"], num_seeds=SMALL["num_seeds"],
+                              num_target=SMALL["num_proposals"], num_gaussian=SMALL["num_gaussian"])
+        config["train"].update(epochs=1, batch_size=2)
+        config["val"]["batch_size"] = 2
+        config["device"]["num_workers"] = 0
+        config["log"]["path"] = str(tmp_path / "out")
+        rng = np.random.RandomState(6)
+        scenes = [synth.as_stored(*synth.make_scene(rng, n_objects=3, n_frames=120)) for _ in range(4)]
+        cfg = CONFIG(config, mode="train")
+        try:
+            _, history = train_runner.run(cfg, device="cpu", datasets={
+                "train": SceneDataset(scenes[:2], num_frames=SMALL["num_frames"], augment=True),
+                "val": SceneDataset(scenes[2:], num_frames=SMALL["num_frames"])})
+        finally:
+            cfg.close()
+        assert len(history) == 1
+        for phase in ("train", "val"):
+            assert all(np.isfinite(v) for v in history[0][phase].values()), phase
     with pytest.raises(NotImplementedError):
         P2RNet(P2RNetConfig(**SMALL, compute_dtype="float16"), device="cpu")
 

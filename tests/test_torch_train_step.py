@@ -19,7 +19,6 @@ import os
 import subprocess
 import sys
 
-import flax.linen as nn
 import numpy as np
 import optax
 import pytest
@@ -33,36 +32,22 @@ from pose2room_tpu.data import synth as jax_synth
 from pose2room_tpu.data.dataset import P2RNetDataset as JaxP2RNetDataset
 from pose2room_tpu.data.loader import DataLoader as JaxDataLoader
 from pose2room_tpu.models.loss import detection_loss as jax_detection_loss
-from pose2room_tpu.models.mdn import MDNHead as JaxMDNHead
 from pose2room_tpu.train import state as jax_state
 from pose2room_tpu.train.step import make_train_step as jax_make_train_step
 from pose2room_tpu_torch import __main__ as cli
 from pose2room_tpu_torch.config.loader import CONFIG
 from pose2room_tpu_torch.convert import state_dict_from_flax
 from pose2room_tpu_torch.data import synth
-from pose2room_tpu_torch.data.dataset import P2RNetDataset, SceneDataset, sample_to_item
-from pose2room_tpu_torch.data.loader import DataLoader, collate
+from pose2room_tpu_torch.data.dataset import P2RNetDataset, SceneDataset
+from pose2room_tpu_torch.data.loader import DataLoader
 from pose2room_tpu_torch.models.loss import detection_loss
 from pose2room_tpu_torch.runners import demo
 from pose2room_tpu_torch.train import state
 from pose2room_tpu_torch.train.step import GT_KEYS, batch_to_device, train_step
-from torch_port_util import SMALL, flax_payload, jax_model, port_model
+from torch_port_util import SMALL, flax_payload, jax_model, mdn_eps_from_jax, port_model, scene_batch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_YAML = os.path.join(REPO, "configs", "config_files", "p2rnet_train.yaml")
-
-
-def _scene_batch(seed, B, num_frames):
-    """A collated batch of synthetic scenes through the port's item path."""
-    rng = np.random.RandomState(seed)
-    items = []
-    for _ in range(B):
-        joints, instances = synth.make_scene(rng, n_objects=int(rng.randint(2, 6)), n_frames=200)
-        items.append(sample_to_item(*synth.as_stored(joints, instances), rng,
-                                    num_frames=num_frames, augment=True))
-    batch = collate(items)
-    batch.pop("sample_idx")
-    return batch
 
 
 # ---------------------------------------------------------------------------
@@ -171,25 +156,6 @@ def test_unported_train_options_raise(section):
 # one whole train step against JAX
 # ---------------------------------------------------------------------------
 
-def _mdn_eps_from_jax(model, variables, x, key):
-    """The noise the JAX model's three MDN ``predict`` heads draw for rng
-    ``key``: record each head's rng key, then repeat its draw."""
-    keys = []
-
-    def record(next_fun, args, kwargs, context):
-        if isinstance(context.module, JaxMDNHead) and context.method_name == "predict":
-            keys.append((context.module.out_dim, args[1]))
-        return next_fun(*args, **kwargs)
-
-    with nn.intercept_methods(record):
-        model.apply(variables, x, train=True, rngs={"mdn": key}, mutable=["batch_stats"])
-    B, P, G = x.shape[0], SMALL["num_proposals"], SMALL["num_gaussian"]
-    return {
-        name: np.asarray(jax.random.normal(jax.random.split(k)[0], (B, P, G, 1, dim)))
-        for name, (dim, k) in zip(("center", "size", "heading"), keys)
-    }
-
-
 @pytest.fixture(scope="module")
 def step_case():
     """The JAX side of one train step at the SMALL sizes (f32, fused train
@@ -205,11 +171,11 @@ def step_case():
     # eager, or the port in f32 vs f64; ROADMAP "Faults found").  On this
     # batch the port's f32 gradient is within 5e-4 of its f64 gradient, so
     # the 1e-3 band below tests the port, not the rounding.
-    batch = _scene_batch(5, 2, SMALL["num_frames"])
+    batch = scene_batch(5, 2, SMALL["num_frames"])
     model = jax_model(SMALL)
     key = jax.random.PRNGKey(11)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
-    eps = _mdn_eps_from_jax(model, variables, jbatch["input_joints"], key)
+    eps = mdn_eps_from_jax(model, variables, jbatch["input_joints"], key)
     gt = {k: jbatch[k] for k in GT_KEYS}
 
     @jax.jit

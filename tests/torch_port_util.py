@@ -5,6 +5,7 @@ reference, on the CPU) and pose2room_tpu_torch (the port, on the CPU, where
 each kernel wrapper runs its plain PyTorch version).
 """
 
+import flax.linen as nn
 import numpy as np
 import torch
 
@@ -12,7 +13,11 @@ import jax
 
 from pose2room_tpu.models import P2RNet as JaxP2RNet
 from pose2room_tpu.models import P2RNetConfig as JaxP2RNetConfig
+from pose2room_tpu.models.mdn import MDNHead as JaxMDNHead
 from pose2room_tpu_torch.convert import state_dict_from_flax
+from pose2room_tpu_torch.data import synth
+from pose2room_tpu_torch.data.dataset import sample_to_item
+from pose2room_tpu_torch.data.loader import collate
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
 
 SMALL = dict(num_frames=96, num_seeds=64, num_proposals=16, num_gaussian=10)
@@ -96,3 +101,51 @@ def assert_generate_close(port, ref):
         np.testing.assert_allclose(port[key], ref[key], atol=5e-4, err_msg=key)
     for key in ("center", "size", "heading"):
         np.testing.assert_allclose(port["pi"][key], ref["pi"][key], atol=5e-4, err_msg=f"pi/{key}")
+
+
+def scene_batch(seed, B, num_frames):
+    """A collated batch of synthetic scenes through the port's item path."""
+    rng = np.random.RandomState(seed)
+    items = []
+    for _ in range(B):
+        joints, instances = synth.make_scene(rng, n_objects=int(rng.randint(2, 6)), n_frames=200)
+        items.append(sample_to_item(*synth.as_stored(joints, instances), rng,
+                                    num_frames=num_frames, augment=True))
+    batch = collate(items)
+    batch.pop("sample_idx")
+    return batch
+
+
+def mdn_eps_from_jax(model, variables, x, key, sizes=SMALL):
+    """The noise the JAX model's three MDN ``predict`` heads draw for rng
+    ``key``: record each head's rng key, then repeat its draw."""
+    keys = []
+
+    def record(next_fun, args, kwargs, context):
+        if isinstance(context.module, JaxMDNHead) and context.method_name == "predict":
+            keys.append((context.module.out_dim, args[1]))
+        return next_fun(*args, **kwargs)
+
+    with nn.intercept_methods(record):
+        model.apply(variables, x, train=True, rngs={"mdn": key}, mutable=["batch_stats"])
+    B, P, G = x.shape[0], sizes["num_proposals"], sizes["num_gaussian"]
+    return {
+        name: np.asarray(jax.random.normal(jax.random.split(k)[0], (B, P, G, 1, dim)))
+        for name, (dim, k) in zip(("center", "size", "heading"), keys)
+    }
+
+
+def ordinal(a):
+    """bf16 values (as an f32 array) -> integers in value order: adjacent
+    bf16 values differ by 1, +0 and -0 are both 0."""
+    u = (np.ascontiguousarray(np.asarray(a, np.float32)).view(np.uint32) >> 16).astype(np.int64)
+    return np.where(u & 0x8000, -(u & 0x7FFF), u)
+
+
+def ulps(a, b):
+    """Largest distance in bf16 ulps between two arrays of bf16 values."""
+    return int(np.abs(ordinal(a) - ordinal(b)).max())
+
+
+def f32(a):
+    return to_numpy(a).astype(np.float32) if torch.is_tensor(a) else np.asarray(a, np.float32)
