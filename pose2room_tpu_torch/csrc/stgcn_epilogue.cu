@@ -34,11 +34,18 @@
 // Pallas kernel's bf16 path computes: every tap product from bf16 operands
 // into an f32 accumulator (one mma.sync.m16n8k16 per k-step, no split,
 // tconv_bf16.cuh), then y2 * s2 + b2' [+ x widened to f32], the ReLU, and
-// one round-to-nearest-even cast to bf16.  Same persistent parity grid and
-// row-offset tap reads; its taps are staged transposed, so that a B
-// fragment is one 32-bit load.  Bound: bytes (2 bytes an element: 10.6 MB,
-// 15.9 MB with the residual, per clip: 3.2 / 4.8 us at 3.35 TB/s; the 1.02
-// GFLOP are 1.0 us at the bf16 tensor-core rate).
+// one round-to-nearest-even cast to bf16.  Bound: bytes (2 bytes an
+// element: 10.6 MB, 15.9 MB with the residual, per clip: 3.2 / 4.8 us at
+// 3.35 TB/s; the 1.02 GFLOP are 1.0 us at the bf16 tensor-core rate, so
+// mma.sync stays: the taps read the slab at row offsets).  The design is
+// for the memory side: an item is 128 rows x 128 columns (two joints, both
+// diagonal tap blocks staged once per block), so every row segment moved
+// is 256 bytes; a persistent grid of one 16-warp block an SM double-buffers
+// everything an item reads (both t1 slabs, the residual tile, s2 and b2')
+// in cp.async copies that run while the previous item is computed; the
+// output tile is staged in shared memory (in place of the residual) and
+// leaves in coalesced 16-byte stores.  The sums are the earlier leg's, in
+// the same order, so the bits are too.
 
 #include <cuda_runtime.h>
 
@@ -116,70 +123,130 @@ epilogue_kernel(const float* __restrict__ t1, const float* __restrict__ x,
 
 namespace tb = tconv_bf16;
 
-constexpr size_t kSmemBytesBf16 = (tb::kTapElems + tb::kSlabElems) * sizeof(tb::bf16);
+// bf16 leg: an item is 128 rows of one clip and one 128-column group (two
+// joints, both diagonal tap blocks); each warp computes kWarpRows rows of
+// one joint.  Shared memory, two buffers of each per-item array:
+constexpr int kWarpRows = 16;                            // 16 warps: latency hiding, no spills
+constexpr int kWarpsPerJoint = kRows / kWarpRows;
+constexpr int kThreadsBf16 = 2 * kWarpsPerJoint * 32;
+constexpr int kMTBf16 = kWarpRows / 16;
+constexpr int kTapUnroll = 1;  // the taps' loop rolled: no spills under 128 registers a thread
+constexpr int kTileElems = kRows * kC;  // one joint's 128 x 64 output (or residual) tile
+struct alignas(16) SmemBf16 {
+  tb::bf16 taps[2][tb::kTapElems];           // per joint: KB's diagonal block, transposed
+  tb::bf16 slab[2][2][tb::kSlabElems];       // [buffer][joint]: t1 rows t0 - 1 .. t0 + 128
+  tb::bf16 tile[2][2][kTileElems];           // [buffer][joint]: the residual in, the output out
+  float vec[2][2][kLane];                    // [buffer]: s2, b2' of the item's 128 columns
+};
 
+__device__ __forceinline__ TileAt item_at(int item, int B, int T) {
+  const int n_tiles = (T + kRows - 1) / kRows;
+  const int per_column = B * n_tiles;
+  TileAt a;
+  a.col0 = (item / per_column) * kLane;
+  const int f = item % per_column;
+  a.b = f / n_tiles;
+  a.clip_row0 = static_cast<size_t>(a.b) * T;
+  a.t0 = (f % n_tiles) * kRows;
+  return a;
+}
+
+// Start the copies of one item into buffer buf: both joints' t1 slabs (rows
+// outside the clip zero-filled), the residual tile and the item's s2 / b2'.
 template <bool kResidual>
-__global__ void __launch_bounds__(kThreads, 3)
+__device__ __forceinline__ void stage_item(SmemBf16& sm, int buf, const TileAt& a, const tb::bf16* __restrict__ t1,
+                                           const tb::bf16* __restrict__ x, const float* __restrict__ vecs, int T,
+                                           int Wp) {
+  for (int jn = 0; jn < 2; ++jn)
+    tb::stage_slab<kThreadsBf16>(sm.slab[buf][jn], t1, a.clip_row0, a.t0, T, Wp, a.col0 + jn * kC);
+  if (kResidual) {
+    for (int i = threadIdx.x; i < kRows * 16; i += kThreadsBf16) {
+      const int r = i >> 4;
+      const int q = i & 15;  // 16-byte chunk of the 256-byte row segment: joint q / 8
+      const bool valid = a.t0 + r < T;
+      const tb::bf16* src = valid ? x + (a.clip_row0 + a.t0 + r) * static_cast<size_t>(Wp) + a.col0 + 8 * q : x;
+      tb::cp_async16(sm.tile[buf][q >> 3] + tb::swz64(r, 8 * (q & 7)), src, valid);
+    }
+  }
+  if (threadIdx.x < 64) {  // 32 chunks of s2, 32 of b2'
+    const int row = 2 + (threadIdx.x >> 5);
+    const int q = threadIdx.x & 31;
+    tb::cp_async16(&sm.vec[buf][row - 2][4 * q], vecs + static_cast<size_t>(row) * Wp + a.col0 + 4 * q, true);
+  }
+}
+
+// The taps of both joints, the t1 slabs, the residual and s2 / b2' come in by
+// cp.async, the next item's while this one is computed; the conv is
+// tconv_bf16.cuh's (the same sums in the same order as before); the output
+// tile is staged in shared memory and leaves in 16-byte stores, 256 bytes a
+// row.
+template <bool kResidual>
+__global__ void __launch_bounds__(kThreadsBf16, 1)
 epilogue_kernel_bf16(const tb::bf16* __restrict__ t1, const tb::bf16* __restrict__ x,
                      const float* __restrict__ vecs, const tb::bf16* __restrict__ kb,
                      tb::bf16* __restrict__ out, int B, int T, int Wp) {
   extern __shared__ __align__(16) unsigned char smem_bytes[];
-  tb::bf16* taps = reinterpret_cast<tb::bf16*>(smem_bytes);
-  tb::bf16* slab = taps + tb::kTapElems;
+  SmemBf16& sm = *reinterpret_cast<SmemBf16*>(smem_bytes);
 
-  const int items = (Wp / kC / 2) * B * ((T + kRows - 1) / kRows);
-  const int stride = gridDim.x / 2;
+  const int items = (Wp / kLane) * B * ((T + kRows - 1) / kRows);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int c = lane & 3;
-  const int row0 = warp * 16 * kMT;
+  const int jn = warp / kWarpsPerJoint;  // joint of the item's two
+  const int row0 = (warp % kWarpsPerJoint) * kWarpRows;
 
-  int item = blockIdx.x >> 1;
-  TileAt a = tile_at(item, B, T);
-  tb::stage_taps(taps, kb, (blockIdx.x & 1) * kC);
-  tb::stage_slab(slab, t1, a.clip_row0, a.t0, T, Wp, a.col0);
+  int item = blockIdx.x;
+  if (item >= items) return;
+  for (int j = 0; j < 2; ++j) tb::stage_taps<kThreadsBf16>(sm.taps[j], kb, j * kC);
+  TileAt a = item_at(item, B, T);
+  stage_item<kResidual>(sm, 0, a, t1, x, vecs, T, Wp);
   cp_async_commit();
 
-  for (; item < items; item += stride) {
-    const bool more = item + stride < items;
-    const TileAt next = tile_at(more ? item + stride : item, B, T);
+  for (int buf = 0; item < items; item += gridDim.x, buf ^= 1) {
     cp_async_wait<0>();
-    __syncthreads();
+    __syncthreads();  // this item has landed; the last item's tile is stored and its buffers free
+    const int next = item + gridDim.x;
+    const TileAt na = item_at(next < items ? next : item, B, T);
+    if (next < items) stage_item<kResidual>(sm, buf ^ 1, na, t1, x, vecs, T, Wp);
+    cp_async_commit();
 
-    float acc[kMT][kNT][4];
-    tb::tconv_mma(slab, taps, row0, acc);
-    __syncthreads();  // every warp is done reading the slab
-    if (more) {
-      tb::stage_slab(slab, t1, next.clip_row0, next.t0, T, Wp, next.col0);
-      cp_async_commit();
-    }
-
+    float acc[kMTBf16][kNT][4];
+    tb::tconv_mma<kMTBf16, kTapUnroll>(sm.slab[buf][jn], sm.taps[jn], row0, acc);
+    tb::bf16* tile = sm.tile[buf][jn];
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
-      const int n = a.col0 + nt * 8 + 2 * c;
-      const float2 s2 = __ldg(reinterpret_cast<const float2*>(vecs + 2 * static_cast<size_t>(Wp) + n));
-      const float2 b2 = __ldg(reinterpret_cast<const float2*>(vecs + 3 * static_cast<size_t>(Wp) + n));
+      const int n = nt * 8 + 2 * c;
+      const float2 s2 = *reinterpret_cast<const float2*>(&sm.vec[buf][0][jn * kC + n]);
+      const float2 b2 = *reinterpret_cast<const float2*>(&sm.vec[buf][1][jn * kC + n]);
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
+      for (int mt = 0; mt < kMTBf16; ++mt)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int t = a.t0 + row0 + mt * 16 + g + 8 * half;
-          if (t >= T) continue;
-          const size_t idx = (a.clip_row0 + t) * Wp + n;
+          uint32_t* slot = reinterpret_cast<uint32_t*>(tile + tb::swz64(row0 + mt * 16 + g + 8 * half, n));
           // a product, then a sum, then the residual: the plain version's roundings
           float v0 = __fadd_rn(__fmul_rn(acc[mt][nt][2 * half], s2.x), b2.x);
           float v1 = __fadd_rn(__fmul_rn(acc[mt][nt][2 * half + 1], s2.y), b2.y);
           if (kResidual) {
-            const float2 xv = tb::load2(x + idx);
+            const float2 xv = tb::unpack2(*slot);
             v0 = __fadd_rn(v0, xv.x);
             v1 = __fadd_rn(v1, xv.y);
           }
-          *reinterpret_cast<__nv_bfloat162*>(out + idx) = tb::pack_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+          const __nv_bfloat162 o = tb::pack_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+          *slot = *reinterpret_cast<const uint32_t*>(&o);
         }
     }
-    a = next;
+    __syncthreads();  // the item's output tile is complete
+    for (int i = threadIdx.x; i < kRows * 16; i += kThreadsBf16) {
+      const int r = i >> 4;
+      const int q = i & 15;
+      if (a.t0 + r >= T) continue;
+      const uint4 v = *reinterpret_cast<const uint4*>(sm.tile[buf][q >> 3] + tb::swz64(r, 8 * (q & 7)));
+      *reinterpret_cast<uint4*>(out + (a.clip_row0 + a.t0 + r) * static_cast<size_t>(Wp) + a.col0 + 8 * q) = v;
+    }
+    a = na;
   }
+  cp_async_wait<0>();
 }
 
 template <bool R>
@@ -196,10 +263,11 @@ cudaError_t configure(int sms, int* slots) {
 template <bool R>
 cudaError_t configure_bf16(int sms, int* slots) {
   cudaError_t err = cudaFuncSetAttribute(epilogue_kernel_bf16<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytesBf16));
+                                         static_cast<int>(sizeof(SmemBf16)));
   if (err != cudaSuccess) return err;
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, epilogue_kernel_bf16<R>, kThreads, kSmemBytesBf16);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, epilogue_kernel_bf16<R>, kThreadsBf16,
+                                                      sizeof(SmemBf16));
   *slots = per_sm * sms;
   return err;
 }
@@ -253,12 +321,16 @@ extern "C" int p2r_stgcn_epilogue_bf16(const __nv_bfloat16* t1, const __nv_bfloa
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const int grid = grid_size(B, T, Wp, slots[residual ? 1 : 0]);
+  const int items = (Wp / kLane) * B * ((T + kRows - 1) / kRows);
+  const int per_grid = slots[residual ? 1 : 0];
+  const int grid = items < per_grid ? items : per_grid;
+  if (grid == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t bytes = sizeof(SmemBf16);
   if (residual) {
-    epilogue_kernel_bf16<true><<<grid, kThreads, kSmemBytesBf16, s>>>(t1, x, vecs, kb, out, B, T, Wp);
+    epilogue_kernel_bf16<true><<<grid, kThreadsBf16, bytes, s>>>(t1, x, vecs, kb, out, B, T, Wp);
   } else {
-    epilogue_kernel_bf16<false><<<grid, kThreads, kSmemBytesBf16, s>>>(t1, nullptr, vecs, kb, out, B, T, Wp);
+    epilogue_kernel_bf16<false><<<grid, kThreadsBf16, bytes, s>>>(t1, nullptr, vecs, kb, out, B, T, Wp);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,15 +52,36 @@
 // and columns and vecs are 0.
 //
 // The bf16 leg (p2r_stgcn_sparse_bf16; model.compute_dtype: bfloat16) takes
-// x, the tiles and out in bf16 and vecs in f32: the same units, schedule,
-// split-K and chunk-ordered sum, one mma.sync.m16n8k16 bf16 product per
-// k-step (no split; each in a fresh fragment, tconv_bf16.cuh), 64-deep
-// stages (the same 32 KB a stage), the tile rows read as B fragments by
-// ldmatrix.trans.  The split-K partials stay f32; the unit that finishes
-// its list applies BN1 and the ReLU in f32 and rounds to bf16 once.  Bound:
-// operations at B=1 (7.02 GFLOP: 7.1 us at 989 TFLOP/s; 19.8 MB moved: 5.9
-// us at 3.35 TB/s).
+// x, the tiles and out in bf16 and vecs in f32, and forms its products with
+// wgmma (wgmma_bf16.cuh), the only route to the bf16 tensor-core rate.
+// Bound: operations at B=1 (7.02 GFLOP: 7.1 us at 989 TFLOP/s; 19.8 MB
+// moved: 5.9 us at 3.35 TB/s).  Same units, split-K cut, longest-first
+// order and chunk-ordered f32 sum as the f32 leg (its lists cut for one
+// wave of the card, not three: kSplitWavesBf16), on another schedule:
+// * a persistent grid, one block an SM, walks the longest-first unit list
+//   (unit u, u + grid, ...);
+// * a producer warp keeps a ring of kRing 32 KB stages full with TMA: per
+//   64-deep stage one 128 x 64 box of x (K-major, rows past N read as
+//   zeros) and two 64 x 64 boxes of tile rows (MN-major planes), all in the
+//   128-byte swizzle, completed on the stage's mbarrier; it runs ahead
+//   across units, so a unit's epilogue overlaps the next one's loads;
+// * two consumer warpgroups, 64 rows of the unit each, one
+//   wgmma.m64n128k16 per k16 step from shared memory (B transposed by the
+//   instruction); each releases a stage on its own, so the two drift apart
+//   and one's fold runs while the other's products do (with all threads
+//   copying by cp.async and a block barrier a stage, they ran in step).
+// Accuracy: the tensor cores' adds truncate (tconv_mma.cuh), so every
+// kFold k16 steps go into a fresh accumulator (scale-d 0) that IEEE adds
+// fold into the running f32 sum.  kFold is 4, one fold a stage: its f32
+// accumulator is within 7.3e-8 of sum |a*b| of float64, bias -1.4e-9
+// (scripts/torch_bf16_variants.py on an H100; fold 1: 1.4e-7, -2.6e-10),
+// inside the port's rule for tensor-core kernels (5e-7, 5e-8).  Two fresh
+// accumulators in turn, one folded while the other computes, made ptxas
+// serialize every wgmma (C7514) and ran slower.  The split-K partials stay
+// f32; the unit that finishes its list applies BN1 and the ReLU in f32 and
+// rounds to bf16 once.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -68,6 +89,7 @@
 
 #include "tconv_bf16.cuh"
 #include "tconv_mma.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -89,15 +111,19 @@ constexpr int kUnitFloats = kBM * kLane;    // one unit's partial
 constexpr int kMaxCols = 64;                // output column tiles the schedule holds
 constexpr int kMinChunk = 4;                // shortest chunk a list is cut into
 constexpr int kMaxChunks = kMaxCols + kMaxCols * kMaxCols / kMinChunk;
-constexpr int kSplitWaves = 3;              // the chunks fill the card about this many times
+constexpr int kSplitWaves = 3;              // the chunks fill the card about this many times (f32 leg)
+// The bf16 leg's persistent grid balances its units itself; cut for more
+// waves, the lists only add partials' traffic (at B=1: 0.0380 ms with one
+// wave, 0.0474 with three, 0.0392 uncut; scripts/torch_bf16_variants.py).
+constexpr int kSplitWavesBf16 = 1;
 constexpr size_t kSmemBytes = kStages * kStageBytes;
 
 static_assert(4 * 16 * kMT == kBM && 2 * 8 * kNT == kLane, "the warps cover the unit");
 
-// One stage's shared-memory layout for an element type: a stage is kBK
-// deep, so that an x slab row holds 128 bytes (8 chunks of 16 bytes) and the
-// tile rows kBK x 128 elements the same 16 KB.  XOR swizzles keep every
-// fragment load on 32 banks and every 16-byte copy aligned.
+// One stage's shared-memory layout of the f32 leg: a stage is kBK deep, so
+// that an x slab row holds 128 bytes (8 chunks of 16 bytes) and the tile
+// rows kBK x 128 elements the same 16 KB.  XOR swizzles keep every fragment
+// load on 32 banks and every 16-byte copy aligned.
 template <typename E>
 struct Stage;
 
@@ -106,13 +132,6 @@ struct Stage<float> {
   static constexpr int kBK = 32;
   __device__ static int a_index(int r, int k) { return r * kBK + (k ^ ((r & 7) << 2)); }
   __device__ static int b_index(int k, int n) { return k * kLane + (n ^ ((k & 3) << 3)); }
-};
-
-template <>
-struct Stage<bf16> {
-  static constexpr int kBK = 64;
-  __device__ static int a_index(int r, int k) { return tconv_bf16::swz64(r, k); }
-  __device__ static int b_index(int k, int n) { return k * kLane + ((((n >> 3) ^ (k & 7))) << 3) + (n & 7); }
 };
 
 __device__ __forceinline__ float bn_relu(float acc, float s, float b) {
@@ -145,6 +164,38 @@ __device__ __forceinline__ Chunk chunk_at(const Schedule& sc, int c) {
   k.j0 = lo + k.q * L / k.nq;
   k.j1 = lo + (k.q + 1) * L / k.nq;
   return k;
+}
+
+// The chunks of every list (sc.off, sc.cbase; every thread of the block
+// calls it); returns their count.
+__device__ __forceinline__ int schedule_chunks(Schedule& sc, const int* __restrict__ col_off, int G, int cap) {
+  for (int i = threadIdx.x; i <= G; i += blockDim.x) sc.off[i] = col_off[i];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int n = 0;
+    for (int w = 0; w < G; ++w) {
+      sc.cbase[w] = n;
+      n += max(1, (sc.off[w + 1] - sc.off[w] + cap - 1) / cap);
+    }
+    sc.cbase[G] = n;
+  }
+  __syncthreads();
+  return sc.cbase[G];
+}
+
+// sc.order: the chunks longest first, ties in chunk order.
+__device__ __forceinline__ void schedule_order(Schedule& sc, int n_chunks) {
+  for (int c = threadIdx.x; c < n_chunks; c += blockDim.x) {
+    const Chunk k = chunk_at(sc, c);
+    sc.len[c] = k.j1 - k.j0;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < n_chunks; c += blockDim.x) {
+    int r = 0;
+    for (int o = 0; o < n_chunks; ++o) r += sc.len[o] > sc.len[c] || (sc.len[o] == sc.len[c] && o < c);
+    sc.order[r] = c;
+  }
+  __syncthreads();
 }
 
 // The k-steps of one landed stage, f32: 3xTF32 m16n8k8 (tconv_mma.cuh).
@@ -183,48 +234,8 @@ __device__ __forceinline__ void stage_mma(const float* As, const float* Bs, int 
   }
 }
 
-// The k-steps of one landed stage, bf16: one m16n8k16 product per k-step;
-// A by 32-bit loads, B (tile rows over k) by ldmatrix.trans, two n-tiles a
-// load.
-__device__ __forceinline__ void stage_mma(const bf16* As, const bf16* Bs, int wrow, int wcol,
-                                          float (&acc)[kMT][kNT][4]) {
-  using L = Stage<bf16>;
-  using tconv_bf16::ld32;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int c = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < L::kBK; kk += 16) {
-    uint32_t a[kMT][4];
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      const int r = wrow + mt * 16 + g;
-      a[mt][0] = ld32(As + L::a_index(r, kk + 2 * c));
-      a[mt][1] = ld32(As + L::a_index(r + 8, kk + 2 * c));
-      a[mt][2] = ld32(As + L::a_index(r, kk + 8 + 2 * c));
-      a[mt][3] = ld32(As + L::a_index(r + 8, kk + 8 + 2 * c));
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNT; nt += 2) {
-      // lane's row: k = kk + lane % 8 (+8 for matrices 1 and 3), n-tile nt (+1 for matrices 2 and 3)
-      uint32_t b[4];
-      tconv_bf16::ldmatrix_x4_trans(
-          b, Bs + L::b_index(kk + (lane & 7) + ((lane >> 3) & 1) * 8, wcol + (nt + (lane >> 4)) * 8));
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        tconv_bf16::mma_fold(acc[mt][nt], a[mt], b[0], b[1]);
-        tconv_bf16::mma_fold(acc[mt][nt + 1], a[mt], b[2], b[3]);
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = tconv_bf16::pack_rn(a, b);
 }
 
 template <typename E>
@@ -242,31 +253,10 @@ sparse_kernel(const E* __restrict__ x, const E* __restrict__ tiles,
   const int n_rb = (N + kBM - 1) / kBM;
   const int tid = threadIdx.x;
 
-  for (int i = tid; i <= G; i += kThreads) sc.off[i] = col_off[i];
-  __syncthreads();
-  if (tid == 0) {
-    int n = 0;
-    for (int w = 0; w < G; ++w) {
-      sc.cbase[w] = n;
-      n += max(1, (sc.off[w + 1] - sc.off[w] + cap - 1) / cap);
-    }
-    sc.cbase[G] = n;
-  }
-  __syncthreads();
-  const int n_chunks = sc.cbase[G];
+  const int n_chunks = schedule_chunks(sc, col_off, G, cap);
   const int rank = blockIdx.x / n_rb;
   if (rank >= n_chunks) return;  // the grid counts the most chunks the lists could give
-  for (int c = tid; c < n_chunks; c += kThreads) {
-    const Chunk k = chunk_at(sc, c);
-    sc.len[c] = k.j1 - k.j0;
-  }
-  __syncthreads();
-  for (int c = tid; c < n_chunks; c += kThreads) {  // longest first, ties in chunk order
-    int r = 0;
-    for (int o = 0; o < n_chunks; ++o) r += sc.len[o] > sc.len[c] || (sc.len[o] == sc.len[c] && o < c);
-    sc.order[r] = c;
-  }
-  __syncthreads();
+  schedule_order(sc, n_chunks);
   const Chunk k = chunk_at(sc, sc.order[rank]);
   const int row0 = (blockIdx.x % n_rb) * kBM;
   const int steps = (k.j1 - k.j0) * kStagesPerTile;
@@ -369,14 +359,168 @@ sparse_kernel(const E* __restrict__ x, const E* __restrict__ tiles,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 leg: wgmma fed by TMA, persistent
+// ---------------------------------------------------------------------------
+
+namespace wg = wgmma_bf16;
+
+constexpr int kRing = 6;                          // stages of the ring
+constexpr int kFold = 4;                          // k16 steps summed in one fresh accumulator
+constexpr int kConsumers = 256;                   // two warpgroups, 64 rows of the unit each
+constexpr int kThreadsBf16 = kConsumers + 32;     // + the producer warp
+constexpr int kPlaneBytes = 64 * 128;             // one 64-column plane of a stage's 64 tile rows
+constexpr int kRingStageBytes = 2 * kBM * 128;    // 32 KB: x slab (128 rows x 64) | tile rows (2 planes)
+constexpr size_t kSmemBytesBf16 = kRing * kRingStageBytes + 1024;  // + slack to align the ring to 1 KB
+
+static_assert(kFold == 1 || kFold == 2 || kFold == 4, "a stage holds 4 k16 steps");
+
+__device__ __forceinline__ void fold(float (&acc)[64], float (&part)[64]) {
+  wg::fence_operand(part);  // read the product only after the wait
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+}
+
+// The 4 k16 steps of one landed stage, kFold to a fresh accumulator, each
+// folded into acc once it is done.  a, b: the stage's A rows of this
+// warpgroup and its tile-row planes.
+__device__ __forceinline__ void stage_wgmma(uint32_t a, uint32_t b, float (&acc)[64], float (&part)[64]) {
+#pragma unroll
+  for (int s0 = 0; s0 < 4; s0 += kFold) {
+    wg::fence();  // part was read by the last fold
+#pragma unroll
+    for (int f = 0; f < kFold; ++f)
+      wg::mma_m64n128k16(part, wg::desc_a(a + 32 * (s0 + f)), wg::desc_b(b + 2048 * (s0 + f), kPlaneBytes), f);
+    wg::commit();
+    wg::wait<0>();
+    fold(acc, part);
+  }
+}
+
+__global__ void __launch_bounds__(kThreadsBf16, 1)
+sparse_kernel_bf16(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap tile_map,
+                   const float* __restrict__ vecs, const int* __restrict__ col_off, const int* __restrict__ vlist,
+                   bf16* __restrict__ out, float* __restrict__ partials, int* __restrict__ counters, int N, int Wp,
+                   int cap) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];  // kRing x [x slab | tile row planes]
+  __shared__ Schedule sc;
+  __shared__ uint64_t full[kRing], empty[kRing];
+  const int G = Wp / kLane;
+  const int n_rb = (N + kBM - 1) / kBM;
+  const int tid = threadIdx.x;
+
+  const int n_chunks = schedule_chunks(sc, col_off, G, cap);
+  const int n_units = n_chunks * n_rb;
+  if (blockIdx.x >= n_units) return;
+  schedule_order(sc, n_chunks);
+  if (tid == 0) {
+    for (int s = 0; s < kRing; ++s) {
+      wg::bar_init(&full[s], 1);                // the producer's arrive, with the stage's bytes
+      wg::bar_init(&empty[s], kConsumers / 32); // every consumer warp, done reading
+    }
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+
+  // the ring starts on a 1024-byte boundary (the swizzle atoms of TMA and wgmma)
+  const uint32_t raw = wg::smem_addr(smem_raw);
+  unsigned char* ring = smem_raw + (((raw + 1023u) & ~1023u) - raw);
+
+  if (tid >= kConsumers) {  // the producer warp: one thread keeps the ring full
+    if (tid != kConsumers) return;
+    int g = 0;  // stages issued
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+      const Chunk k = chunk_at(sc, sc.order[u / n_rb]);
+      const int row0 = (u % n_rb) * kBM;
+      for (int step = 0; step < (k.j1 - k.j0) * 2; ++step, ++g) {
+        const int slot = g % kRing;
+        if (g >= kRing) wg::bar_wait(&empty[slot], ((g / kRing) & 1) ^ 1);
+        unsigned char* st = ring + slot * kRingStageBytes;
+        const int j = k.j0 + step / 2;
+        const int k0 = (step % 2) * 64;
+        wg::bar_arrive_tx(&full[slot], kRingStageBytes);
+        wg::tma_load_2d(st, &x_map, &full[slot], __ldg(vlist + j) * kLane + k0, row0);  // rows past N: zeros
+        wg::tma_load_2d(st + kBM * 128, &tile_map, &full[slot], 0, j * kLane + k0);
+        wg::tma_load_2d(st + kBM * 128 + kPlaneBytes, &tile_map, &full[slot], 64, j * kLane + k0);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int wgi = warp >> 2;                     // warpgroup: rows 64 * wgi .. + 64 of the unit
+  const int wrow = 64 * wgi + 16 * (warp & 3);   // this thread's rows: wrow + g, wrow + g + 8
+  const uint32_t ring_addr = wg::smem_addr(ring);
+  float acc[64];
+  float part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) part[i] = 0.f;
+
+  int gs = 0;  // stages consumed
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    const int rb = u % n_rb;
+    const int chunk = sc.order[u / n_rb];
+    const Chunk k = chunk_at(sc, chunk);
+    const int row0 = rb * kBM;
+    const int steps = (k.j1 - k.j0) * 2;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int step = 0; step < steps; ++step, ++gs) {
+      const int slot = gs % kRing;
+      wg::bar_wait(&full[slot], (gs / kRing) & 1);
+      const uint32_t st = ring_addr + slot * kRingStageBytes;
+      stage_wgmma(st + wgi * 64 * 128, st + kBM * 128, acc, part);
+      if (lane == 0) wg::bar_arrive(&empty[slot]);
+    }
+
+    if (k.nq > 1) {  // a cut list: leave the partial; the last chunk to finish sums them in order
+      float* mine = partials + (static_cast<size_t>(chunk) * n_rb + rb) * kUnitFloats;
+#pragma unroll
+      for (int e = 0; e < 64; ++e) __stcg(mine + e * kConsumers + tid, acc[e]);
+      __threadfence();
+      wg::named_sync(1, kConsumers);
+      if (tid == 0) sc.last = atomicAdd(counters + k.w * n_rb + rb, 1) == k.nq - 1;
+      wg::named_sync(1, kConsumers);
+      if (!sc.last) continue;
+      __threadfence();
+      for (int q = 0; q < k.nq; ++q) {
+        const float* pp = partials + (static_cast<size_t>(sc.cbase[k.w] + q) * n_rb + rb) * kUnitFloats;
+#pragma unroll
+        for (int e = 0; e < 64; ++e) {
+          const float v = __ldcg(pp + e * kConsumers + tid);
+          acc[e] = q == 0 ? v : acc[e] + v;
+        }
+      }
+    }
+
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = k.w * kLane + 8 * j + 2 * c;
+      const float2 s = __ldg(reinterpret_cast<const float2*>(vecs + col));
+      const float2 b = __ldg(reinterpret_cast<const float2*>(vecs + Wp + col));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + wrow + g + 8 * h;
+        if (row >= N) continue;
+        *reinterpret_cast<__nv_bfloat162*>(out + static_cast<size_t>(row) * Wp + col) =
+            tconv_bf16::pack_rn(bn_relu(acc[4 * j + 2 * h], s.x, b.x), bn_relu(acc[4 * j + 2 * h + 1], s.y, b.y));
+      }
+    }
+  }
+}
+
 struct Plan {
   int cap;            // longest chunk, in tiles
   int grid;           // blocks: row blocks x the most chunks the lists could give
   size_t scratch;     // floats of partials (0: no list is cut)
   int counters;       // ints of counters, zeroed by the caller
+  int slots;          // resident blocks on the card: the bf16 leg's persistent grid at most
 };
 
-int make_plan(int N, int Wp, int nnz, Plan* plan) {
+int make_plan(int N, int Wp, int nnz, int waves, Plan* plan) {
   static int slots = 0;  // resident blocks on the card, the fewer of the two legs'
   if (slots == 0) {
     int dev = 0, sms = 0, per_f32 = 0, per_bf16 = 0;
@@ -386,12 +530,13 @@ int make_plan(int N, int Wp, int nnz, Plan* plan) {
       err = cudaFuncSetAttribute(sparse_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(kSmemBytes));
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(sparse_kernel<bf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(kSmemBytes));
+      err = cudaFuncSetAttribute(sparse_kernel_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kSmemBytesBf16));
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_f32, sparse_kernel<float>, kThreads, kSmemBytes);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_bf16, sparse_kernel<bf16>, kThreads, kSmemBytes);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_bf16, sparse_kernel_bf16, kThreadsBf16,
+                                                          kSmemBytesBf16);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int per_sm = per_f32 < per_bf16 ? per_f32 : per_bf16;
     if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -401,7 +546,7 @@ int make_plan(int N, int Wp, int nnz, Plan* plan) {
   if (G > kMaxCols || nnz > G * G) return static_cast<int>(cudaErrorInvalidValue);
   const int n_rb = (N + kBM - 1) / kBM;
   const long long work = static_cast<long long>(nnz) * n_rb;
-  const long long per_unit = (work + static_cast<long long>(kSplitWaves) * slots - 1) / (kSplitWaves * slots);
+  const long long per_unit = (work + static_cast<long long>(waves) * slots - 1) / (static_cast<long long>(waves) * slots);
   plan->cap = static_cast<int>(per_unit < kMinChunk ? kMinChunk : per_unit > G ? G : per_unit);
   // a list has at most G tiles: with cap >= G none is cut and there are G chunks
   const bool cut = plan->cap < G;
@@ -409,22 +554,65 @@ int make_plan(int N, int Wp, int nnz, Plan* plan) {
   plan->grid = max_chunks * n_rb;
   plan->scratch = cut ? static_cast<size_t>(max_chunks) * n_rb * kUnitFloats : 0;
   plan->counters = cut ? G * n_rb : 0;
+  plan->slots = slots;
   return 0;
 }
 
 }  // namespace
 
-// The scratch the launch needs for these shapes: sizes[0] floats of
-// partials and sizes[1] int32 counters that must be zero (0 and 0 when no
-// list is cut).  Returns a cudaError_t (0 on success).
+// The scratch a launch of either leg needs for these shapes: sizes[0]
+// floats of partials and sizes[1] int32 counters that must be zero (0 and
+// 0 when no list is cut).  Returns a cudaError_t (0 on success).
 extern "C" int p2r_stgcn_sparse_scratch(int N, int Wp, int nnz, long long* sizes) {
-  Plan plan;
-  const int err = make_plan(N, Wp, nnz, &plan);
+  Plan f32, bf16;
+  int err = make_plan(N, Wp, nnz, kSplitWaves, &f32);
+  if (err == 0) err = make_plan(N, Wp, nnz, kSplitWavesBf16, &bf16);
   if (err != 0) return err;
-  sizes[0] = static_cast<long long>(plan.scratch);
-  sizes[1] = plan.counters;
+  sizes[0] = static_cast<long long>(f32.scratch > bf16.scratch ? f32.scratch : bf16.scratch);
+  sizes[1] = f32.counters > bf16.counters ? f32.counters : bf16.counters;
   return 0;
 }
+
+namespace {
+
+// cuTensorMapEncodeTiled, found through the runtime (no link to the driver library)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// A TMA map of a row-major bf16 matrix (rows x cols, 16-byte aligned, rows
+// cols * 2 bytes apart): boxes of box_rows x 64 elements, written to shared
+// memory in the 128-byte swizzle; a box past the last row reads zeros.
+int bf16_map(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows, uint32_t box_rows) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
+                            unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The plan of a launch, checked against the scratch it was given.
+int plan_launch(int N, int Wp, int nnz, int waves, const float* partials, const int* counters, Plan* plan) {
+  const int err = make_plan(N, Wp, nnz, waves, plan);
+  if (err != 0) return err;
+  if (plan->scratch > 0 && (partials == nullptr || counters == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
+}
+
+}  // namespace
 
 // x, out: (N, Wp) contiguous f32, 16-byte aligned; tiles: (nnz, 128, 128)
 // f32; vecs: (8, Wp) f32; col_off: (Wp/128 + 1,) int32; vlist: (nnz,) int32
@@ -432,37 +620,38 @@ extern "C" int p2r_stgcn_sparse_scratch(int N, int Wp, int nnz, long long* sizes
 // p2r_stgcn_sparse_scratch (null when it is 0), counters zeroed.
 // Wp % 128 == 0, Wp / 128 <= 64.  Returns the cudaError_t of the launch (0
 // on success).
-namespace {
-
-template <typename E>
-int launch(const E* x, const E* tiles, const float* vecs, const int* col_off, const int* vlist, E* out,
-           float* partials, int* counters, int N, int Wp, int nnz, void* stream) {
-  if (N == 0) return 0;
-  Plan plan;
-  const int err = make_plan(N, Wp, nnz, &plan);
-  if (err != 0) return err;
-  if (plan.scratch > 0 && (partials == nullptr || counters == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  sparse_kernel<E><<<plan.grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      x, tiles, vecs, col_off, vlist, out, partials, counters, N, Wp, plan.cap);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
 extern "C" int p2r_stgcn_sparse_f32(const float* x, const float* tiles, const float* vecs,
                                     const int* col_off, const int* vlist, float* out,
                                     float* partials, int* counters, int N, int Wp, int nnz,
                                     void* stream) {
-  return launch(x, tiles, vecs, col_off, vlist, out, partials, counters, N, Wp, nnz, stream);
+  if (N == 0) return 0;
+  Plan plan;
+  const int err = plan_launch(N, Wp, nnz, kSplitWaves, partials, counters, &plan);
+  if (err != 0) return err;
+  sparse_kernel<float><<<plan.grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      x, tiles, vecs, col_off, vlist, out, partials, counters, N, Wp, plan.cap);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The bf16 leg: x, out (N, Wp) and tiles (nnz, 128, 128) contiguous bf16,
 // 16-byte aligned; everything else as p2r_stgcn_sparse_f32, the partials
-// f32 (the same scratch).
+// f32 (the same scratch).  A persistent grid of at most one block an SM.
 extern "C" int p2r_stgcn_sparse_bf16(const __nv_bfloat16* x, const __nv_bfloat16* tiles, const float* vecs,
                                      const int* col_off, const int* vlist, __nv_bfloat16* out,
                                      float* partials, int* counters, int N, int Wp, int nnz,
                                      void* stream) {
-  return launch(x, tiles, vecs, col_off, vlist, out, partials, counters, N, Wp, nnz, stream);
+  if (N == 0) return 0;
+  Plan plan;
+  const int err = plan_launch(N, Wp, nnz, kSplitWavesBf16, partials, counters, &plan);
+  if (err != 0) return err;
+  // TMA boxes: 128 rows x 64 columns of x (rows past N read as zeros), 64
+  // rows x 64 columns of the tiles seen as (nnz * 128, 128)
+  CUtensorMap x_map, tile_map;
+  int e = bf16_map(&x_map, x, Wp, N, kBM);
+  if (e == 0) e = bf16_map(&tile_map, nnz > 0 ? tiles : x, kLane, static_cast<uint64_t>(nnz > 0 ? nnz : 1) * kLane, 64);
+  if (e != 0) return e;
+  const int grid = plan.grid < plan.slots ? plan.grid : plan.slots;
+  sparse_kernel_bf16<<<grid, kThreadsBf16, kSmemBytesBf16, static_cast<cudaStream_t>(stream)>>>(
+      x_map, tile_map, vecs, col_off, vlist, out, partials, counters, N, Wp, plan.cap);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,8 @@
-// bf16 legs of kernels 1 (stgcn_epilogue.cu), 3 (stgcn_train_fwd.cu), 4
-// (stgcn_train_bwd.cu) and 5 (stgcn_sparse.cu): the tensor-core arithmetic
-// and the shared-memory layouts for bf16 operands.
+// bf16 legs of kernels 1 (stgcn_epilogue.cu), 3 (stgcn_train_fwd.cu) and 4
+// (stgcn_train_bwd.cu): the tensor-core arithmetic and the shared-memory
+// layouts for bf16 operands.  Kernel 5 (stgcn_sparse.cu) takes its copies
+// and packing; its bf16 leg multiplies on wgmma (wgmma_bf16.cuh) from
+// swz64's layout.
 //
 // Arithmetic: one mma.sync.m16n8k16 bf16 product per k-step (bf16 x bf16 is
 // exact in f32; no split, unlike the f32 legs' 3xTF32).  The tensor cores
@@ -122,26 +124,30 @@ __device__ __forceinline__ void stage_slab(bf16* slab, const bf16* __restrict__ 
 
 // acc[mt][nt] = the warp's 16x8 output tile (rows row0 + mt*16.., columns
 // nt*8..) of the conv, summed over the three taps and 64 input channels:
-// 12 k-steps of 16, one m16n8k16 product each.
+// 12 k-steps of 16, one m16n8k16 product each.  MT: the warp's 16-row
+// m-tiles; TapUnroll: how far the loop over the three taps is unrolled
+// (fully by default; 1 holds the registers of a wide block under its cap).
+// The sums of an element are the same for any MT and TapUnroll.
+template <int MT = kMT, int TapUnroll = 3>
 __device__ __forceinline__ void tconv_mma(const bf16* slab, const bf16* taps, int row0,
-                                          float (&acc)[kMT][kNT][4]) {
+                                          float (&acc)[MT][kNT][4]) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int c = lane & 3;
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
 
-#pragma unroll
+#pragma unroll TapUnroll
   for (int s = 0; s < 3; ++s) {
 #pragma unroll
     for (int k0 = 0; k0 < kC; k0 += 16) {
-      uint32_t a[kMT][4];
+      uint32_t a[MT][4];
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
+      for (int mt = 0; mt < MT; ++mt) {
         const int r = row0 + mt * 16 + g + s;
         a[mt][0] = ld32(slab + slab_index(r, k0 + 2 * c));
         a[mt][1] = ld32(slab + slab_index(r + 8, k0 + 2 * c));
@@ -154,7 +160,7 @@ __device__ __forceinline__ void tconv_mma(const bf16* slab, const bf16* taps, in
         const uint32_t b0 = ld32(taps + tap_index(s, n, k0 + 2 * c));
         const uint32_t b1 = ld32(taps + tap_index(s, n, k0 + 8 + 2 * c));
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) mma_fold(acc[mt][nt], a[mt], b0, b1);
+        for (int mt = 0; mt < MT; ++mt) mma_fold(acc[mt][nt], a[mt], b0, b1);
       }
     }
   }

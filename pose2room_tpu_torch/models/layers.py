@@ -33,10 +33,20 @@ from pose2room_tpu_torch.ops.stgcn_train import BN_EPS, FusedTrainLayer
 
 def lecun_normal_(tensor, fan_in, generator):
     """flax's lecun_normal: truncated normal on [-2, 2] std units, rescaled
-    so the variance is 1/fan_in."""
+    so the variance is 1/fan_in.
+
+    Drawn by the inverse CDF, as ``jax.random.truncated_normal`` draws it:
+    one uniform per element from ``generator``, mapped through erfinv.  Not
+    ``nn.init.trunc_normal_``, whose sampling changed between torch releases
+    (2.11 draws by the inverse CDF, 2.13 by rejection from normals), so the
+    same seed gave other weights on another torch."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    lo, hi = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0, (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
     with torch.no_grad():
-        return nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+        tensor.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0, generator=generator)
+        tensor.erfinv_()
+        tensor.mul_(std * math.sqrt(2.0))
+        return tensor.clamp_(min=-2.0 * std, max=2.0 * std)
 
 
 def dense(x, kernel, bias=None, dtype=None):

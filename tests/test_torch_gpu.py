@@ -429,6 +429,71 @@ def test_sparse_bf16_output_tile_without_entries(cuda_device):
     assert torch.equal(empty, want.expand_as(empty))
 
 
+@pytest.mark.parametrize("B", [1, 8, 32])
+@pytest.mark.parametrize("T", [768, 130, 50])
+def test_sparse_bf16_kernel_batches_and_ragged_rows(cuda_device, B, T):
+    """The wgmma leg of kernel 5 with (B = 1) and without the split-K cut, on
+    row counts that 128 does not divide (T = 130, 50): within 1 bf16 ulp of
+    the plain version, the pad slot 0, two launches the same bits."""
+    x, tiles, vecs, col_off, vlist, pad = _sparse_operands(B, T, SPARSE_JOINT_ORDER, cuda_device, seed=B + T)
+    xb, tb = x.to(torch.bfloat16), tiles.to(torch.bfloat16)
+    got = stgcn_sparse.sparse_graph_matmul_bn_relu(xb, tb, vecs, col_off, vlist)
+    again = stgcn_sparse.sparse_graph_matmul_bn_relu(xb, tb, vecs, col_off, vlist)
+    ref = stgcn_sparse.sparse_graph_matmul_bn_relu_ref(xb, tb, vecs, col_off, vlist)
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, ref)
+    assert torch.all(got[..., pad * 64:(pad + 1) * 64] == 0)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("B", [1, 8, 32])
+@pytest.mark.parametrize("T", [768, 200, 50, 17])
+@pytest.mark.parametrize("residual", [True, False])
+def test_epilogue_bf16_kernel_batches_and_ragged_rows(cuda_device, B, T, residual):
+    """Kernel 1's bf16 leg (128-column items, double-buffered copies, the
+    output staged in shared memory): T = 200, 50 and 17 end inside a
+    128-row tile; within 1 bf16 ulp of the plain version, pad columns 0,
+    two launches the same bits."""
+    x, M, vecs, KB = _operands(B, T, 3392, cuda_device, seed=B * T)
+    xb, KBb = x.to(torch.bfloat16), KB.to(torch.bfloat16)
+    t1 = stgcn_fused.graph_matmul_bn_relu(xb, M.to(torch.bfloat16), vecs[0], vecs[1])
+    xr = xb if residual else None
+    got = stgcn_fused.fused_epilogue(t1, xr, vecs, KBb, residual=residual)
+    again = stgcn_fused.fused_epilogue(t1, xr, vecs, KBb, residual=residual)
+    ref = stgcn_fused.epilogue_merged_ref(t1, xr, vecs, KBb, residual=residual)
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, ref)
+    assert torch.all(got[..., 3392:] == 0)
+    assert torch.equal(got, again)
+
+
+def test_bf16_wrappers_reject_misaligned_or_strided(cuda_device):
+    """A view that does not start on a 16-byte boundary, or is not
+    contiguous, is refused before any launch (the kernels copy 16 bytes at a
+    time)."""
+    x, M, vecs, KB = _operands(2, 16, 192, cuda_device)
+    xb, KBb = x.to(torch.bfloat16), KB.to(torch.bfloat16)
+    t1 = stgcn_fused.graph_matmul_bn_relu(xb, M.to(torch.bfloat16), vecs[0], vecs[1])
+    flat = torch.empty(t1.numel() + 8, dtype=torch.bfloat16, device=cuda_device)
+    shifted = flat[1:1 + t1.numel()].view(t1.shape)
+    shifted.copy_(t1)
+    wide = torch.zeros(2, 16, 2 * t1.shape[-1], dtype=torch.bfloat16, device=cuda_device)[..., :t1.shape[-1]]
+    before = dict(kernels.LAUNCHES)
+    for bad in (shifted, wide):
+        with pytest.raises(ValueError):
+            stgcn_fused.fused_epilogue(bad, xb, vecs, KBb, residual=True)
+        with pytest.raises(ValueError):
+            stgcn_fused.fused_epilogue(t1, bad, vecs, KBb, residual=True)
+    sx, tiles, svecs, col_off, vlist, _ = _sparse_operands(1, 16, SPARSE_JOINT_ORDER, cuda_device)
+    sxb = sx.to(torch.bfloat16)
+    flat = torch.empty(sxb.numel() + 8, dtype=torch.bfloat16, device=cuda_device)
+    shifted = flat[1:1 + sxb.numel()].view(sxb.shape)
+    for bad in (shifted, torch.cat([sxb, sxb], -1)[..., ::2]):
+        with pytest.raises(ValueError):
+            stgcn_sparse.sparse_graph_matmul_bn_relu(bad, tiles.to(torch.bfloat16), svecs, col_off, vlist)
+    assert dict(kernels.LAUNCHES) == before
+
+
 def test_bf16_wrappers_reject_mixed_dtypes(cuda_device):
     x, M, vecs, KB = _operands(2, 16, 192, cuda_device)
     xb = x.to(torch.bfloat16)

@@ -166,7 +166,8 @@ def test_cpu_wrappers_never_count_launches(rng):
 def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
     """Editing csrc/tconv_mma.cuh rebuilds exactly the kernels that include
     it, directly or through csrc/tconv_bf16.cuh; editing tconv_bf16.cuh
-    exactly the four with a bf16 leg."""
+    exactly the four with a bf16 leg; editing wgmma_bf16.cuh only kernel 5,
+    whose bf16 leg runs on wgmma."""
     src = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, src)
     monkeypatch.setattr(kernels, "CSRC", str(src))
@@ -174,10 +175,11 @@ def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
     assert kernels._source_files("stgcn_epilogue") == ["stgcn_epilogue.cu", *both]
     assert kernels._source_files("stgcn_train_fwd") == ["stgcn_train_fwd.cu", *both]
     assert kernels._source_files("stgcn_train_bwd") == ["stgcn_train_bwd.cu", *both]
-    assert kernels._source_files("stgcn_sparse") == ["stgcn_sparse.cu", *both]
+    assert kernels._source_files("stgcn_sparse") == ["stgcn_sparse.cu", *both, "wgmma_bf16.cuh"]
     assert kernels._source_files("fps") == ["fps.cu"]
     tensor_core = {"stgcn_epilogue", "stgcn_train_fwd", "stgcn_train_bwd", "stgcn_sparse"}
-    for edited, rebuilt in (("tconv_mma.cuh", tensor_core), ("tconv_bf16.cuh", tensor_core)):
+    for edited, rebuilt in (("tconv_mma.cuh", tensor_core), ("tconv_bf16.cuh", tensor_core),
+                            ("wgmma_bf16.cuh", {"stgcn_sparse"})):
         before = {name: kernels._lib_path(name) for name in kernels.SOURCES}
         header = src / edited
         header.write_text(header.read_text() + "\n// edited\n")
