@@ -56,19 +56,33 @@
 // y * s1 + sh1 in f32 from the bf16 y (a product then a sum); dpre rounded
 // to nearest even into bf16, its column moments from the UNROUNDED f32
 // dpre; the tap gradient from bf16 t1 = round(relu(pre)) and bf16 dy2 into
-// f32.  Each 16-deep k-step is one mma.sync.m16n8k16 into a fresh fragment
-// folded in by an IEEE add (tconv_bf16.cuh): the tap gradient sums hundreds
-// of k-steps a block into one accumulator, where the tensor cores'
-// truncating adds would bias it most.  Same grid, roles and fixed-order
-// reductions as the f32 leg.  The tap gradient contracts over rows, so both
-// its operands sit k-major in the slabs (rows over k) and come in by
-// ldmatrix.trans: A = the t1 slab from row offset s (8 rows x 16 bytes a
-// matrix, conflict-free on the 16-byte XOR swizzle), B = the dy2 slab.  It
-// steps 16 rows at a time, up to the clip's last row rounded up to 16 (the
-// zero-filled rows past the clip add nothing).  Shared memory: taps 24 KB,
-// five slabs of 16.25 KB, 2 KB of moment partials: 107.25 KB.  Bound: bytes
-// (dy2, y and dpre are 127 MB at B=8, 0.038 ms at 3.35 TB/s; the 16.3
-// GFLOP are 0.016 ms at the bf16 tensor-core rate).
+// f32.  Every product is one mma.sync.m16n8k16 into a fresh fragment folded
+// in by an IEEE add (tconv_bf16.cuh): the tap gradient sums hundreds of
+// k-steps a block into one accumulator, where the tensor cores' truncating
+// adds would bias it most.  Bound: bytes (dy2, y and dpre are 127 MB at
+// B=8, 0.038 ms at 3.35 TB/s; the 16.3 GFLOP are 0.016 ms at the bf16
+// tensor-core rate).  What held an earlier design (8 warps an SM in two
+// roles, 4 on dt1 and 4 on the tap gradient at 255 registers) at a fifth
+// of that: the per-tile phases in series and the dt1 role on one warp a
+// scheduler.  So (scripts/torch_bf16_train_variants.py measures each
+// choice): items of 128 rows x 64 columns (one joint), blocks of 8 warps,
+// two an SM, each walking the joints of one parity with its transposed
+// diagonal tap block staged once, k-major, by cp.async; the dy2 and y
+// slabs and s1 / sh1 double-buffered by cp.async; t1 built by all threads
+// into its own slab; every warp then computes its dt1 tile (32 rows x 32
+// columns, in two passes of 16 columns, on tconv_mma_kmajor: the earlier
+// leg's sums in the same order, so dpre and the moments keep their bits),
+// its epilogue (dpre stored from the registers: the two blocks' shared
+// memory leaves no room to stage it), and then its 3 x 4 tiles of the block's (3 * 64) x 64 tap
+// gradient over the item's rows (48 floats a thread, held across the
+// block's items and written once), so the two accumulators are never live
+// together and the leg fits 128 registers without spills (the t1 pass
+// keeps 2 of its 16-byte steps in flight; with 3, ptxas spills a
+// register).  The tap gradient folds every
+// k16 step (fold 1): accumulating 2 or 4 steps in one fragment chains each
+// mma on the last and measured slower (0.154 / 0.166 against 0.126 ms at
+// B=8); fold 1's f32 sum is within 6.9e-9 of sum |a*b| of float64, bias
+// -6.1e-11 (B=1) and -2.4e-11 (B=8), on an NVIDIA H100.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -339,204 +353,251 @@ train_bwd_kernel(const float* __restrict__ dy2, const float* __restrict__ y,
 
 namespace tb = tconv_bf16;
 
-constexpr size_t kSmemBytesBf16 =
-    (tb::kTapElems + 5 * tb::kSlabElems) * sizeof(tb::bf16) + kRedFloats * sizeof(float);
-
-struct BufsBf16 {
-  const tb::bf16* taps;
-  tb::bf16* dslab;  // [2][kSlabElems] dy2
-  tb::bf16* yslab;  // [2][kSlabElems] y
-  tb::bf16* tslab;  // t1 of the current tile, rounded to bf16
-  float* red;
+// bf16 leg: an item is 128 rows x 64 columns (one joint) of one clip; a
+// block has 8 warps, which share both products, and two blocks share an SM,
+// each walking the joints of one parity with its one diagonal tap block.
+constexpr int kWarpRowsBf16 = 32;                     // dt1: 32 rows x 32 columns a warp
+constexpr int kRowGroups = kRows / kWarpRowsBf16;     // 4
+constexpr int kThreadsBf16 = kRowGroups * 2 * 32;     // a row group's two column halves
+constexpr int kNTBf16 = 4;
+constexpr int kDt1Passes = 2;   // dt1 in column passes of kNTBf16 / kDt1Passes n-tiles: fewer live registers
+constexpr int kT1Unroll = 2;    // the t1 pass with 2 of its 16-byte steps in flight: no spills
+constexpr int kGradMTBf16 = 3;  // the tap gradient: 3 m-tiles of the stacked (tap, channel) rows a warp
+constexpr int kGradNT = 4;      // and 4 n-tiles
+struct alignas(16) SmemBf16 {
+  tb::bf16 taps[tb::kTapElems];        // the parity's KBT[2 - s] diagonal block, k-major
+  tb::bf16 dslab[2][tb::kSlabElems];   // [buffer]: dy2 rows t0 - 1 .. t0 + 128
+  tb::bf16 yslab[2][tb::kSlabElems];   // [buffer]: y
+  tb::bf16 tslab[tb::kSlabElems];      // t1 of the current item, rounded to bf16
+  float vec[2][2][kC];                 // [buffer]: s1, sh1 of the item's columns
+  float red[kRowGroups][2][kC];        // [row group][moment][column]
 };
+static_assert(kThreadsBf16 / 32 * kGradMTBf16 * kGradNT == 3 * (kC / 16) * (kC / 8),
+              "the warps cover the stacked tap gradient");
+static_assert(kThreadsBf16 == 2 * (kRows / kPartRows) * kC, "one thread per (part, moment, column)");
+static_assert(kThreadsBf16 == kBwdThreads, "configure() sizes both legs' blocks");
 
-// dt1 of the warp's 32 rows, the mask (pre > 0 from the bf16 y, in f32),
-// dpre rounded to bf16, and the warp's column moments of the unrounded dpre
-__device__ __forceinline__ void dt1_tile_bf16(const BufsBf16& sm, const tb::bf16* ds, const tb::bf16* ys,
-                                              const float* __restrict__ vecs, const TileAt& a,
-                                              tb::bf16* __restrict__ dpre, int T, int Wp) {
+// The warp's parts of an item, warp-uniform and recomputed where they are
+// used (not held in registers across the item loop): its dt1 tile (row
+// group, first column) and its tiles of the tap gradient (first m-tile,
+// first n-tile).
+struct Roles {
+  int rg, n0, gm0, gn0;
+};
+__device__ __forceinline__ Roles roles() {
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int c = lane & 3;
-  const int row0 = warp * 16 * kMT;
-  float acc[kMT][kNT][4];
-  tb::tconv_mma(ds, sm.taps, row0, acc);
+  return {warp / 2, (warp % 2) * (8 * kNTBf16), kGradMTBf16 * (warp / 2), kGradNT * (warp % 2)};
+}
 
-  float sum[kNT][2], dot[kNT][2];
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt) {
-    const int k = nt * 8 + 2 * c;
-    const float2 s1 = __ldg(reinterpret_cast<const float2*>(vecs + a.col0 + k));
-    const float2 sh1 = __ldg(reinterpret_cast<const float2*>(vecs + Wp + a.col0 + k));
-    sum[nt][0] = sum[nt][1] = dot[nt][0] = dot[nt][1] = 0.f;
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = row0 + mt * 16 + g + 8 * half;
-        const int t = a.t0 + r;
-        if (t >= T) continue;
-        const float2 yv = tb::unpack2(tb::ld32(ys + tb::slab_index(r + 1, k)));
-        const float d0 = __fadd_rn(__fmul_rn(yv.x, s1.x), sh1.x) > 0.f ? acc[mt][nt][2 * half] : 0.f;
-        const float d1 = __fadd_rn(__fmul_rn(yv.y, s1.y), sh1.y) > 0.f ? acc[mt][nt][2 * half + 1] : 0.f;
-        *reinterpret_cast<__nv_bfloat162*>(dpre + (a.clip_row0 + t) * Wp + a.col0 + k) = tb::pack_rn(d0, d1);
-        sum[nt][0] += d0;
-        sum[nt][1] += d1;
-        dot[nt][0] += d0 * yv.x;
-        dot[nt][1] += d1 * yv.y;
-      }
-  }
-  // sum over the warp's 8 row groups (lanes of equal c), then one lane per c writes
-#pragma unroll
-  for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        sum[nt][j] += __shfl_xor_sync(0xffffffffu, sum[nt][j], off);
-        dot[nt][j] += __shfl_xor_sync(0xffffffffu, dot[nt][j], off);
-      }
-  if (g == 0) {
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        sm.red[(warp * 2 + 0) * kC + nt * 8 + 2 * c + j] = sum[nt][j];
-        sm.red[(warp * 2 + 1) * kC + nt * 8 + 2 * c + j] = dot[nt][j];
-      }
+// Start the copies of one item into buffer buf: its dy2 and y slabs (rows
+// outside the clip zero-filled) and its s1, sh1.
+__device__ __forceinline__ void stage_item_bf16(SmemBf16& sm, int buf, const TileAt& a,
+                                                const tb::bf16* __restrict__ dy2, const tb::bf16* __restrict__ y,
+                                                const float* __restrict__ vecs, int T, int Wp) {
+  tb::stage_slab<kThreadsBf16>(sm.dslab[buf], dy2, a.clip_row0, a.t0, T, Wp, a.col0);
+  tb::stage_slab<kThreadsBf16>(sm.yslab[buf], y, a.clip_row0, a.t0, T, Wp, a.col0);
+  if (threadIdx.x < 2 * kC / 4) {  // 16 chunks of s1, of sh1
+    const int row = threadIdx.x / (kC / 4);
+    const int q = threadIdx.x % (kC / 4);
+    tb::cp_async16(&sm.vec[buf][row][4 * q], vecs + static_cast<size_t>(row) * Wp + a.col0 + 4 * q, true);
   }
 }
 
-// gacc[mi] += the tile's share of m-tile (3 * gwarp + mi) of the stacked
-// tap gradient, rows (s, i0 .. i0 + 16) of dKB[s] = sum_r t1[r + s - 1]^T
-// dy2[r], 16 tile rows a k-step.  A (16 x 16, m = input channel, k = row)
-// is the t1 slab from row k0 + s on, stored k-major: ldmatrix.trans gives
-// each lane A(g, 2c..2c+1) etc.; B (16 x 8, k = row, n = output channel)
-// is the dy2 slab from row k0 + 1 on (tile row 0 is slab row 1).
-__device__ __forceinline__ void grad_tile_bf16(const tb::bf16* tslab, const tb::bf16* ds, int k_end,
-                                               float (&gacc)[kGradMT][kNT][4]) {
-  const int gwarp = (threadIdx.x >> 5) - 4;
+// gacc += the item's share of the warp's 3 x 4 tiles of the stacked tap
+// gradient (m-tiles gm0.., rows (s, i) of dKB[s] = sum_r t1[r + s - 1]^T
+// dy2[r]; n-tiles gn0..), 16 item rows a k-step.  A (16 x 16, m = input
+// channel, k = row) is the t1 slab from row k0 + s on, stored k-major:
+// ldmatrix.trans; B (16 x 8, k = row, n = output channel) the dy2 slab from
+// row k0 + 1 on (item row 0 is slab row 1).  Each k-step's product goes
+// into a fresh fragment (the tensor cores' truncating adds) that an IEEE
+// add folds into gacc.
+__device__ __forceinline__ void grad_item_bf16(SmemBf16& sm, int buf, int k_end,
+                                               float (&gacc)[kGradMTBf16][kGradNT][4]) {
+  const int gm0 = roles().gm0;
+  const int gn0 = roles().gn0;
   const int lane = threadIdx.x & 31;
   const int lrow = (lane & 7) + ((lane >> 4) & 1) * 8;  // A: matrices 2, 3 hold k 8..15
   const int lcol = ((lane >> 3) & 1) * 8;                // A: matrices 1, 3 hold m 8..15
   const int brow = (lane & 7) + ((lane >> 3) & 1) * 8;  // B: matrices 1, 3 hold k 8..15
+  const tb::bf16* ts = sm.tslab;
+  const tb::bf16* ds = sm.dslab[buf];
+  // the A fragments of the 3 m-tiles held, B one n-tile pair at a time,
+  // each product folded at once: 20 transient registers
 #pragma unroll 1
   for (int k0 = 0; k0 < k_end; k0 += 16) {
-    uint32_t af[kGradMT][4];
+    uint32_t af[kGradMTBf16][4];
 #pragma unroll
-    for (int mi = 0; mi < kGradMT; ++mi) {
-      const int m = kGradMT * gwarp + mi;
-      tb::ldmatrix_x4_trans(af[mi], tslab + tb::slab_index(k0 + m / 4 + lrow, (m % 4) * 16 + lcol));
+    for (int mi = 0; mi < kGradMTBf16; ++mi) {
+      const int m = gm0 + mi;
+      tb::ldmatrix_x4_trans(af[mi], ts + tb::swz64(k0 + m / 4 + lrow, (m % 4) * 16 + lcol));
     }
 #pragma unroll
-    for (int nt = 0; nt < kNT; nt += 2) {
-      uint32_t bf[4];  // n-tiles nt (matrices 0, 1) and nt + 1 (matrices 2, 3)
-      tb::ldmatrix_x4_trans(bf, ds + tb::slab_index(k0 + 1 + brow, (nt + (lane >> 4)) * 8));
+    for (int p = 0; p < kGradNT / 2; ++p) {
+      uint32_t bf[4];  // n-tiles gn0 + 2p (matrices 0, 1) and gn0 + 2p + 1 (2, 3)
+      tb::ldmatrix_x4_trans(bf, ds + tb::swz64(k0 + 1 + brow, (gn0 + 2 * p + (lane >> 4)) * 8));
 #pragma unroll
-      for (int mi = 0; mi < kGradMT; ++mi) {
-        tb::mma_fold(gacc[mi][nt], af[mi], bf[0], bf[1]);
-        tb::mma_fold(gacc[mi][nt + 1], af[mi], bf[2], bf[3]);
+      for (int mi = 0; mi < kGradMTBf16; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float part[4];
+          tb::mma_bf16_fresh(part, af[mi], bf[2 * h], bf[2 * h + 1]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) gacc[mi][2 * p + h][i] = __fadd_rn(gacc[mi][2 * p + h][i], part[i]);
+        }
+    }
+  }
+}
+
+// The epilogue of the warp's dt1 (32 rows x NT n-tiles from column n0, the
+// earlier leg's sums in the same order): the mask (pre > 0 from the bf16 y,
+// in f32), dpre rounded to bf16 and stored from the registers, and the
+// warp's column moments of the unrounded dpre (each thread its rows, the
+// warp's row groups by shuffles).
+template <int NT>
+__device__ __forceinline__ void dt1_epilogue_bf16(SmemBf16& sm, int buf, int n0, const TileAt& a, int T, int Wp,
+                                                  const float (&acc)[2][NT][4], tb::bf16* __restrict__ dpre) {
+  const int rg = roles().rg;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  const int row0 = rg * kWarpRowsBf16;
+  const tb::bf16* ys = sm.yslab[buf];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int k = n0 + nt * 8 + 2 * c;
+    const float2 s1 = *reinterpret_cast<const float2*>(&sm.vec[buf][0][k]);
+    const float2 sh1 = *reinterpret_cast<const float2*>(&sm.vec[buf][1][k]);
+    float sum[2] = {0.f, 0.f}, dot[2] = {0.f, 0.f};
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = row0 + mt * 16 + g + 8 * half;
+        if (a.t0 + r >= T) continue;
+        const float2 yv = tb::unpack2(tb::ld32(ys + tb::slab_index(r + 1, k)));
+        const float d0 = __fadd_rn(__fmul_rn(yv.x, s1.x), sh1.x) > 0.f ? acc[mt][nt][2 * half] : 0.f;
+        const float d1 = __fadd_rn(__fmul_rn(yv.y, s1.y), sh1.y) > 0.f ? acc[mt][nt][2 * half + 1] : 0.f;
+        *reinterpret_cast<__nv_bfloat162*>(dpre + (a.clip_row0 + a.t0 + r) * static_cast<size_t>(Wp) + a.col0 + k) =
+            tb::pack_rn(d0, d1);
+        sum[0] += d0;
+        sum[1] += d1;
+        dot[0] += d0 * yv.x;
+        dot[1] += d1 * yv.y;
+      }
+    // sum over the warp's 8 row groups (lanes of equal c), then one lane per c writes
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        sum[j] += __shfl_xor_sync(0xffffffffu, sum[j], off);
+        dot[j] += __shfl_xor_sync(0xffffffffu, dot[j], off);
+      }
+    if (g == 0) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        sm.red[rg][0][k + j] = sum[j];
+        sm.red[rg][1][k + j] = dot[j];
       }
     }
   }
 }
 
-// The bf16 leg's walk over the block's tiles, as one role (walk's shape).
-template <bool kGrad>
-__device__ __forceinline__ void walk_bf16(const BufsBf16& sm, const tb::bf16* __restrict__ dy2,
-                                          const tb::bf16* __restrict__ y, const float* __restrict__ vecs,
-                                          tb::bf16* __restrict__ dpre, float* __restrict__ tile_parts,
-                                          float* __restrict__ tap_parts, int B, int T, int Wp) {
-  const int items = (Wp / kC / 2) * B * ((T + kRows - 1) / kRows);
-  const int stride = gridDim.x / 2;
+// Item a's rows of tile_parts, one value a thread: the sums of the two
+// warps of each 64-row part in order.
+__device__ __forceinline__ void write_parts_bf16(const SmemBf16& sm, const TileAt& a, int T, int Wp,
+                                                 float* __restrict__ tile_parts) {
+  const int h = threadIdx.x / (2 * kC);  // 64-row part of this item
+  const int moment = (threadIdx.x / kC) % 2;
+  const int col = threadIdx.x % kC;
+  const int part = a.t0 / kPartRows + h;
   const int n_parts = (T + kPartRows - 1) / kPartRows;
-  const int q = threadIdx.x % (kC / 8);  // the 16-byte chunk this thread turns into t1
-  float gacc[kGradMT][kNT][4];  // the grad role's running sum (unused by the other)
-  if constexpr (kGrad) {
+  if (part < n_parts) {
+    float total = 0.f;
 #pragma unroll
-    for (int mi = 0; mi < kGradMT; ++mi)
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) gacc[mi][nt][i] = 0.f;
+    for (int w = 0; w < kPartRows / kWarpRowsBf16; ++w)
+      total += sm.red[h * (kPartRows / kWarpRowsBf16) + w][moment][col];
+    tile_parts[((static_cast<size_t>(a.b) * n_parts + part) * 2 + moment) * Wp + a.col0 + col] = total;
   }
-
-  int item = blockIdx.x >> 1;
-  TileAt a = tile_at(item, B, T);
-  for (int buf = 0; item < items; item += stride, buf ^= 1) {
-    const bool more = item + stride < items;
-    const TileAt next = tile_at(more ? item + stride : item, B, T);
-    const tb::bf16* ds = sm.dslab + buf * tb::kSlabElems;
-    const tb::bf16* ys = sm.yslab + buf * tb::kSlabElems;
-    if (more) {  // the next tile's copies run during this tile's products
-      tb::stage_slab<kBwdThreads>(sm.dslab + (buf ^ 1) * tb::kSlabElems, dy2, next.clip_row0, next.t0, T, Wp,
-                                  next.col0);
-      tb::stage_slab<kBwdThreads>(sm.yslab + (buf ^ 1) * tb::kSlabElems, y, next.clip_row0, next.t0, T, Wp,
-                                  next.col0);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    block_sync();  // this tile's slabs have landed
-
-    float s1[8], sh1[8];
-    tb::load8(s1, vecs, 0, Wp, a.col0 + 8 * q);
-    tb::load8(sh1, vecs, 1, Wp, a.col0 + 8 * q);
-    for (int i = threadIdx.x; i < (kRows + 2) * (kC / 8); i += kBwdThreads) {
-      const int r = i / (kC / 8);
-      const int t = a.t0 - 1 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);  // t1 is 0 outside the clip
-      if (t >= 0 && t < T) {
-        v = *reinterpret_cast<const uint4*>(ys + tb::slab_index(r, 8 * q));
-        tb::bn_relu_chunk(v, s1, sh1);
-      }
-      *reinterpret_cast<uint4*>(sm.tslab + tb::slab_index(r, 8 * q)) = v;
-    }
-    block_sync();  // t1 is built
-
-    if constexpr (kGrad) {
-      // rows past the clip hold dy2 = 0 and t1 = 0 and add nothing
-      const int k_end = min(kRows, (T - a.t0 + 15) / 16 * 16);
-      grad_tile_bf16(sm.tslab, ds, k_end, gacc);
-    } else {
-      dt1_tile_bf16(sm, ds, ys, vecs, a, dpre, T, Wp);
-    }
-    block_sync();  // the slabs are read and the moment partials written
-
-    write_tile_parts(sm.red, a, tile_parts, n_parts, Wp);
-    // red is written again only after the next tile's second block_sync
-    a = next;
-  }
-  if constexpr (kGrad) write_tap_parts(gacc, tap_parts);
 }
 
-__global__ void __launch_bounds__(kBwdThreads, 1)
+// The taps, the dy2 and y slabs and s1 / sh1 come in by cp.async, the next
+// item's while this one is computed; every thread builds t1; every warp
+// computes its dt1 tile with its epilogue, then its share of the tap
+// gradient (so the two accumulators are never live together); dpre leaves
+// from the registers as bf16 pairs during the epilogue; three barriers an
+// item.  Even blocks walk the even joints, odd blocks the odd ones
+// (tile_at).
+__global__ void __launch_bounds__(kThreadsBf16, 2)
 train_bwd_kernel_bf16(const tb::bf16* __restrict__ dy2, const tb::bf16* __restrict__ y,
                       const float* __restrict__ vecs, const tb::bf16* __restrict__ kbt,
                       tb::bf16* __restrict__ dpre, float* __restrict__ tile_parts,
                       float* __restrict__ tap_parts, int B, int T, int Wp) {
   extern __shared__ __align__(16) unsigned char smem_bytes[];
-  tb::bf16* taps = reinterpret_cast<tb::bf16*>(smem_bytes);  // taps[s] = KBT[2 - s] diagonal block
-  BufsBf16 sm;
-  sm.taps = taps;
-  sm.dslab = taps + tb::kTapElems;
-  sm.yslab = sm.dslab + 2 * tb::kSlabElems;
-  sm.tslab = sm.yslab + 2 * tb::kSlabElems;
-  sm.red = reinterpret_cast<float*>(sm.tslab + tb::kSlabElems);
+  SmemBf16& sm = *reinterpret_cast<SmemBf16*>(smem_bytes);
 
-  // the first tile's slabs: one copy group; the taps by plain stores, seen after the first block_sync
-  const TileAt a = tile_at(blockIdx.x >> 1, B, T);
-  tb::stage_taps<kBwdThreads>(taps, kbt, (blockIdx.x & 1) * kC, true);
-  tb::stage_slab<kBwdThreads>(sm.dslab, dy2, a.clip_row0, a.t0, T, Wp, a.col0);
-  tb::stage_slab<kBwdThreads>(sm.yslab, y, a.clip_row0, a.t0, T, Wp, a.col0);
+  const int items = (Wp / kLane) * B * ((T + kRows - 1) / kRows);  // of each parity
+  const int stride = gridDim.x / 2;
+  float gacc[kGradMTBf16][kGradNT][4];
+#pragma unroll
+  for (int mi = 0; mi < kGradMTBf16; ++mi)
+#pragma unroll
+    for (int nt = 0; nt < kGradNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) gacc[mi][nt][i] = 0.f;
+
+  int item = blockIdx.x / 2;
+  if (item >= items) return;
+  tb::stage_taps_kmajor<kThreadsBf16>(sm.taps, kbt, (blockIdx.x & 1) * kC, true);
+  TileAt a = tile_at(item, B, T);
+  stage_item_bf16(sm, 0, a, dy2, y, vecs, T, Wp);
   cp_async_commit();
 
-  if (threadIdx.x < kRoleThreads) {
-    walk_bf16<false>(sm, dy2, y, vecs, dpre, tile_parts, tap_parts, B, T, Wp);
-  } else {
-    walk_bf16<true>(sm, dy2, y, vecs, dpre, tile_parts, tap_parts, B, T, Wp);
+  for (int buf = 0; item < items; item += stride, buf ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // this item has landed; red is read
+    const int next = item + stride;
+    const TileAt na = tile_at(next < items ? next : item, B, T);
+    if (next < items) stage_item_bf16(sm, buf ^ 1, na, dy2, y, vecs, T, Wp);
+    cp_async_commit();
+
+    tb::t1_pass<kThreadsBf16, kT1Unroll>(sm.tslab, sm.yslab[buf], sm.vec[buf][0], sm.vec[buf][1], a.t0, T);
+    __syncthreads();  // t1 is built
+
+#pragma unroll 1
+    for (int pass = 0; pass < kDt1Passes; ++pass) {
+      constexpr int kPassNT = kNTBf16 / kDt1Passes;
+      const Roles w = roles();
+      const int n = w.n0 + pass * 8 * kPassNT;
+      float acc[2][kPassNT][4];
+      tb::tconv_mma_kmajor<2, kPassNT>(sm.dslab[buf], sm.taps, w.rg * kWarpRowsBf16, n, acc);
+      dt1_epilogue_bf16(sm, buf, n, a, T, Wp, acc, dpre);
+    }
+    // rows past the clip hold dy2 = 0 and t1 = 0 and add nothing
+    grad_item_bf16(sm, buf, min(kRows, (T - a.t0 + 15) / 16 * 16), gacc);
+    __syncthreads();  // the item's moment partials are complete
+    write_parts_bf16(sm, a, T, Wp, tile_parts);
+    a = na;
+  }
+  cp_async_wait<0>();
+
+  // the running sum, once per block: tap_parts[block]
+  const int gm0 = roles().gm0;
+  const int gn0 = roles().gn0;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int c = lane & 3;
+  float* out = tap_parts + static_cast<size_t>(blockIdx.x) * kTapFloats;
+#pragma unroll
+  for (int mi = 0; mi < kGradMTBf16; ++mi) {
+    const int m = gm0 + mi;
+    const int s = m / 4;
+    const int i = (m % 4) * 16 + g;
+#pragma unroll
+    for (int nt = 0; nt < kGradNT; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<float2*>(out + (s * kC + i + 8 * half) * kC + (gn0 + nt) * 8 + 2 * c) =
+            make_float2(gacc[mi][nt][2 * half], gacc[mi][nt][2 * half + 1]);
   }
 }
 
@@ -560,7 +621,7 @@ int slots_or_error(bool bf16, int* slots) {
   static int cached[2] = {0, 0};
   int& slot = cached[bf16 ? 1 : 0];
   if (slot == 0) {
-    const int err = bf16 ? configure(train_bwd_kernel_bf16, kSmemBytesBf16, &slot)
+    const int err = bf16 ? configure(train_bwd_kernel_bf16, sizeof(SmemBf16), &slot)
                          : configure(train_bwd_kernel, kSmemBytes, &slot);
     if (err != 0) return err;
   }
@@ -611,7 +672,8 @@ extern "C" int p2r_stgcn_train_bwd_bf16(const __nv_bfloat16* dy2, const __nv_bfl
   const int expect = blocks_or_error(true, B, T, Wp);
   if (expect < 0) return -expect;
   if (blocks != expect) return static_cast<int>(cudaErrorInvalidValue);
-  train_bwd_kernel_bf16<<<blocks, kBwdThreads, kSmemBytesBf16, static_cast<cudaStream_t>(stream)>>>(
+  if (blocks == 0) return 0;
+  train_bwd_kernel_bf16<<<blocks, kThreadsBf16, sizeof(SmemBf16), static_cast<cudaStream_t>(stream)>>>(
       dy2, y, vecs, kbt, dpre, tile_parts, tap_parts, B, T, Wp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -40,10 +40,23 @@
 // mma.sync.m16n8k16 per 16-deep k-step into a fresh fragment, folded in by
 // an IEEE add, tconv_bf16.cuh); y2 = acc + cb rounded to nearest even; the
 // column moments from the ROUNDED y2, in f32, in the f32 leg's fixed order.
-// Same persistent parity grid; its taps are staged transposed, so that a B
-// fragment is one 32-bit load.  Bound: bytes (2 bytes an element: y and y2
-// are 85 MB at B=8, 0.025 ms at 3.35 TB/s; the 8.15 GFLOP are 0.008 ms at
-// the bf16 tensor-core rate).
+// Bound: bytes (2 bytes an element: y and y2 are 85 MB at B=8, 0.025 ms at
+// 3.35 TB/s; the 8.15 GFLOP are 0.008 ms at the bf16 tensor-core rate).
+// What held an earlier design (one slab buffer, 4 warps a tile, y2 stored
+// as 4-byte pairs across 8 rows) at a quarter of that: one block's phases
+// in series, copy, t1 pass, conv, stores, with nothing beside them.  So
+// (scripts/torch_bf16_train_variants.py measures each choice): items of
+// 128 rows x 64 columns (one joint), blocks of 8 warps (32 rows x 32
+// columns each, the f32 leg's rows per warp), two an SM, so that one
+// block's copies, t1 pass and stores overlap the other's conv; each block
+// walks the joints of one parity with its diagonal tap block staged once,
+// k-major, by cp.async; the y slab and s1 / sh1 / cb double-buffered by
+// cp.async, the next item's copies in flight while this one is computed;
+// the t1 pass in place, each thread's s1 / sh1 read once; the conv on
+// tconv_mma_kmajor (fragments by ldmatrix, the tap loop unrolled); y2
+// staged row-major in a padded tile and stored 16 bytes a thread.  The sums
+// are the earlier leg's in the same order, and so are y2's and the
+// moments' bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -175,129 +188,161 @@ train_fwd_kernel(const float* __restrict__ y, const float* __restrict__ vecs,
 
 namespace tb = tconv_bf16;
 
-constexpr size_t kSmemBytesBf16 = (tb::kTapElems + tb::kSlabElems) * sizeof(tb::bf16) + kRedFloats * sizeof(float);
+// bf16 leg: an item is 128 rows x 64 columns (one joint) of one clip; a
+// block has 8 warps, each the conv of 32 rows x 32 columns (the f32 leg's
+// rows per warp, so the same moment order), and two blocks share an SM,
+// each walking the joints of one parity with its one diagonal tap block.
+constexpr int kWarpRowsBf16 = 32;                         // 2 m-tiles
+constexpr int kRowGroups = kRows / kWarpRowsBf16;         // 4
+constexpr int kThreadsBf16 = kRowGroups * 2 * 32;         // a row group's two column halves
+constexpr int kNTBf16 = 4;                                // 32 columns a warp
+// y2's tile, staged for its 16-byte stores: row-major, a row padded by 16
+// bytes (the pad shifts a row's banks by 4, so the fragment writes of 8
+// rows x 4 words hit 32 distinct banks)
+constexpr int kOutStride = kC + 8;
+struct alignas(16) SmemBf16 {
+  tb::bf16 taps[tb::kTapElems];        // the parity's KB diagonal block, k-major
+  tb::bf16 slab[2][tb::kSlabElems];    // [buffer]: y rows t0 - 1 .. t0 + 128, then t1
+  tb::bf16 tile[kRows * kOutStride];   // y2, rounded
+  float vec[2][3][kC];                 // [buffer]: s1, sh1, cb of the item's columns
+  float red[kRowGroups][2][kC];        // [row group][moment][column]
+};
+static_assert(kThreadsBf16 == 2 * (kRows / kPartRows) * kC, "one thread per (part, moment, column)");
 
-__global__ void __launch_bounds__(kThreads, 3)
+// Start the copies of one item into buffer buf: its y slab (rows outside
+// the clip zero-filled) and its s1, sh1, cb.
+__device__ __forceinline__ void stage_item(SmemBf16& sm, int buf, const TileAt& a, const tb::bf16* __restrict__ y,
+                                           const float* __restrict__ vecs, int T, int Wp) {
+  tb::stage_slab<kThreadsBf16>(sm.slab[buf], y, a.clip_row0, a.t0, T, Wp, a.col0);
+  if (threadIdx.x < 3 * kC / 4) {  // 16 chunks of each vector
+    const int row = threadIdx.x / (kC / 4);
+    const int q = threadIdx.x % (kC / 4);
+    tb::cp_async16(&sm.vec[buf][row][4 * q], vecs + static_cast<size_t>(row) * Wp + a.col0 + 4 * q, true);
+  }
+}
+
+// Item a's y2 from its staged tile, 16 bytes a thread, and its rows of
+// tile_parts, one value a thread: the sums of the two warps of each 64-row
+// part in order.
+__device__ __forceinline__ void store_item(const SmemBf16& sm, const TileAt& a, int T, int Wp,
+                                           tb::bf16* __restrict__ y2, float* __restrict__ tile_parts) {
+  for (int i = threadIdx.x; i < kRows * (kC / 8); i += kThreadsBf16) {
+    const int r = i / (kC / 8);
+    const int q = i % (kC / 8);  // 16-byte chunk of the row segment
+    if (a.t0 + r >= T) continue;
+    *reinterpret_cast<uint4*>(y2 + (a.clip_row0 + a.t0 + r) * static_cast<size_t>(Wp) + a.col0 + 8 * q) =
+        *reinterpret_cast<const uint4*>(sm.tile + r * kOutStride + 8 * q);
+  }
+  const int h = threadIdx.x / (2 * kC);  // 64-row part of this item
+  const int moment = (threadIdx.x / kC) % 2;
+  const int col = threadIdx.x % kC;
+  const int part = a.t0 / kPartRows + h;
+  const int n_parts = (T + kPartRows - 1) / kPartRows;
+  if (part < n_parts) {
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < kPartRows / kWarpRowsBf16; ++w)
+      total += sm.red[h * (kPartRows / kWarpRowsBf16) + w][moment][col];
+    tile_parts[((static_cast<size_t>(a.b) * n_parts + part) * 2 + moment) * Wp + a.col0 + col] = total;
+  }
+}
+
+// The taps, the y slabs and s1 / sh1 / cb come in by cp.async, the next
+// item's while this one is computed; t1 is built in place; the conv is
+// tconv_bf16.cuh's k-major core (the earlier leg's sums in the same order);
+// y2 is staged in shared memory and leaves in 16-byte stores; the moments
+// of the rounded y2 in the f32 leg's order (each thread its rows, the
+// warp's row groups by shuffles, the two warps of a 64-row part in order).
+// Even blocks walk the even joints, odd blocks the odd ones (tile_at).
+__global__ void __launch_bounds__(kThreadsBf16, 2)
 train_fwd_kernel_bf16(const tb::bf16* __restrict__ y, const float* __restrict__ vecs,
                       const tb::bf16* __restrict__ kb, tb::bf16* __restrict__ y2,
                       float* __restrict__ tile_parts, int B, int T, int Wp) {
   extern __shared__ __align__(16) unsigned char smem_bytes[];
-  tb::bf16* taps = reinterpret_cast<tb::bf16*>(smem_bytes);
-  tb::bf16* slab = taps + tb::kTapElems;
-  float* red = reinterpret_cast<float*>(slab + tb::kSlabElems);
+  SmemBf16& sm = *reinterpret_cast<SmemBf16*>(smem_bytes);
 
-  const int items = (Wp / kC / 2) * B * ((T + kRows - 1) / kRows);
+  const int items = (Wp / kLane) * B * ((T + kRows - 1) / kRows);  // of each parity
   const int stride = gridDim.x / 2;
-  const int n_parts = (T + kPartRows - 1) / kPartRows;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int c = lane & 3;
-  const int row0 = warp * 16 * kMT;
-  // the 16-byte chunk of 8 columns this thread stages and turns into t1 (stage_slab's)
-  const int q = threadIdx.x % (kC / 8);
+  const int rg = warp / 2;                         // row group
+  const int row0 = rg * kWarpRowsBf16;
+  const int n0 = (warp % 2) * (8 * kNTBf16);       // column half
 
-  int item = blockIdx.x >> 1;
+  int item = blockIdx.x / 2;
+  if (item >= items) return;
+  tb::stage_taps_kmajor<kThreadsBf16>(sm.taps, kb, (blockIdx.x & 1) * kC);
   TileAt a = tile_at(item, B, T);
-  tb::stage_taps(taps, kb, (blockIdx.x & 1) * kC);
-  tb::stage_slab(slab, y, a.clip_row0, a.t0, T, Wp, a.col0);
+  stage_item(sm, 0, a, y, vecs, T, Wp);
   cp_async_commit();
 
-  for (; item < items; item += stride) {
-    const bool more = item + stride < items;
-    const TileAt next = tile_at(more ? item + stride : item, B, T);
-    float s1[8], sh1[8];
-    tb::load8(s1, vecs, 0, Wp, a.col0 + 8 * q);
-    tb::load8(sh1, vecs, 1, Wp, a.col0 + 8 * q);
+  for (int buf = 0; item < items; item += stride, buf ^= 1) {
     cp_async_wait<0>();
-    __syncthreads();
+    __syncthreads();  // this item has landed; the last item's y2 is stored and red read
+    const int next = item + stride;
+    const TileAt na = tile_at(next < items ? next : item, B, T);
+    if (next < items) stage_item(sm, buf ^ 1, na, y, vecs, T, Wp);
+    cp_async_commit();
 
-    for (int i = threadIdx.x; i < (kRows + 2) * (kC / 8); i += kThreads) {
-      const int r = i / (kC / 8);
-      const int t = a.t0 - 1 + r;
-      if (t < 0 || t >= T) continue;  // zero-filled, and t1 is 0 there
-      uint4* p = reinterpret_cast<uint4*>(slab + tb::slab_index(r, 8 * q));
-      uint4 v = *p;
-      tb::bn_relu_chunk(v, s1, sh1);
-      *p = v;
-    }
-    __syncthreads();
+    tb::t1_pass<kThreadsBf16>(sm.slab[buf], sm.slab[buf], sm.vec[buf][0], sm.vec[buf][1], a.t0, T);
+    __syncthreads();  // t1 is built
 
-    float acc[kMT][kNT][4];
-    tb::tconv_mma(slab, taps, row0, acc);
-    __syncthreads();  // every warp is done reading the slab
-    if (more) {
-      tb::stage_slab(slab, y, next.clip_row0, next.t0, T, Wp, next.col0);
-      cp_async_commit();
-    }
-
-    float sum[kNT][2], sumsq[kNT][2];
+    float acc[2][kNTBf16][4];
+    tb::tconv_mma_kmajor<2, kNTBf16>(sm.slab[buf], sm.taps, row0, n0, acc);
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      const int n = a.col0 + nt * 8 + 2 * c;
-      const float2 cb = __ldg(reinterpret_cast<const float2*>(vecs + 2 * static_cast<size_t>(Wp) + n));
-      sum[nt][0] = sum[nt][1] = sumsq[nt][0] = sumsq[nt][1] = 0.f;
+    for (int nt = 0; nt < kNTBf16; ++nt) {
+      const int n = n0 + nt * 8 + 2 * c;
+      const float2 cb = *reinterpret_cast<const float2*>(&sm.vec[buf][2][n]);
+      float sum[2] = {0.f, 0.f}, sumsq[2] = {0.f, 0.f};
 #pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
+      for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int t = a.t0 + row0 + mt * 16 + g + 8 * half;
-          if (t >= T) continue;
+          const int r = row0 + mt * 16 + g + 8 * half;
           const __nv_bfloat162 r2 = tb::pack_rn(__fadd_rn(acc[mt][nt][2 * half], cb.x),
                                                 __fadd_rn(acc[mt][nt][2 * half + 1], cb.y));
-          *reinterpret_cast<__nv_bfloat162*>(y2 + (a.clip_row0 + t) * Wp + n) = r2;
+          *reinterpret_cast<__nv_bfloat162*>(sm.tile + r * kOutStride + n) = r2;
+          if (a.t0 + r >= T) continue;
           const float2 v = tb::unpack2(*reinterpret_cast<const uint32_t*>(&r2));  // BN2 sees the rounded y2
-          sum[nt][0] += v.x;
-          sum[nt][1] += v.y;
-          sumsq[nt][0] += v.x * v.x;
-          sumsq[nt][1] += v.y * v.y;
+          sum[0] += v.x;
+          sum[1] += v.y;
+          sumsq[0] += v.x * v.x;
+          sumsq[1] += v.y * v.y;
         }
-    }
-    // sum over the warp's 8 row groups (lanes of equal c), then one lane per c writes
-#pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
+      // sum over the warp's 8 row groups (lanes of equal c), then one lane per c writes
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int off = 4; off < 32; off <<= 1) {
-          sum[nt][j] += __shfl_xor_sync(0xffffffffu, sum[nt][j], off);
-          sumsq[nt][j] += __shfl_xor_sync(0xffffffffu, sumsq[nt][j], off);
+          sum[j] += __shfl_xor_sync(0xffffffffu, sum[j], off);
+          sumsq[j] += __shfl_xor_sync(0xffffffffu, sumsq[j], off);
         }
-    if (g == 0) {
-#pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
+      if (g == 0) {
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          red[(warp * 2 + 0) * kC + nt * 8 + 2 * c + j] = sum[nt][j];
-          red[(warp * 2 + 1) * kC + nt * 8 + 2 * c + j] = sumsq[nt][j];
+          sm.red[rg][0][n + j] = sum[j];
+          sm.red[rg][1][n + j] = sumsq[j];
         }
+      }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < (kRows / kPartRows) * 2 * kC; i += kThreads) {
-      const int h = i / (2 * kC);  // 64-row part of this tile
-      const int moment = (i / kC) % 2;
-      const int col = i % kC;
-      const int part = a.t0 / kPartRows + h;
-      if (part >= n_parts) continue;
-      float total = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarpsPerPart; ++w) total += red[((h * kWarpsPerPart + w) * 2 + moment) * kC + col];
-      tile_parts[((static_cast<size_t>(a.b) * n_parts + part) * 2 + moment) * Wp + a.col0 + col] = total;
-    }
-    // red is written again only after the next tile's first __syncthreads
-    a = next;
+    __syncthreads();  // the item's y2 tile and moment partials are complete
+    store_item(sm, a, T, Wp, y2, tile_parts);
+    a = na;
   }
+  cp_async_wait<0>();
 }
 
 // resident blocks of `kernel` on the card (cached by the caller)
 template <typename Kernel>
-cudaError_t resident_slots(Kernel kernel, size_t smem, int* slots) {
+cudaError_t resident_slots(Kernel kernel, size_t smem, int* slots, int threads = kThreads) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   *slots = per_sm * sms;
   return err;
 }
@@ -329,10 +374,13 @@ extern "C" int p2r_stgcn_train_fwd_bf16(const __nv_bfloat16* y, const float* vec
                                         void* stream) {
   static int slots = 0;  // resident blocks on the card
   if (slots == 0) {
-    const cudaError_t err = resident_slots(train_fwd_kernel_bf16, kSmemBytesBf16, &slots);
+    const cudaError_t err = resident_slots(train_fwd_kernel_bf16, sizeof(SmemBf16), &slots, kThreadsBf16);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (slots < 2) return static_cast<int>(cudaErrorInvalidConfiguration);
   }
-  train_fwd_kernel_bf16<<<grid_size(B, T, Wp, slots), kThreads, kSmemBytesBf16,
-                          static_cast<cudaStream_t>(stream)>>>(y, vecs, kb, y2, tile_parts, B, T, Wp);
+  const int grid = grid_size(B, T, Wp, slots);
+  if (grid == 0) return 0;
+  train_fwd_kernel_bf16<<<grid, kThreadsBf16, sizeof(SmemBf16), static_cast<cudaStream_t>(stream)>>>(
+      y, vecs, kb, y2, tile_parts, B, T, Wp);
   return static_cast<int>(cudaGetLastError());
 }

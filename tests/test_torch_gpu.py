@@ -583,6 +583,80 @@ def test_train_bwd_bf16_kernel_matches_plain(cuda_device, B, T, W0):
     assert all(torch.equal(a, b) for a, b in zip((dpre, parts, dtaps), again))
 
 
+@pytest.mark.parametrize("T", [768, 130, 50, 17])
+@pytest.mark.parametrize("B", [1, 8, 32])
+def test_train_bf16_legs_batches_and_ragged_rows(cuda_device, B, T):
+    """Both bf16 legs (items of 128 rows x 64 columns on a persistent grid
+    of two 8-warp blocks an SM, double-buffered copies; kernel 3's y2
+    staged in shared memory and stored 16 bytes a thread, kernel 4's dpre
+    stored from the registers) at full width for batches that leave the grid part idle or walk many items
+    and clips that 128 does not divide: y2 and dpre within 1 bf16 ulp of
+    the plain versions, kernel 3's moments within 1e-5 of each column's
+    scale of the float64 moments of its own y2, kernel 4's (of the
+    unrounded dpre) within 5e-7 of the sum of their terms' |a*b| of float64
+    (the plain version's own f32 dt1 differs by more where dt1 cancels), the
+    tap gradient within 1e-4 of its max, pad columns 0 in every output, the
+    same bits on relaunch."""
+    W0 = 3392
+    y, dy2, vecs, KB = _train_operands_bf16(B, T, W0, cuda_device, seed=B + T)
+    y2, parts = stgcn_train.tconv_stats_fwd(y, vecs, KB, T=T)
+    y2_ref, _ = stgcn_train.tconv_stats_fwd_ref(y, vecs, KB, T=T)
+    vecs_b = vecs.clone()
+    vecs_b[2] = 0.0
+    KBT = KB.transpose(1, 2).contiguous()
+    dpre, dparts, dtaps = stgcn_train.tconv_bwd(dy2, y, vecs_b, KBT, T=T, C=64)
+    dpre_ref, _, dkb_ref = stgcn_train.tconv_bwd_ref(dy2, y, vecs_b, KBT, T=T)
+    dtaps_ref = stgcn_train._fold_diag_blocks(dkb_ref, 64)
+    torch.cuda.synchronize()
+    _assert_bf16_close(y2, y2_ref)
+    v = y2.double().reshape(B, T, -1)
+    _assert_parts_close(parts.double(), torch.stack([v.sum(1), (v * v).sum(1)], dim=1),
+                        [v.abs().sum(1), (v * v).sum(1)])
+    _assert_bf16_close(dpre, dpre_ref)
+    live = (y.float() * vecs_b[0] + vecs_b[1] > 0).reshape(B, T, -1)
+    d, K, y3 = dy2.double().reshape(B, T, -1), KBT.double(), y.double().reshape(B, T, -1)
+    exact = mag = 0.0
+    for s, ds in enumerate((stgcn_fused.shift_next(d), d, stgcn_fused.shift_prev(d))):
+        exact = exact + stgcn_fused.tconv_group(ds, K[s])
+        mag = mag + stgcn_fused.tconv_group(ds.abs(), K[s].abs())
+    exact, mag = exact * live, mag * live
+    m_exact = torch.stack([exact.sum(1), (exact * y3).sum(1)], dim=1)
+    m_mag = torch.stack([mag.sum(1), (mag * y3.abs()).sum(1)], dim=1)
+    used = m_mag > 0
+    assert ((dparts.double() - m_exact).abs()[used] / m_mag[used]).max().item() <= 5e-7
+    assert torch.all(dparts[~used] == 0)
+    del d, K, y3, exact, mag, m_exact, m_mag, live
+    torch.testing.assert_close(dtaps, dtaps_ref, atol=1e-4 * dtaps_ref.abs().max().item(), rtol=0)
+    for out in (y2, dpre):
+        assert torch.all(out[:, W0:] == 0)
+    assert torch.all(parts[..., W0:] == 0) and torch.all(dparts[..., W0:] == 0)
+    again = stgcn_train.tconv_stats_fwd(y, vecs, KB, T=T) + stgcn_train.tconv_bwd(dy2, y, vecs_b, KBT, T=T, C=64)
+    assert all(torch.equal(a, b) for a, b in zip((y2, parts, dpre, dparts, dtaps), again))
+
+
+@pytest.mark.parametrize("B,T", [(2, 768), (3, 50)])
+def test_train_bf16_legs_agree_on_the_relu_mask(cuda_device, B, T):
+    """Kernel 3's t1 and kernel 4's ReLU mask come from the same f32 y * s1 +
+    sh1 (a product, then a sum): with the middle tap the identity and the
+    others zero, y2 = t1 and dt1 = dy2 exactly, so y2 > 0 exactly where
+    kernel 4 lets dy2 (nonzero everywhere in the joints) through."""
+    W0 = 3392
+    y, _, vecs, _ = _train_operands_bf16(B, T, W0, cuda_device, seed=7)
+    vecs[2] = 0.0
+    KB = torch.zeros(3, 128, 128, device=cuda_device)
+    KB[1] = torch.eye(128, device=cuda_device)
+    KB = KB.to(torch.bfloat16)
+    dy2 = torch.zeros_like(y)
+    dy2[:, :W0] = 1.0
+    y2, _ = stgcn_train.tconv_stats_fwd(y, vecs, KB, T=T)
+    dpre, _, _ = stgcn_train.tconv_bwd(dy2, y, vecs, KB.transpose(1, 2).contiguous(), T=T, C=64)
+    torch.cuda.synchronize()
+    t1 = torch.relu(y.float() * vecs[0] + vecs[1]).to(torch.bfloat16)
+    assert torch.equal(y2, t1)
+    assert torch.equal(y2[:, :W0] > 0, dpre[:, :W0] != 0)
+    assert 0.2 < (dpre[:, :W0] != 0).double().mean().item() < 0.8
+
+
 def test_train_bf16_wrappers_reject_bad_operands(cuda_device):
     y, dy2, vecs, KB = _train_operands_bf16(2, 16, 192, cuda_device)
     KBT = KB.transpose(1, 2).contiguous()
