@@ -4,16 +4,27 @@
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
 1. Prints the device, and its name and power limit from nvidia-smi.
-2. Builds every CUDA kernel from csrc/ (nvcc, one process per source).
+2. Builds every CUDA kernel from csrc/ (nvcc, one process per source),
+   and beside them csrc/latency_probe.cu, which measures instruction
+   latencies for FPS's floor.
 3. Kernel phase: each kernel against its plain PyTorch version on the card at
    the serving path's shapes (epilogue: residual on/off, the unpadded first
    block, B in {1, 8}, atol = rtol = 1e-4 for sums of 192 products taken in
    another order and, on the card, in 3xTF32 (tconv_mma.cuh), pad columns
-   exactly 0, two launches the same bits; FPS: B in {1, 32}, 512 -> 128 with
-   near-origin and duplicated points, indices exactly equal), then times each
-   beside its bound: device time, by CUDA events around launches queued
+   exactly 0, two launches the same bits; FPS: B in {1, 8, 32}, 512 -> 128
+   with near-origin and duplicated points, indices exactly equal, on the
+   card and on the CPU), then times each beside its bound: device time, by
+   CUDA events around launches queued
    behind a sleeping kernel, so the host's cost of issuing them is not
    counted (the plain versions and the library calls alike).
+   FPS is latency-bound, so beside its roofline bound it prints a latency
+   floor: (npoint - 1) dependent picks, each at least LDS.128 + 3 FADD +
+   FMUL + FMNMX + log2(16) IMNMX + REDUX cycles (the last pick's
+   coordinates, a distance and its min, a lane's 16-point argmax, one
+   cross-lane reduction), each latency measured in this run by
+   csrc/latency_probe.cu (dependent chains timed with clock64), at the SM
+   clock nvidia-smi reads while the card is busy; and ptxas's registers,
+   stack frame and spills of each FPS instantiation, which must be 0 bytes.
    The train kernels likewise, at B in {1, 8}, full width, on the fold's
    layout: kernel 3 (tconv + BN1 affine + column moments) and kernel 4 (its
    transpose + ReLU mask + moments + tap gradient) against their plain
@@ -144,6 +155,7 @@ Any failed check raises, so the script exits non-zero and prints no result.
 It needs a CUDA card and the repository around it.
 """
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -203,10 +215,11 @@ def nvidia_smi():
 
 
 def ptxas_usage(log):
-    """[(kernel, registers, spill stores, spill loads)] per entry function of
-    an ``nvcc -Xptxas -v`` report, the kernel's name the last component of
-    its mangled (length-prefixed) nested name."""
-    rows, name, spills = [], None, (0, 0)
+    """[(kernel, registers, stack frame, spill stores, spill loads)] per entry
+    function of an ``nvcc -Xptxas -v`` report, in bytes; the kernel's name
+    the last component of its mangled (length-prefixed) nested name, with
+    its integer template arguments (``fps_kernel<1,16>``)."""
+    rows, name, frame = [], None, (0, 0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
@@ -215,14 +228,74 @@ def ptxas_usage(log):
             while n := re.match(r"\d+", sym[i:]):
                 i += n.end() + int(n.group())
                 name = sym[i - int(n.group()):i]
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if targs := re.match(r"I((?:Li-?\d+E)+)E", sym[i:]):
+                name += "<" + ",".join(re.findall(r"Li(-?\d+)E", targs.group(1))) + ">"
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
-            spills = (int(m.group(1)), int(m.group(2)))
+            frame = tuple(int(v) for v in m.groups())
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            rows.append((name, int(m.group(1)), *spills))
-            name, spills = None, (0, 0)
+            rows.append((name, int(m.group(1)), *frame))
+            name, frame = None, (0, 0, 0)
     return rows
+
+
+# csrc/latency_probe.cu's dependent chains (the last two: one warp's issue
+# interval on eight independent chains), in the order of its output
+PROBE_OPS = ("LDS.32", "LDS.128", "FADD", "FMUL", "FMNMX", "IMNMX", "SHFL", "REDUX", "BAR", "FADD x8", "FMNMX x8")
+PROBE_ITERS = 64  # x 64 ops a chain
+FPS_PER_LANE = 16  # csrc/fps.cu: points a lane
+
+
+def start_probe_build():
+    """Start nvcc on csrc/latency_probe.cu (a measuring tool, not a kernel of
+    the path, so not in kernels.SOURCES); returns a function that waits for
+    the build and returns the loaded library."""
+    path = kernels._lib_path("latency_probe")
+    proc = None
+    if not os.path.isfile(path):
+        os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        proc = subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", tmp,
+                                 os.path.join(kernels.CSRC, "latency_probe.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        if proc is not None:
+            log, _ = proc.communicate()
+            check(proc.returncode == 0, f"latency_probe.cu did not build:\n{log}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        lib.p2r_latency_chains.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        lib.p2r_sm_clock.argtypes = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+        return lib
+    return finish
+
+
+def fps_latency_floor(probe):
+    """FPS's latency floor from this card: {op: cycles} of each dependent
+    chain, the SM clock (MHz) nvidia-smi reads while a spinning kernel keeps
+    the card busy, the clock64 / %globaltimer rate over one spin, and the
+    cycles of one pick's critical path, at the fewest levels any layout
+    without a barrier allows (16 points a lane over one warp)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    cycles = torch.zeros(len(PROBE_OPS), dtype=torch.int64, device="cuda")
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for _ in range(2):  # the second run is read: no cold instruction cache
+        kernels.check(probe.p2r_latency_chains(cycles.data_ptr(), sink.data_ptr(), PROBE_ITERS, stream),
+                      "latency_probe")
+    lat = {op: c / (PROBE_ITERS * 64) for op, c in zip(PROBE_OPS, cycles.tolist())}
+    torch.cuda._sleep(20 * SLEEP_CYCLES)  # ~1 s of spin while nvidia-smi reads the clock
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    torch.cuda.synchronize()
+    sm_mhz, max_mhz = (float(v) for v in out.stdout.strip().splitlines()[0].split(","))
+    spin = torch.zeros(2, dtype=torch.int64, device="cuda")
+    kernels.check(probe.p2r_sm_clock(SLEEP_CYCLES * 2, spin.data_ptr(), stream), "latency_probe clock")
+    c, ns = spin.tolist()
+    pick = (lat["LDS.128"] + 3 * lat["FADD"] + lat["FMUL"] + lat["FMNMX"]
+            + np.log2(FPS_PER_LANE) * lat["IMNMX"] + lat["REDUX"])
+    return dict(lat=lat, sm_mhz=sm_mhz, max_mhz=max_mhz, timer_mhz=c / ns * 1e3, pick_cycles=pick)
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -291,7 +364,16 @@ def epilogue_operands(B, g, dev):
     return [t.to(dev) for t in (x, M, vecs, KB)]
 
 
-def kernel_phase(dev, smi):
+def fps_cloud(B, g):
+    """The FPS phase's cloud: the production vote cloud's size (512 points),
+    near-origin points that are never candidates, and exact duplicates."""
+    xyz = torch.randn(B, 512, 3, generator=g) * 1.5
+    xyz[:, 7:40] *= 1e-3  # near the origin: never candidates
+    xyz[:, 300:340] = xyz[:, 100:140]  # duplicates: exact ties
+    return xyz
+
+
+def kernel_phase(dev, smi, floor):
     g = torch.Generator().manual_seed(0)
     rows = {}
     errs = {"stgcn_epilogue": 0.0, "fps": 0.0}
@@ -341,11 +423,14 @@ def kernel_phase(dev, smi):
         del x, M, vecs, KB, t1, out, ref, again
 
     # --- kernel 2: furthest-point sampling ---
-    for B in (1, 32):
-        xyz = torch.randn(B, 512, 3, generator=g) * 1.5
-        xyz[:, 7:40] *= 1e-3  # near the origin: never candidates
-        xyz[:, 300:340] = xyz[:, 100:140]  # duplicates: exact ties
-        xyz = xyz.to(dev)
+    lat = floor["lat"]
+    print(f"[{smi}] latencies (cycles, dependent chains of {PROBE_ITERS * 64}, one warp; BAR: four warps): "
+          + ", ".join(f"{op} {c:.2f}" for op, c in lat.items())
+          + f"; SM clock {floor['sm_mhz']:.0f} MHz by nvidia-smi under load (max {floor['max_mhz']:.0f}; "
+          f"clock64 / globaltimer {floor['timer_mhz']:.1f}); one pick's floor LDS.128 + 3 FADD + FMUL + FMNMX + "
+          f"log2({FPS_PER_LANE}) IMNMX + REDUX = {floor['pick_cycles']:.2f} cycles")
+    for B in (1, 8, 32):
+        xyz = fps_cloud(B, g).to(dev)
         got = sampling.furthest_point_sample(xyz, 128)
         plain = sampling.fps_ref(xyz, 128)
         torch.cuda.synchronize()
@@ -356,10 +441,13 @@ def kernel_phase(dev, smi):
         b_ms, b_by = bound_ms(nbytes, flops)
         k_ms = device_ms(lambda: sampling.furthest_point_sample(xyz, 128))
         p_ms = device_ms(lambda: sampling.fps_ref(xyz, 128), iters=5, warmup=1)
+        f_ms = 127 * floor["pick_cycles"] / floor["sm_mhz"] * 1e-3
         rows[("fps", B)] = dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                bound_by=b_by, library_ms=None)
-        print(f"[{smi}] FPS B={B} 512->128: indices equal  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  "
-              f"bound {b_ms:.6f} ms ({b_by})")
+                                bound_by=b_by, library_ms=None, floor_ms=f_ms)
+        print(f"[{smi}] FPS B={B} 512->128: indices equal  kernel {k_ms:.4f} ms "
+              f"({k_ms * 1e3 * floor['sm_mhz'] / 127:.1f} cycles a pick)  plain {p_ms:.4f} ms  "
+              f"latency floor {f_ms:.4f} ms (127 x {floor['pick_cycles']:.2f} cycles at {floor['sm_mhz']:.0f} MHz; "
+              f"share {f_ms / k_ms:.3f})  roofline bound {b_ms:.7f} ms ({b_by}; share {b_ms / k_ms:.5f})")
     return rows
 
 
@@ -1738,14 +1826,18 @@ def main():
           f"torch {torch.__version__} CUDA {torch.version.cuda}")
     print(f"nvidia-smi: {smi}")
 
+    probe = start_probe_build()
     seconds, reports = kernels.timed_build()
-    print(f"built {len(kernels.SOURCES)} kernel libraries in {seconds:.2f} s")
+    probe = probe()
+    print(f"built {len(kernels.SOURCES)} kernel libraries in {seconds:.2f} s (the latency probe beside them)")
     for name, log in reports.items():
-        for kernel, regs, stores, loads in ptxas_usage(log):
-            print(f"  {name}.cu {kernel}: {regs} registers, {stores} bytes spill stores, {loads} bytes spill loads")
+        for kernel, regs, frame, stores, loads in ptxas_usage(log):
+            print(f"  {name}.cu {kernel}: {regs} registers, {frame} bytes stack frame, {stores} bytes spill stores, "
+                  f"{loads} bytes spill loads")
+            check(name != "fps" or frame == stores == loads == 0, f"fps.cu {kernel}: stack frame or spills")
 
     t0 = time.perf_counter()
-    rows = kernel_phase(dev, smi)
+    rows = kernel_phase(dev, smi, fps_latency_floor(probe))
     rows.update(train_kernel_phase(dev, smi))
     rows.update(sparse_kernel_phase(dev, smi))
     print(f"kernel phase {time.perf_counter() - t0:.1f} s")

@@ -12,117 +12,127 @@
 // round-to-nearest intrinsics, so nvcc cannot contract them into FMAs and
 // change the rounding that decides near-ties.
 //
-// What bounds it on an H100: neither bytes (6 KB per clip) nor operations
-// (~0.5 MFLOP per clip) but latency: 127 dependent block-wide argmax
-// reductions per clip.  Design: one block per clip, one thread per point (up
-// to kMaxPer points per thread), coordinates staged in shared memory so the
-// previous pick is a broadcast read, the running min-distance in registers,
-// and each argmax a warp-shuffle reduction of (value, index) pairs followed
-// by one pass over the per-warp winners.
+// What bounds it on an H100: neither bytes (6 KB a clip) nor operations
+// (~0.5 MFLOP a clip) but latency: npoint - 1 dependent argmax steps per
+// clip, each no shorter than one shared-memory load of the last pick, the
+// five dependent float ops of a distance and its min (sub, mul, add, add,
+// min), log2(points a lane) levels of a lane's argmax and one cross-lane
+// reduction.  chip_smoke.py measures those latencies with
+// csrc/latency_probe.cu and prints that floor beside the kernel's time.
+//
+// Design: a block of kWarps warps per clip, each lane holding kPer points in
+// registers in a blocked layout (thread t holds indices [kPer t, kPer t +
+// kPer)), so lane order and warp order are index order.  A point that is
+// never a candidate keeps a running min of -1 (min(-1, d) = -1 for d >= 0),
+// so the score is the running min itself.  Each pick: one broadcast LDS.128
+// of the last pick's coordinates from shared memory, kPer distance updates,
+// a tree argmax in the lane, two redux.sync steps across the warp (the max
+// of the score's bits, then the least index among the lanes holding it),
+// each warp's winner into a double-buffered slot, one barrier, and every
+// warp's own tree over the slots, so no second barrier and no broadcast.
+// One thread stores each pick as it is made.  At N <= 512: four warps of 4
+// points, one warp an SM sub-partition.  One warp of 16 points needs no
+// barrier but must issue ~190 instructions a pick; more than four warps
+// put more slot work on the chain (scripts/torch_fps_variants.py times
+// both).  8 points a lane at N <= 1024, and 8 warps of 8 at N <= 2048.
 
 #include <cuda_runtime.h>
 
 #include <climits>
-#include <math_constants.h>
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kMaxPer = 4;  // points per thread: N <= kThreads * kMaxPer
-constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void better(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
+// A score is a running min-distance (a sum of squares, never -0, at most
+// 1e10) or -1: on that set the order of the bits read as a signed int is the
+// order of the floats (-1.0f's bits are a negative int, +0.0f's are 0), so
+// integer max and compare rank scores with no key map.
+__device__ __forceinline__ int score_key(float s) { return __float_as_int(s); }
+
+// The argmax of n (key, index) pairs held in ascending index order, as a
+// tree whose left operand always holds the lower indices: a strict '>'
+// keeps the lowest index on ties.
+template <int n>
+__device__ __forceinline__ int2 tree_argmax(int2 (&v)[n]) {
+#pragma unroll
+  for (int s = 1; s < n; s *= 2)
+#pragma unroll
+    for (int m = 0; m < n; m += 2 * s)
+      if (v[m + s].x > v[m].x) v[m] = v[m + s];
+  return v[0];
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The warp's best (key, index): the largest key, ties to the lowest index.
+__device__ __forceinline__ int2 warp_argmax(int key, int idx) {
+  const int best = __reduce_max_sync(kFull, key);
+  const unsigned i = __reduce_min_sync(kFull, key == best ? static_cast<unsigned>(idx) : UINT_MAX);
+  return make_int2(best, static_cast<int>(i));
+}
+
+template <int kWarps, int kPer>
+__global__ void __launch_bounds__(32 * kWarps)
 fps_kernel(const float* __restrict__ xyz, int N, int npoint, int* __restrict__ out) {
-  extern __shared__ float pts[];  // [N][3]
-  __shared__ float warp_v[kWarps];
-  __shared__ int warp_i[kWarps];
-  __shared__ int pick;
+  extern __shared__ float4 pts[];  // [N] (x, y, z, 0)
+  __shared__ int2 slots[2 * kWarps];  // each warp's winner, double-buffered by pick
 
   const int b = blockIdx.x;
   const float* src = xyz + static_cast<size_t>(b) * N * 3;
-  for (int i = threadIdx.x; i < 3 * N; i += kThreads) pts[i] = src[i];
-  __syncthreads();
-
-  float px[kMaxPer], py[kMaxPer], pz[kMaxPer], mind[kMaxPer];
-  bool valid[kMaxPer];
+  const int base = threadIdx.x * kPer;  // this lane's points: [base, base + kPer)
+  float px[kPer], py[kPer], pz[kPer], mind[kPer];
 #pragma unroll
-  for (int m = 0; m < kMaxPer; ++m) {
-    const int i = threadIdx.x + m * kThreads;
+  for (int m = 0; m < kPer; ++m) {
+    const int i = base + m;
     px[m] = py[m] = pz[m] = 0.f;
-    valid[m] = false;
-    mind[m] = 1e10f;
     if (i < N) {
-      px[m] = pts[3 * i];
-      py[m] = pts[3 * i + 1];
-      pz[m] = pts[3 * i + 2];
-      const float n2 = __fadd_rn(__fadd_rn(__fmul_rn(px[m], px[m]), __fmul_rn(py[m], py[m])),
-                                 __fmul_rn(pz[m], pz[m]));
-      valid[m] = n2 > 1e-3f;
+      px[m] = src[3 * i];
+      py[m] = src[3 * i + 1];
+      pz[m] = src[3 * i + 2];
     }
   }
-
+#pragma unroll
+  for (int m = 0; m < kPer; ++m) {
+    const int i = base + m;
+    const float n2 = __fadd_rn(__fadd_rn(__fmul_rn(px[m], px[m]), __fmul_rn(py[m], py[m])),
+                               __fmul_rn(pz[m], pz[m]));
+    mind[m] = i < N && n2 > 1e-3f ? 1e10f : -1.f;
+    if (i < N) pts[i] = make_float4(px[m], py[m], pz[m], 0.f);
+  }
   int* dst = out + static_cast<size_t>(b) * npoint;
   if (threadIdx.x == 0) dst[0] = 0;
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
+  __syncthreads();
+
+  int2* const own = slots + threadIdx.x / 32;  // this warp's slot of the first buffer
   int old = 0;
   for (int j = 1; j < npoint; ++j) {
-    const float ox = pts[3 * old], oy = pts[3 * old + 1], oz = pts[3 * old + 2];
-    float best = -CUDART_INF_F;
-    int best_i = INT_MAX;
+    const float4 o = pts[old];
+    int2 lane[kPer];  // (key, index) of each of this lane's points
 #pragma unroll
-    for (int m = 0; m < kMaxPer; ++m) {
-      const int i = threadIdx.x + m * kThreads;
-      if (i < N) {
-        const float dx = __fsub_rn(px[m], ox);
-        const float dy = __fsub_rn(py[m], oy);
-        const float dz = __fsub_rn(pz[m], oz);
-        const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                  __fmul_rn(dz, dz));
-        if (valid[m]) mind[m] = fminf(mind[m], d);
-        // i grows with m, so a strict '>' keeps the lowest index on ties
-        const float cand = valid[m] ? mind[m] : -1.f;
-        if (cand > best) {
-          best = cand;
-          best_i = i;
-        }
-      }
+    for (int m = 0; m < kPer; ++m) {
+      const float dx = __fsub_rn(px[m], o.x);
+      const float dy = __fsub_rn(py[m], o.y);
+      const float dz = __fsub_rn(pz[m], o.z);
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      mind[m] = fminf(mind[m], d);
+      lane[m] = make_int2(score_key(mind[m]), base + m);
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_down_sync(0xffffffffu, best, off);
-      const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-      better(best, best_i, ov, oi);
-    }
-    if (lane == 0) {
-      warp_v[warp] = best;
-      warp_i[warp] = best_i;
-    }
+    const int2 l = tree_argmax(lane);
+    const int buf = (j & 1) * kWarps;
+    own[buf] = warp_argmax(l.x, l.y);  // every lane stores its warp's winner: no branch
     __syncthreads();
-    if (warp == 0) {
-      best = lane < kWarps ? warp_v[lane] : -CUDART_INF_F;
-      best_i = lane < kWarps ? warp_i[lane] : INT_MAX;
+    int2 all[kWarps];  // warps ascend in index, so the slots do too
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_down_sync(0xffffffffu, best, off);
-        const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
-        better(best, best_i, ov, oi);
-      }
-      if (lane == 0) {
-        pick = best_i;
-        dst[j] = best_i;
-      }
-    }
-    __syncthreads();
-    old = pick;
+    for (int v = 0; v < kWarps; ++v) all[v] = slots[buf + v];
+    old = tree_argmax(all).y;
+    if (threadIdx.x == 0) dst[j] = old;
   }
+}
+
+template <int kWarps, int kPer>
+int launch(const float* xyz, int* out, int B, int N, int npoint, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(N) * sizeof(float4);
+  fps_kernel<kWarps, kPer><<<B, 32 * kWarps, smem, stream>>>(xyz, N, npoint, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -131,7 +141,8 @@ fps_kernel(const float* __restrict__ xyz, int N, int npoint, int* __restrict__ o
 // 1 <= npoint <= N <= 2048.  Returns the cudaError_t of the launch.
 extern "C" int p2r_fps_f32(const float* xyz, int* out, int B, int N, int npoint,
                            void* stream) {
-  const size_t smem = static_cast<size_t>(3) * N * sizeof(float);
-  fps_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(xyz, N, npoint, out);
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (N <= 512) return launch<4, 4>(xyz, out, B, N, npoint, s);
+  if (N <= 1024) return launch<4, 8>(xyz, out, B, N, npoint, s);
+  return launch<8, 8>(xyz, out, B, N, npoint, s);
 }

@@ -24,7 +24,7 @@ from pose2room_tpu_torch import kernels
 
 _NEAR_ORIGIN_SQ = 1e-3
 _INIT_DIST = 1e10
-_FPS_MAX_POINTS = 2048  # csrc/fps.cu: 512 threads x 4 points each
+_FPS_MAX_POINTS = 2048  # csrc/fps.cu: up to 4 warps a clip x 32 lanes x 16 points a lane
 
 
 def _sq3(x, y, z):

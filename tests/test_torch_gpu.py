@@ -304,29 +304,68 @@ def test_sparse_generate_card_matches_cpu_small(cuda_device):
         torch.testing.assert_close(a[key].cpu(), b[key], atol=5e-4, rtol=0)
 
 
-def _cloud(kind, B, N, seed):
-    g = torch.Generator().manual_seed(seed)
-    xyz = torch.rand(B, N, 3, generator=g) * 4 - 2
+FPS_KINDS = ("random", "near_origin", "ties", "all_invalid", "grid", "cross_lane_ties", "one_valid")
+# tied pairs (lower, higher index) at far corners, each the argmax of a pick:
+# (2, 7) in one lane of the blocked layout (8 or 16 points a lane); (5, 34),
+# (37, 67) with the lower index in the higher lane of the strided layout
+# (i % 32); (120, 130), (250, 260), (501, 515), (1530, 1540) with the lower
+# index in the higher lane of both the strided and a blocked layout (4
+# points a lane over 4 warps; 8 over 2, 4 or 8 warps; 16 over 2 or 4)
+FPS_TIED_PAIRS = ((2, 7), (5, 34), (37, 67), (120, 130), (250, 260), (501, 515), (1530, 1540))
+
+
+def fps_cloud(kind, B, N, seed):
+    """(B, N, 3) f32 FPS clouds, made with numpy from ``seed``.  The card
+    tests hold the kernel to fps_ref on them, and tests/test_torch_kernels.py
+    holds fps_ref to JAX on the same clouds."""
+    rng = np.random.RandomState(seed)
+    xyz = (rng.rand(B, N, 3) * 4 - 2).astype(np.float32)
     if kind == "near_origin":
-        xyz[:, 1 : N // 4] *= 1e-3
+        xyz[:, 1:N // 4] *= 1e-3  # ||p||^2 <= 1e-3: never candidates
     elif kind == "ties":
-        xyz[:, N // 2 :] = xyz[:, : N - N // 2]
+        xyz[:, N // 2:] = xyz[:, :N - N // 2]  # every point duplicated
+        if N > 9:
+            xyz[:, 5] = xyz[:, 9]
     elif kind == "all_invalid":
         xyz *= 1e-4
+    elif kind == "grid":  # exact equal distances everywhere
+        g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        xyz = np.broadcast_to(g[np.arange(N) % 64].astype(np.float32) - 1.5, (B, N, 3)).copy()
+    elif kind == "cross_lane_ties":
+        corners = np.array([[20, 20, 20], [-20, -20, 20], [-20, 20, -20], [20, -20, -20], [20, 20, -20],
+                            [-20, -20, -20], [-20, 20, 20]], np.float32)
+        for corner, (lo, hi) in zip(corners, FPS_TIED_PAIRS):
+            if hi < N:
+                xyz[:, lo] = xyz[:, hi] = corner
+    elif kind == "one_valid":  # every point but one never a candidate: -1 below a pick's +0
+        xyz *= 1e-4
+        xyz[:, N // 2] = (1.5, -0.5, 0.25)
     return xyz
 
 
-@pytest.mark.parametrize("kind", ["random", "near_origin", "ties", "all_invalid"])
-@pytest.mark.parametrize("B,N,npoint", [(1, 512, 128), (32, 512, 128), (3, 2048, 64), (2, 40, 40)])
+@pytest.mark.parametrize("kind", FPS_KINDS)
+@pytest.mark.parametrize("B,N,npoint", [(1, 512, 128), (32, 512, 128), (3, 2048, 64), (2, 40, 40),
+                                        (300, 512, 128), (2, 1000, 100), (1, 2048, 2048), (2, 1, 1),
+                                        (2, 31, 31), (2, 33, 33), (2, 500, 128), (1, 512, 1), (1, 512, 512),
+                                        (3, 64, 16), (3, 50, 16)])
 def test_fps_kernel_bit_exact(cuda_device, kind, B, N, npoint):
-    xyz = _cloud(kind, B, N, seed=N + B).to(cuda_device)
+    """Each instantiation (4 warps of 4 and of 8 points a lane, 8 warps of
+    8: N <= 512, <= 1024, <= 2048), more clips than SMs, ragged N, npoint 1
+    and N; the last two shapes are the CPU tests' clouds."""
+    xyz = torch.from_numpy(fps_cloud(kind, B, N, seed=N + B)).to(cuda_device)
+    before = kernels.LAUNCHES["fps"]
     got = sampling.furthest_point_sample(xyz, npoint)
+    again = sampling.furthest_point_sample(xyz, npoint)
     torch.cuda.synchronize()
+    assert kernels.LAUNCHES["fps"] == before + 2
     assert got.dtype == torch.int32 and got.shape == (B, npoint)
+    assert torch.equal(got, again)
     assert torch.equal(got, sampling.fps_ref(xyz, npoint))
     assert torch.equal(got.cpu(), sampling.fps_ref(xyz.cpu(), npoint))
     if kind == "all_invalid":
         assert torch.all(got == 0)
+    if kind == "one_valid" and npoint > 1 and N > 1:
+        assert torch.all(got[:, 1:] == N // 2)
 
 
 def test_fps_wrapper_rejects_bad_input(cuda_device):

@@ -3,8 +3,10 @@ the JAX package, on the CPU through their plain PyTorch versions.  The CUDA
 kernels themselves are held against the plain versions in test_torch_gpu.py.
 
 JAX's Pallas kernels run as the JAX package's own tests run them: in
-interpret mode, or through their jnp references.  The last test checks that
-the kernel libraries' names hash the csrc/ headers their sources include.
+interpret mode, or through their jnp references.  The FPS kernel's
+selection order (keys, trees, reductions) is emulated in numpy against
+fps_ref.  The last test checks that the kernel libraries' names hash the
+csrc/ headers their sources include.
 """
 
 import shutil
@@ -19,6 +21,7 @@ from pose2room_tpu.ops import sampling as jax_sampling
 from pose2room_tpu.ops import stgcn_fused as jax_fused
 from pose2room_tpu_torch import kernels
 from pose2room_tpu_torch.ops import sampling, stgcn_fused
+from test_torch_gpu import FPS_KINDS, FPS_TIED_PAIRS, fps_cloud
 
 
 def _layer_operands(rng, B, T, W0, C=64):
@@ -97,25 +100,12 @@ def test_first_block_unpadded_input(rng):
         )
 
 
-def _fps_cloud(rng, B, N, kind):
-    xyz = (rng.rand(B, N, 3) * 4 - 2).astype(np.float32)
-    if kind == "near_origin":
-        xyz[:, 1:N // 4] *= 1e-3  # ||p||^2 <= 1e-3: never candidates
-    elif kind == "ties":
-        xyz[:, N // 2:] = xyz[:, : N - N // 2]  # every point duplicated
-        xyz[:, 5] = xyz[:, 9]
-    elif kind == "all_invalid":
-        xyz *= 1e-4
-    elif kind == "grid":  # exact equal distances everywhere
-        g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"), -1).reshape(-1, 3)
-        xyz = np.broadcast_to(g[: N].astype(np.float32) - 1.5, (B, N, 3)).copy()
-    return xyz
-
-
-@pytest.mark.parametrize("kind", ["random", "near_origin", "ties", "all_invalid", "grid"])
-def test_fps_bit_exact_vs_jax(rng, kind):
-    N = 64
-    xyz = _fps_cloud(rng, 3, N, kind)
+@pytest.mark.parametrize("kind,N", [pytest.param(kind, 64, id=kind) for kind in FPS_KINDS]
+                         + [pytest.param(kind, 50, id=f"{kind}-N50") for kind in FPS_KINDS])
+def test_fps_bit_exact_vs_jax(kind, N):
+    """fps_ref against JAX on the clouds of the card test's (3, 64, 16) and
+    (3, 50, 16) cases, so the kernel, its plain version and JAX agree."""
+    xyz = fps_cloud(kind, 3, N, seed=N + 3)
     got = sampling.furthest_point_sample(torch.from_numpy(xyz), 16).numpy()
     assert got.dtype == np.int32 and got.shape == (3, 16)
     np.testing.assert_array_equal(got, np.asarray(jax_sampling._fps_xla(jnp.asarray(xyz), 16)))
@@ -124,6 +114,65 @@ def test_fps_bit_exact_vs_jax(rng, kind):
     )
     if kind == "all_invalid":
         assert np.all(got == 0)
+    if kind == "one_valid":
+        assert np.all(got[:, 1:] == N // 2)
+    if kind == "cross_lane_ties":  # each tied pair present resolves to its lower index
+        picked = set(got[0].tolist())
+        for lo, hi in FPS_TIED_PAIRS:
+            if hi < N:
+                assert lo in picked and hi not in picked
+
+
+def _fps_kernel_order(xyz, npoint, warps, per):
+    """csrc/fps.cu's selection in numpy: kPer points a lane in the blocked
+    layout, scores as the signed-int bits of the running min (-1 for a point
+    that is never a candidate or lies past N), the lane's tree argmax, the
+    warp's max key then its least index holding it (the two redux.sync
+    steps), then the warps' slots in order with a strict '>'."""
+    B, N, _ = xyz.shape
+    P = warps * 32 * per
+    pts = np.zeros((B, P, 3), np.float32)
+    pts[:, :N] = xyz
+    x, y, z = pts[..., 0], pts[..., 1], pts[..., 2]
+    n2 = (x * x + y * y) + z * z
+    mind = np.where((np.arange(P) < N) & (n2 > np.float32(1e-3)), np.float32(1e10), np.float32(-1))
+    out = np.zeros((B, npoint), np.int32)
+    for b in range(B):
+        old = 0
+        for j in range(1, npoint):
+            dx, dy, dz = x[b] - x[b, old], y[b] - y[b, old], z[b] - z[b, old]
+            mind[b] = np.fmin(mind[b], (dx * dx + dy * dy) + dz * dz)
+            key = mind[b].view(np.int32).reshape(warps * 32, per).copy()
+            at = np.broadcast_to(np.arange(per), key.shape).copy()
+            s = 1
+            while s < per:
+                for m in range(0, per, 2 * s):
+                    take = key[:, m + s] > key[:, m]
+                    key[:, m] = np.where(take, key[:, m + s], key[:, m])
+                    at[:, m] = np.where(take, at[:, m + s], at[:, m])
+                s *= 2
+            lane_key = key[:, 0].reshape(warps, 32)
+            lane_idx = (np.arange(warps * 32) * per + at[:, 0]).reshape(warps, 32)
+            best = lane_key.max(axis=1)
+            idx = np.where(lane_key == best[:, None], lane_idx, np.iinfo(np.int32).max).min(axis=1)
+            w = 0
+            for v in range(1, warps):
+                if best[v] > best[w]:
+                    w = v
+            old = out[b, j] = idx[w]
+    return out
+
+
+@pytest.mark.parametrize("warps,per,N", [(4, 4, 500), (4, 8, 1000), (8, 8, 2048), (1, 16, 512)])
+@pytest.mark.parametrize("kind", FPS_KINDS)
+def test_fps_kernel_order_emulated(kind, warps, per, N):
+    """The kernel's keys, trees and reductions, emulated for each layout it
+    launches (and the one-warp layout of scripts/torch_fps_variants.py's
+    variant a), pick the same indices as fps_ref: the signed-int order of
+    the scores' bits and the lowest index on ties."""
+    xyz = fps_cloud(kind, 2, N, seed=N + 2)
+    want = sampling.fps_ref(torch.from_numpy(xyz), 24).numpy()
+    np.testing.assert_array_equal(_fps_kernel_order(xyz, 24, warps, per), want)
 
 
 def test_fps_production_shape_matches_jax(rng):
@@ -159,7 +208,7 @@ def test_cpu_wrappers_never_count_launches(rng):
     kernels.reset_launch_counts()
     x, M, vecs, KB = _layer_operands(rng, 1, 8, 256)
     stgcn_fused.fused_stgcn_layer(*(torch.from_numpy(a) for a in (x, M, vecs, KB)), residual=True)
-    sampling.furthest_point_sample(torch.from_numpy(_fps_cloud(rng, 1, 32, "random")), 4)
+    sampling.furthest_point_sample(torch.from_numpy(fps_cloud("random", 1, 32, seed=0)), 4)
     assert sum(kernels.LAUNCHES.values()) == 0
 
 
