@@ -60,8 +60,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    configs/config_files/p2rnet_train.yaml, global batch 8, f32, on in-memory
    synthetic scenes (16 train with augmentation, 8 val) for one epoch: 2
    train steps and 1 val pass.  Every loss finite, weights and BN running
-   statistics moved, ``model_final.pth`` written and loaded by the demo's
-   ``build_model``; launches exactly 6 train_fwd + 6 train_bwd + 1 FPS per
+   statistics moved, ``model_final.pth`` written and loaded by the runners'
+   ``setup``; launches exactly 6 train_fwd + 6 train_bwd + 1 FPS per
    train step and 6 epilogue + 1 FPS per val step.  Then one train step on
    the card against the same step on the CPU (same weights, B=2 full-width
    batch, same MDN noise): seed and proposal indices equal, loss terms within
@@ -69,6 +69,34 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    within 1e-4.  Then the B=8 train step time (CUDA events, median of 5 after
    2 warm-ups), samples/s, peak memory, and a torch.profiler top-10 with
    the hand-written kernels' rows.
+5b. Train options phase: the train runner at the same width with weight
+   decay 0.01, clip_norm 1.0, a milestone at epoch 1 and a bnscheduler
+   (momentum 0.5, then 0.25), on 16 train and 8 val scenes (2 train steps
+   and 1 val step an epoch), each run from its own working directory (the
+   TensorBoard board writes to ./runs) with its launch counts (6 train_fwd
+   + 6 train_bwd + 1 FPS a train step, 6 epilogue + 1 FPS a val step).
+   R0, R0', R1 and R2 run with PyTorch's deterministic algorithms (the
+   gathers' backward otherwise adds by atomics), the ops without a
+   deterministic implementation listed.  R0 and R0' (2 epochs each):
+   bit-equal or not, and the largest gap.  R1 (1 epoch) and R2 (``resume:
+   True``, a sibling run dir): R2 resumes from R1's model_last_1.pth,
+   starts at epoch index 1, its restored state (net, optimizer, epoch,
+   min_loss) equals the file, its epoch-2 lr, BN momentum and AdamW step
+   counts equal R0's, its epoch-2 mean losses are within 1e-4 relative of
+   R0's, and its final state equals R0's bit for bit where R0 == R0'
+   (scripts/torch_train_determinism.py measures the same pair with the
+   default algorithms).  R3 (``finetune`` from R1's best less one head
+   tensor, ``freeze: [backbone]``, detection ``optim_spec: {lr: 1e-4}``):
+   the partial load
+   logged, every backbone parameter bit-identical under weight decay, its
+   BN running statistics moved, the groups' lr.  The process- and
+   thread-mode loaders (2 workers) at full width: batches bit-equal,
+   samples/s.  R4 (process workers, ``h2d_dtype: float16``,
+   ``profile_steps: 1``, 2 epochs): the step's targets are the
+   float16-rounded host arrays and its input the f32 one, the trace under
+   the run dir names the train kernels and FPS, and the board's tags and
+   steps (or a note that tensorboard is not installed).  The phase's wall
+   time.
 6. Test phase: the test runner at the full width of p2rnet_test.yaml with
    ``model.sparse_eval: true``, random weights from seed 42, on 8 in-memory
    synthetic scenes (900 frames resampled to 768, no augmentation) at batch
@@ -164,6 +192,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -172,14 +201,16 @@ from pose2room_tpu_torch import kernels
 from pose2room_tpu_torch.config.loader import CONFIG, mount_external_config, read_to_dict
 from pose2room_tpu_torch.data import synth
 from pose2room_tpu_torch.data.dataset import SceneDataset, load_demo_clip
-from pose2room_tpu_torch.data.loader import collate
+from pose2room_tpu_torch.data.loader import DataLoader, collate
 from pose2room_tpu_torch.device import set_precision_policy
 from pose2room_tpu_torch.models.graph import SPARSE_JOINT_ORDER, build_spatial_graph
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
 from pose2room_tpu_torch.ops import sampling, stgcn_fused, stgcn_sparse, stgcn_train
-from pose2room_tpu_torch.runners import demo
+from pose2room_tpu_torch.runners import common, demo
 from pose2room_tpu_torch.runners import test as test_runner
 from pose2room_tpu_torch.runners import train as train_runner
+from pose2room_tpu_torch.train import engine
+from pose2room_tpu_torch.train.checkpoint import CheckpointIO
 from pose2room_tpu_torch.train.state import make_optimizer
 from pose2room_tpu_torch.train.step import batch_to_device, train_step
 
@@ -1018,8 +1049,8 @@ def serving_phase(workdir, smi):
 
         # the card's generate against the same model on the CPU (plain versions)
         clip = load_demo_clip(DEMO_CLIP, num_frames=768)[None]
-        gpu_model = demo.build_model(cfg, device="cuda")
-        cpu_model = demo.build_model(cfg, device="cpu")
+        gpu_model = common.build_model(cfg, device="cuda")
+        cpu_model = common.build_model(cfg, device="cpu")
         folded = gpu_model.fold_eval()
         x_gpu = torch.from_numpy(clip).cuda()
         ep_gpu = gpu_model.generate(x_gpu, folded=folded)
@@ -1118,8 +1149,8 @@ def bf16_serving_phase(workdir, smi):
         print(f"bf16 serving: main path launch counts over {n} requests: {launches}")
 
         clip = load_demo_clip(DEMO_CLIP, num_frames=768)[None]
-        gpu = demo.build_model(cfg, device="cuda")
-        cpu = demo.build_model(cfg, device="cpu")
+        gpu = common.build_model(cfg, device="cuda")
+        cpu = common.build_model(cfg, device="cpu")
         folded = gpu.fold_eval()
         x_gpu = torch.from_numpy(clip).cuda()
         ep_gpu = gpu.generate(x_gpu, folded=folded)
@@ -1136,7 +1167,7 @@ def bf16_serving_phase(workdir, smi):
 
     f32_cfg = CONFIG(configs["float32"], mode="demo")
     try:
-        f32_model = demo.build_model(f32_cfg, device="cuda")
+        f32_model = common.build_model(f32_cfg, device="cuda")
     finally:
         f32_cfg.close()
     chains = {"bf16": (gpu, folded), "f32": (f32_model, f32_model.fold_eval())}
@@ -1335,11 +1366,11 @@ def train_phase(workdir, smi):
         demo_cfg = CONFIG(dict(config, finetune=True, weight=[ckpt], seed=0,
                                log={"path": os.path.join(workdir, "demo_out")}), mode="demo")
         try:
-            served = demo.build_model(demo_cfg, device="cuda")
+            served = common.setup(demo_cfg, device="cuda")[0]
         finally:
             demo_cfg.close()
         check(all(torch.equal(served.state_dict()[k], v) for k, v in final.items()),
-              "demo build_model did not load model_final.pth")
+              "demo setup did not load model_final.pth")
         print(f"checkpoint {os.path.basename(ckpt)} written and loaded by the demo runner; "
               f"{len(moved)} of {len(initial)} state tensors moved")
         del model, served
@@ -1349,6 +1380,316 @@ def train_phase(workdir, smi):
         return launches, step_ms, peak_gib
     finally:
         cfg.close()
+
+
+# the options phase's BN-momentum schedule: 0.5 in epoch 1, 0.25 in epoch 2
+# (torch convention), while the lr drops tenfold at the same boundary
+OPTION_BNS = {"bn_momentum_init": 0.5, "bn_decay_rate": 0.5, "bn_decay_step": 1, "bn_momentum_max": 0.001}
+# loader workers of R4 and of the loader comparison: process-mode workers
+# start one after another, ~11 s each on the card's host, since each takes
+# a pickled copy of the in-memory scenes through the pool's start-up pipe
+OPTION_WORKERS = 2
+# the hand-written kernels of a train step, by the names the profiler gives them
+TRAIN_KERNELS = ("train_fwd_kernel", "train_bwd_kernel", "fps_kernel")
+
+
+def options_config(workdir, name, epochs, **extra):
+    """p2rnet_train.yaml at full width, global batch 8, with weight decay,
+    clipping, a milestone at epoch 1 and the BN-momentum schedule; each run
+    keeps its run dirs under <workdir>/<name>."""
+    config = train_config(workdir)
+    config["train"]["epochs"] = epochs
+    config["optimizer"].update(weight_decay=0.01, clip_norm=1.0)
+    config["scheduler"]["milestones"] = [1]
+    config["bnscheduler"] = dict(OPTION_BNS)
+    config["log"].update(path=os.path.join(workdir, name), save_weight_step=1)
+    config.update(extra)
+    return config
+
+
+def options_run(config, datasets, workdir, name):
+    """One train run from its own working directory (the TensorBoard board
+    writes to ./runs).  Launch counts from 0 just before the run, read just
+    after; each train step must launch 6 train_fwd + 6 train_bwd + 1 fps,
+    each val step 6 epilogue + 1 fps.  Returns (model, history, run dir,
+    log text, launches)."""
+    cwd = os.path.join(workdir, f"{name}_cwd")
+    os.makedirs(cwd, exist_ok=True)
+    os.chdir(cwd)
+    cfg = CONFIG(config, mode="train")
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, history = train_runner.run(cfg, datasets=datasets)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        seconds = time.perf_counter() - t0
+    finally:
+        cfg.close()
+        os.chdir(workdir)
+    with open(os.path.join(cfg.save_path, "log.txt")) as f:
+        log = f.read()
+    epochs = len(history)
+    expect = {"stgcn_train_fwd": 6 * 2 * epochs, "stgcn_train_bwd": 6 * 2 * epochs,
+              "stgcn_epilogue": 6 * epochs, "fps": 3 * epochs}
+    print(f"  {name}: {epochs} epoch(s) in {seconds:.1f} s; launch counts {launches}")
+    check(launches == expect, f"{name}: launch counts {launches} != {expect}")
+    for means in history:
+        for phase in ("train", "val"):
+            check(all(np.isfinite(v) for v in means[phase].values()), f"{name}: {phase} losses not finite")
+    return model, history, cfg.save_path, log, launches
+
+
+def load_ckpt(run_dir, suffix):
+    return torch.load(os.path.join(run_dir, f"model_{suffix}.pth"), map_location="cpu", weights_only=True)
+
+
+def tree_gap(a, b):
+    """(bit-equal, largest |a - b| over the float tensors) of two nested
+    checkpoint trees (dicts, lists, tensors, numbers)."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return False, float("inf")
+        parts = [tree_gap(a[k], b[k]) for k in a]
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return False, float("inf")
+        parts = [tree_gap(x, y) for x, y in zip(a, b)]
+    elif torch.is_tensor(a):
+        a, b = a.detach().cpu(), b.detach().cpu()
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False, float("inf")
+        gap = (a.double() - b.double()).abs().max().item() if a.is_floating_point() and a.numel() else 0.0
+        return torch.equal(a, b), gap
+    elif isinstance(a, float) and isinstance(b, float):
+        return a == b, abs(a - b)
+    else:
+        return a == b, 0.0 if a == b else float("inf")
+    return all(p[0] for p in parts), max((p[1] for p in parts), default=0.0)
+
+
+def host_copy(tree):
+    """A copy of a nested dict / list of tensors on the host."""
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_copy(v) for v in tree)
+    return tree.detach().cpu().clone() if torch.is_tensor(tree) else tree
+
+
+def momenta(model):
+    return {m.momentum for m in model.modules() if type(m).__name__ == "BatchNorm"}
+
+
+def loader_rates(datasets, smi):
+    """Process- against thread-mode batches of the train split at full width
+    (OPTION_WORKERS workers each, global batch 8): bit-equal over two
+    epochs, and each mode's samples/s (host clock) once its pool is up."""
+    loaders, rates, epochs = {}, {}, {}
+    try:
+        for mode in ("thread", "process"):
+            loader = loaders[mode] = DataLoader(datasets["train"], batch_size=8, shuffle=True, seed=42,
+                                                num_workers=OPTION_WORKERS, worker_mode=mode)
+            # a process pool starts its workers on demand, each with a pickled
+            # copy of the in-memory scenes, over the first epochs: six
+            # epochs, the rate over the last two
+            epochs[mode], seconds = [], []
+            for epoch in range(6):
+                loader.set_epoch(epoch)
+                t0 = time.perf_counter()
+                batches = list(loader)
+                seconds.append(time.perf_counter() - t0)
+                if epoch < 2:
+                    epochs[mode].append(batches)
+            rates[mode] = 2 * len(datasets["train"]) / sum(seconds[-2:])
+            print(f"  [{smi}] loader {mode}: {rates[mode]:.1f} samples/s at full width over epochs 5-6 "
+                  f"(host clock; epochs 1-6 {', '.join(f'{t:.3f}' for t in seconds)} s)")
+    finally:
+        for loader in loaders.values():
+            loader.close()
+    for a, b in zip(sum(epochs["process"], []), sum(epochs["thread"], [])):
+        check(a["sample_idx"] == b["sample_idx"], "process vs thread loader: sample order differs")
+        for k in a:
+            if k != "sample_idx":
+                check(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]),
+                      f"process vs thread loader: {k} differs")
+    print(f"  process-mode batches == thread-mode batches, bit for bit ({len(sum(epochs['thread'], []))} batches); "
+          f"process / thread samples/s {rates['process'] / rates['thread']:.3f}")
+    return epochs["thread"]
+
+
+def board_scalars(run_cwd):
+    """The LogBoard's scalars under <run_cwd>/runs, {tag: [steps]}, or None
+    where tensorboard is not installed (the board is then a no-op)."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter  # noqa: F401
+        from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+    except ImportError:
+        return None
+    acc = EventAccumulator(os.path.join(run_cwd, "runs"))
+    acc.Reload()
+    return {tag: [e.step for e in acc.Scalars(tag)] for tag in acc.Tags()["scalars"]}
+
+
+def resume_runs(datasets, workdir):
+    """R0 and R0' (2 epochs each), R1 (1 epoch) and R2 (R1 resumed for the
+    second epoch in a sibling run dir), with R2's restored state captured as
+    ``load_into_state`` leaves it, held against R1's file and against R0.
+    Returns R1's run dir."""
+    m0, h0, d0, log0, _ = options_run(options_config(workdir, "r0", 2), datasets, workdir, "r0")
+    _, h0b, d0b, _, _ = options_run(options_config(workdir, "r0b", 2), datasets, workdir, "r0b")
+    final0 = load_ckpt(d0, "final")
+    same0, gap0 = tree_gap(final0, load_ckpt(d0b, "final"))
+    print(f"  R0 vs R0' (two uninterrupted runs): bit-equal {same0}, largest gap {gap0:.3e}")
+    _, _, d1, _, _ = options_run(options_config(workdir, "r1", 1), datasets, workdir, "r1")
+    same1, gap1 = tree_gap(load_ckpt(d1, "last_1"), load_ckpt(d0, "last_1"))
+    print(f"  R1 vs R0 after epoch 1 (model_last_1): bit-equal {same1}, largest gap {gap1:.3e}")
+    restored = {}
+    load_into_state = CheckpointIO.load_into_state
+
+    def capture(path, model, optimizer):
+        epoch, min_loss = load_into_state(path, model, optimizer)
+        restored.update(path=path, net=host_copy(model.state_dict()), optimizer=host_copy(optimizer.state_dict()),
+                        epoch=epoch, min_loss=min_loss)
+        return epoch, min_loss
+
+    CheckpointIO.load_into_state = staticmethod(capture)
+    try:
+        m2, h2, d2, log2, _ = options_run(options_config(workdir, "r1", 2, resume=True), datasets, workdir, "r2")
+    finally:
+        CheckpointIO.load_into_state = staticmethod(load_into_state)
+    last1 = os.path.join(d1, "model_last_1.pth")
+    check(os.path.dirname(d2) == os.path.dirname(d1) and d2 != d1, "R2 is not in a sibling run dir of R1")
+    check(f"Resuming from {last1}" in log2 and restored.get("path") == last1, f"R2 did not resume from {last1}")
+    check("-- Epoch 1/2" not in log2 and "-- Epoch 2/2" in log2 and len(h2) == 1, "R2 did not start at epoch index 1")
+    saved = load_ckpt(d1, "last_1")
+    same_restored, _ = tree_gap({k: restored[k] for k in saved}, saved)
+    check(same_restored, "R2's restored state differs from R1's model_last_1.pth")
+    final2 = load_ckpt(d2, "final")
+    for g2, g0 in zip(final2["optimizer"]["param_groups"], final0["optimizer"]["param_groups"]):
+        check(g2["lr"] == g0["lr"] and abs(g0["lr"] - 1e-4) < 1e-12, f"R2 vs R0 epoch-2 lr: {g2['lr']} vs {g0['lr']}")
+    steps = lambda ck: sorted(float(s["step"]) for s in ck["optimizer"]["state"].values())  # noqa: E731
+    check(steps(final2) == steps(final0) and set(steps(final0)) == {4.0}, "R2 vs R0: AdamW step counts")
+    bn_log = r"Current BN decay momentum :([0-9.]+)\."
+    check(re.findall(bn_log, log2) == re.findall(bn_log, log0)[1:] == ["0.250000"], "R2 vs R0: epoch-2 BN momentum")
+    check(momenta(m2) == momenta(m0) == {0.75}, "R2 vs R0: BatchNorm keep-rates")
+    loss_gap = {k: abs(h2[0]["train"][k] - h0[1]["train"][k]) / max(abs(h0[1]["train"][k]), 1e-7)
+                for k in h0[1]["train"]}
+    loss_gap.update({f"val/{k}": abs(h2[0]["val"][k] - h0[1]["val"][k]) / max(abs(h0[1]["val"][k]), 1e-7)
+                     for k in h0[1]["val"]})
+    print(f"  R2 resumed from {os.path.basename(d1)}/model_last_1.pth: restored state == the file "
+          f"(net, optimizer, epoch {restored['epoch']}, min_loss {restored['min_loss']:.6f}); epoch-2 lr 1e-4, "
+          f"BN momentum 0.25, AdamW steps 4 as R0; epoch-2 mean losses vs R0, max rel gap {max(loss_gap.values()):.2e}")
+    spread = {k: abs(h0b[1][p][k] - h0[1][p][k]) / max(abs(h0[1][p][k]), 1e-7)
+              for p in ("train", "val") for k in h0[1][p]}
+    print(f"  R0' vs R0 epoch-2 mean losses, max rel gap {max(spread.values()):.2e}")
+    check(max(loss_gap.values()) <= 1e-4, f"R2 vs R0 epoch-2 mean losses: {loss_gap}")
+    same2, gap2 = tree_gap(final2, final0)
+    print(f"  R2 vs R0 final state: bit-equal {same2}, largest gap {gap2:.3e} (R0 vs R0': {same0}, {gap0:.3e})")
+    if same0:
+        check(same2, "R0 == R0' bit for bit, but the resumed R2 differs from R0")
+    return d1
+
+
+def options_phase(workdir, smi):
+    """The train runner's options at full width (p2rnet_train.yaml, global
+    batch 8, 16 train and 8 val scenes: 2 train steps and 1 val step an
+    epoch): resume, finetune + freeze + optim_spec, process workers,
+    h2d_dtype, a profile window and the board.  Launch counts of every run:
+    6 train_fwd + 6 train_bwd + 1 fps a train step, 6 epilogue + 1 fps a val
+    step."""
+    datasets = scene_datasets(seed=5, n_train=16, n_val=8)
+    t_phase = time.perf_counter()
+
+    # The gathers' backward adds by atomics on the card, so two runs of the
+    # default step differ; R0, R0', R1 and R2 run with PyTorch's
+    # deterministic algorithms, whose fallbacks are listed.
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            d1 = resume_runs(datasets, workdir)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    fallbacks = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                        if "deterministic" in str(w.message)})
+    print(f"  deterministic algorithms on for R0, R0', R1, R2; {len(fallbacks)} ops without a deterministic "
+          f"implementation warned{':' if fallbacks else ''}")
+    for msg in fallbacks:
+        print(f"    {msg}")
+
+    # R3: finetune from R1's best less one head tensor, backbone frozen,
+    # the detection module at its own lr
+    best1 = load_ckpt(d1, "best")["net"]
+    head = "detection.conv_sem_obj.2.conv.weight"
+    weight = os.path.join(workdir, "r1_best_less_head.pth")
+    torch.save({"net": {k: v for k, v in best1.items() if k != head}}, weight)
+    config = options_config(workdir, "r3", 1, finetune=True, weight=[weight])
+    config["train"]["freeze"] = ["backbone"]
+    config["model"]["detection"] = {**config["model"]["detection"], "optim_spec": {"lr": 1e-4}}
+    m3, _, d3, log3, _ = options_run(config, datasets, workdir, "r3")
+    check(f"partial weight load: {len(best1) - 1}/{len(best1)} tensors" in log3, "R3: the partial load was not logged")
+    final3 = m3.state_dict()
+    params = {k for k, _ in m3.named_parameters()}
+    backbone = [k for k in params if k.startswith("backbone.")]
+    stats = [k for k in final3 if k.startswith("backbone.") and k.endswith(("running_mean", "running_var"))]
+    check(all(torch.equal(final3[k].cpu(), best1[k]) for k in backbone),
+          "R3: a frozen backbone parameter moved")
+    check(all(not torch.equal(final3[k].cpu(), best1[k]) for k in stats), "R3: a backbone BN running statistic did not move")
+    moved = [k for k in params if not k.startswith("backbone.") and k != head and not torch.equal(final3[k].cpu(), best1[k])]
+    groups = {g["name"]: g["lr"] for g in load_ckpt(d3, "final")["optimizer"]["param_groups"]}
+    check(groups == {"centervoting": 1e-3, "detection": 1e-4}, f"R3 param groups' lr {groups}")
+    print(f"  R3 (finetune less {head}, freeze backbone, detection lr 1e-4): {len(backbone)} backbone parameters "
+          f"bit-identical under weight decay 0.01, {len(stats)} backbone running statistics moved, "
+          f"{len(moved)} other parameters moved; group lr {groups}")
+    del m3
+
+    # R4: process workers, h2d_dtype float16, a profile window, the board
+    thread_epochs = loader_rates(datasets, smi)
+    seen = []
+    train_step_fn = engine.train_step
+
+    def recording_step(model, optimizer, batch, **kw):
+        seen.append({k: v.cpu() for k, v in batch.items()})
+        return train_step_fn(model, optimizer, batch, **kw)
+
+    config = options_config(workdir, "r4", 2)
+    config["device"].update(worker_mode="process", num_workers=OPTION_WORKERS)
+    config["train"]["h2d_dtype"] = "float16"
+    config["log"]["profile_steps"] = 1
+    engine.train_step = recording_step
+    try:
+        _, _, d4, _, _ = options_run(config, datasets, workdir, "r4")
+    finally:
+        engine.train_step = train_step_fn
+    host = sum(thread_epochs, [])
+    check(len(seen) == len(host) == 4, f"R4: {len(seen)} train steps")
+    for got, batch in zip(seen, host):
+        check(torch.equal(got["input_joints"], torch.from_numpy(batch["input_joints"])), "R4: input_joints changed")
+        for k, v in got.items():
+            if k == "input_joints":
+                continue
+            want = batch[k].astype(np.float16).astype(np.float32) if batch[k].dtype == np.float32 else batch[k]
+            check(v.dtype == torch.from_numpy(want).dtype and np.array_equal(v.numpy(), want),
+                  f"R4: the step's {k} is not the float16-rounded host array")
+    traces = [os.path.join(d4, "profile", f) for f in os.listdir(os.path.join(d4, "profile"))]
+    check(len(traces) == 1, f"R4: {len(traces)} profile traces")
+    with open(traces[0]) as f:
+        text = f.read()
+    named = {k: text.count(k) for k in TRAIN_KERNELS}
+    check(all(named.values()), f"R4: the trace does not name every hand-written train kernel: {named}")
+    print(f"  R4 (process workers, h2d_dtype float16, profile_steps 1): the step saw the float16-rounded "
+          f"targets and the f32 input; trace {os.path.basename(traces[0])} ({len(text) / 2**20:.1f} MiB) "
+          f"names {named}")
+    scalars = board_scalars(os.path.join(workdir, "r4_cwd"))
+    if scalars is None:
+        print("  tensorboard is not installed: the LogBoard is a no-op, as in the JAX package")
+    else:
+        check(scalars.get("total/train") == [1, 2, 3, 4] and scalars.get("total/val") == [2, 4]
+              and "grad_norm/train" in scalars, f"R4 board scalars {scalars}")
+        print(f"  LogBoard: {len(scalars)} tags, total/train at steps {scalars['total/train']}, "
+              f"total/val at {scalars['total/val']}")
+    print(f"train options phase wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 def bulk_gap(a, b):
@@ -1606,11 +1947,11 @@ def bf16_train_phase(workdir, smi):
         demo_cfg = CONFIG(dict(configs["bf16"], finetune=True, weight=[ckpt], seed=0,
                                log={"path": os.path.join(workdir, "demo_out_bf16")}), mode="demo")
         try:
-            served = demo.build_model(demo_cfg, device="cuda")
+            served = common.setup(demo_cfg, device="cuda")[0]
         finally:
             demo_cfg.close()
         check(served.compute_dtype == BF16 and all(torch.equal(served.state_dict()[k], v) for k, v in final.items()),
-              "demo build_model did not load the bf16 run's model_final.pth")
+              "demo setup did not load the bf16 run's model_final.pth")
         print(f"bf16 checkpoint {os.path.basename(ckpt)} written and loaded by the bf16 demo runner; "
               f"{len(moved)} of {len(initial)} state tensors moved")
         del model, served
@@ -1680,8 +2021,8 @@ def test_phase(workdir, smi):
 
         # the card's sparse generate against the CPU's and against the card's dense chain
         clip = torch.from_numpy(dataset[0]["input_joints"][None])
-        gpu = demo.build_model(cfg, device="cuda")
-        cpu = demo.build_model(cfg, device="cpu")
+        gpu = common.build_model(cfg, device="cuda")
+        cpu = common.build_model(cfg, device="cpu")
         dense = P2RNet(dataclasses.replace(gpu.config, sparse_eval=False), device="cuda")
         dense.load_state_dict(gpu.state_dict())
         folded_s, folded_d = gpu.fold_eval(), dense.fold_eval()
@@ -1762,8 +2103,8 @@ def bf16_test_phase(workdir, smi):
               f"2-{n} {np.median(batch_ms[1:]):.3f} ms; launch counts {launches}")
 
         clip = torch.from_numpy(dataset[0]["input_joints"][None])
-        gpu = demo.build_model(cfg, device="cuda")
-        cpu = demo.build_model(cfg, device="cpu")
+        gpu = common.build_model(cfg, device="cuda")
+        cpu = common.build_model(cfg, device="cpu")
         ep_gpu = gpu.generate(clip.cuda(), folded=gpu.fold_eval())
         ep_cpu = cpu.generate(clip, folded=cpu.fold_eval())
         agree, gaps = bf16_generate_gap(ep_gpu, ep_cpu, "bf16 sparse card vs CPU")
@@ -1793,7 +2134,7 @@ def bf16_test_phase(workdir, smi):
         cfg = CONFIG(config, mode="test")
         try:
             results[dev] = test_runner.run(cfg, device=dev, dataset=small)
-            m = demo.build_model(cfg, device=dev)
+            m = common.setup(cfg, device=dev)[0]
             f = m.fold_eval()
             inds[dev] = [m.generate(torch.from_numpy(small[i]["input_joints"][None]).to(dev),
                                    folded=f)["aggregated_vote_inds"].cpu() for i in range(len(small))]
@@ -1846,12 +2187,15 @@ def main():
     rows.update(bf16_train_kernel_phase(dev, smi))
     print(f"bf16 kernel phase {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as workdir:
+        os.chdir(workdir)  # the train runs' TensorBoard boards write to ./runs
         t0 = time.perf_counter()
         launches = serving_phase(workdir, smi)
         print(f"serving phase {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         train_launches, _, _ = train_phase(workdir, smi)
         print(f"train phase {time.perf_counter() - t0:.1f} s")
+        print("train options phase:")
+        options_phase(workdir, smi)
         t0 = time.perf_counter()
         test_launches = test_phase(workdir, smi)
         print(f"test phase {time.perf_counter() - t0:.1f} s")
@@ -1864,6 +2208,7 @@ def main():
         t0 = time.perf_counter()
         bf16_train_launches = bf16_train_phase(workdir, smi)
         print(f"bf16 train phase {time.perf_counter() - t0:.1f} s")
+        os.chdir(REPO)
 
     line = {"kernels": [
         {"name": "stgcn_epilogue", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_epilogue.cu",

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from pose2room_tpu_torch.device import assert_precision_policy, resolve_device
+from pose2room_tpu_torch.models.layers import BatchNorm
 from pose2room_tpu_torch.models.proposal import MDN_KEYS, ProposalNet
 from pose2room_tpu_torch.models.stgcn import STGCN
 from pose2room_tpu_torch.models.vote import CenterVote, l2_normalize
@@ -121,6 +122,15 @@ class P2RNet(nn.Module):
         unit edge importance, grid mu, zero log_sigma."""
         for part in (self.backbone, self.centervoting, self.detection):
             part.reset_parameters(generator)
+
+    def set_bn_momentum(self, momentum):
+        """Set every BatchNorm's EMA keep-rate (flax convention, = 1 - torch
+        momentum), which the module path and the fused train chain's
+        ``update_running_stats`` both read: the ``bnscheduler`` schedule."""
+        self.config = dataclasses.replace(self.config, bn_momentum=float(momentum))
+        for module in self.modules():
+            if isinstance(module, BatchNorm):
+                module.momentum = float(momentum)
 
     def fold_eval(self):
         """Weight-only operands of the fused eval chain; fold once per weight

@@ -2,8 +2,10 @@
 
 Port of pose2room_tpu/runners/demo.py (reference demo.py).  Headless: each
 request's predictions are dumped as .npz / .json / .ply (utils/vis.py) in the
-reference formats.  The model folds its graph operands once per weight load
-and every request reuses them.
+reference formats.  The model comes from ``runners.common.setup``: the
+config's ``method``, then ``resume`` or ``finetune`` as in training.  The
+model folds its graph operands once per weight load and every request
+reuses them.
 """
 
 import glob
@@ -13,34 +15,12 @@ import time
 import numpy as np
 import torch
 
-from pose2room_tpu_torch.config.loader import mount_external_config
-from pose2room_tpu_torch.convert import load_partial_state_dict
 from pose2room_tpu_torch.data.dataset import load_demo_clip
 from pose2room_tpu_torch.device import resolve_device
 from pose2room_tpu_torch.eval.parse import assembly_pred_map_cls, parse_predictions
-from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
+from pose2room_tpu_torch.runners.common import setup
 from pose2room_tpu_torch.train.state import check_unported_keys
 from pose2room_tpu_torch.utils.vis import dump_predictions, write_ply_boxes, write_ply_points
-
-
-def build_model(cfg, device=None):
-    """P2RNet from the config: initialised from ``seed`` with a
-    torch.Generator, then, when ``finetune`` is set, each ``weight:``
-    checkpoint (reference or port layout) loaded partially: tensors whose key
-    and shape match, each skip logged (``convert.load_partial_state_dict``).
-    Also mounts the dataset and eval configs on ``cfg``."""
-    mount_external_config(cfg)
-    seed = int(cfg.config.get("seed", 42))
-    model = P2RNet(
-        P2RNetConfig.from_cfg(cfg), device=device,
-        generator=torch.Generator().manual_seed(seed),
-    )
-    if cfg.config.get("finetune", False):
-        for path in cfg.config.get("weight", []) or []:
-            cfg.log_string(f"Loading weights from {path}")
-            ckpt = torch.load(path, map_location="cpu", weights_only=True)
-            load_partial_state_dict(model, ckpt.get("net", ckpt), log=cfg.log_string)
-    return model
 
 
 def run(cfg, device=None):
@@ -59,7 +39,7 @@ def run(cfg, device=None):
         cfg.log_string(f"No demo .npy inputs under {demo_path}")
         return []
     device = resolve_device(device)
-    model = build_model(cfg, device)
+    model = setup(cfg, device)[0]
     folded = model.fold_eval()
 
     data_cfg = cfg.config["data"]

@@ -29,7 +29,7 @@ from pose2room_tpu_torch.eval.parse import (
     parse_predictions_device,
 )
 from pose2room_tpu_torch.models.loss import detection_loss
-from pose2room_tpu_torch.runners.demo import build_model
+from pose2room_tpu_torch.runners.common import setup
 from pose2room_tpu_torch.runners.train import split_datasets
 from pose2room_tpu_torch.train.state import check_unported_keys
 from pose2room_tpu_torch.train.step import batch_to_device
@@ -57,8 +57,9 @@ def _to_host(obj):
 
 
 def run(cfg, device=None, dataset=None):
-    """Evaluate the model of the config (``demo.build_model``: ``finetune`` /
-    ``weight``, else random weights from ``seed``) on the test split.
+    """Evaluate the model of the config (``common.setup``: the ``method``'s
+    model with ``resume`` or ``finetune`` / ``weight``, else random weights
+    from ``seed``) on the test split.
 
     ``dataset``: an in-memory dataset (e.g. ``data.dataset.SceneDataset``)
     used instead of ``data.split``/test.json.  Returns {iou_thresh: metrics}.
@@ -73,7 +74,7 @@ def run(cfg, device=None, dataset=None):
         raise NotImplementedError("eval_mesh_ap (voxel-occupancy AP) is not ported")
     device = resolve_device(device)
     dataset = dataset if dataset is not None else split_datasets(cfg, ("test",))["test"]
-    model = build_model(cfg, device)
+    model = setup(cfg, device)[0]
     folded = model.fold_eval()
     eval_cfg = cfg.eval_config
     batch_size = resolve_test_batch_size(eval_cfg["batch_size"])

@@ -1,25 +1,22 @@
 """Train runner (port of pose2room_tpu/runners/train.py, reference
-train.py:11-61): model from the config's seed, AdamW, HDF5 loaders over
-``data.split`` and the epoch loop; checkpoints under the run directory.
-``model.compute_dtype: bfloat16`` trains in bf16 (f32 parameters, optimizer
-state and checkpoints; the val step runs the bf16 eval chain).
+train.py:11-61): the model and AdamW from ``runners.common.setup``
+(``method``, ``resume``, ``finetune``, ``train.freeze``, ``optim_spec``),
+HDF5 loaders over ``data.split`` (thread or process workers) and the epoch
+loop; checkpoints under the run directory.  ``model.compute_dtype:
+bfloat16`` trains in bf16 (f32 parameters, optimizer state and
+checkpoints; the val step runs the bf16 eval chain).
 
-Resume, finetune, ``freeze``, ``optim_spec``, ``bnscheduler`` and the keys
-of ``train.state.check_unported_keys`` are not ported and raise.
+The keys of ``train.state.check_unported_keys`` are not ported and raise.
 """
 
 import os
 
-import torch
-
-from pose2room_tpu_torch.config.loader import mount_external_config
 from pose2room_tpu_torch.data.dataset import P2RNetDataset
 from pose2room_tpu_torch.data.loader import DataLoader
 from pose2room_tpu_torch.device import resolve_device
-from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
-from pose2room_tpu_torch.train.checkpoint import CheckpointIO
+from pose2room_tpu_torch.runners.common import setup
 from pose2room_tpu_torch.train.engine import train as train_loop
-from pose2room_tpu_torch.train.state import check_supported, make_optimizer
+from pose2room_tpu_torch.train.state import check_unported_keys
 
 
 def split_datasets(cfg, modes=("train", "val")):
@@ -49,20 +46,15 @@ def run(cfg, device=None, datasets=None):
     ``__getitem__(idx, rng)``, e.g. ``data.dataset.SceneDataset``).
 
     Returns (model, history): the trained model and one {"train", "val"}
-    dict of mean losses per epoch.  The checkpoints are
-    ``<cfg.save_path>/model_{best,last_<e>,final}.pth``.
+    dict of mean losses per epoch run (from ``start_epoch`` on a resume).
+    The checkpoints are ``<cfg.save_path>/model_{best,last_<e>,final}.pth``.
     """
     config = cfg.config
-    check_supported(config)
-    if config.get("resume") or config.get("finetune"):
-        raise NotImplementedError("resume / finetune of a training run is not ported")
-    mount_external_config(cfg)
+    check_unported_keys(config)
     device = resolve_device(device)
     seed = int(config.get("seed", 42))
     cfg.log_string("Setting up model.")
-    model = P2RNet(P2RNetConfig.from_cfg(cfg), device=device,
-                   generator=torch.Generator().manual_seed(seed))
-    optimizer, base_lr, clip_norm = make_optimizer(model, config.get("optimizer"))
+    model, optimizer, base_lrs, clip_norm, checkpoint, start_epoch, min_loss = setup(cfg, device)
     datasets = datasets if datasets is not None else split_datasets(cfg)
     device_cfg = config.get("device", {}) or {}
     loaders = {
@@ -76,8 +68,8 @@ def run(cfg, device=None, datasets=None):
     cfg.log_string(f"{len(datasets['train'])} train / {len(datasets['val'])} val samples")
     cfg.log_string("Starting training.")
     try:
-        history = train_loop(cfg, model, optimizer, base_lr, clip_norm, loaders["train"],
-                             loaders["val"], CheckpointIO(cfg.save_path, cfg.log_string))
+        history = train_loop(cfg, model, optimizer, base_lrs, clip_norm, loaders["train"],
+                             loaders["val"], checkpoint, start_epoch=start_epoch, min_loss=min_loss)
     finally:
         for loader in loaders.values():
             loader.close()

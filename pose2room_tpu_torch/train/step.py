@@ -7,6 +7,7 @@ come back as device tensors; the engine reads them one step late, so the
 host never waits for the card between steps.
 """
 
+import numpy as np
 import torch
 
 from pose2room_tpu_torch.models.loss import detection_loss
@@ -23,9 +24,24 @@ GT_KEYS = (
 )
 
 
-def batch_to_device(batch, device):
-    """The model input and GT arrays of a collated numpy batch as tensors on ``device``."""
-    return {k: torch.from_numpy(batch[k]).to(device) for k in ("input_joints", *GT_KEYS)}
+def batch_to_device(batch, device, h2d_dtype=None):
+    """The model input and GT arrays of a collated numpy batch as tensors on
+    ``device``.
+
+    ``h2d_dtype`` (``train.h2d_dtype``, e.g. 'float16'; JAX
+    engine.device_prefetch): the float32 target arrays are cast to it on the
+    host before the upload and back to float32 on the device, to cut the
+    bytes moved.  ``input_joints`` is never cast: rounding the model input
+    can flip FPS and ball-query selections."""
+    cast_to = np.dtype(h2d_dtype) if h2d_dtype else None
+    out = {}
+    for k in ("input_joints", *GT_KEYS):
+        x = batch[k]
+        if cast_to is not None and k != "input_joints" and x.dtype == np.float32:
+            out[k] = torch.from_numpy(x.astype(cast_to)).to(device).float()
+        else:
+            out[k] = torch.from_numpy(x).to(device)
+    return out
 
 
 def train_step(model, optimizer, batch, *, eps=None, generator=None, clip_norm=-1.0,
@@ -35,12 +51,16 @@ def train_step(model, optimizer, batch, *, eps=None, generator=None, clip_norm=-
     ``eps`` / ``generator``: the MDN noise, or the CPU generator it is drawn
     from (see ``P2RNet.forward``).  Returns (losses, end_points): detached
     scalar tensors including ``grad_norm``, and the forward's outputs.  The
-    gradients stay in each parameter's ``.grad`` until the next step.
+    gradients stay in each parameter's ``.grad`` until the next step.  Every
+    parameter gets its gradient, those of a frozen module (in no param
+    group) too, and all count in the global norm and its clipping.
     """
     model.train()
     end_points = model(batch["input_joints"], eps=eps, generator=generator)
     losses = detection_loss(end_points, batch, origin_joint_id)
-    optimizer.zero_grad(set_to_none=True)
+    # the model's, not the optimizer's: a frozen module's .grad would
+    # otherwise accumulate across steps and grow the global norm
+    model.zero_grad(set_to_none=True)
     losses["total"].backward()
     grads = [p.grad for p in model.parameters() if p.grad is not None]
     with torch.no_grad():

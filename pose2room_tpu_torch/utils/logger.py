@@ -1,6 +1,6 @@
-"""Loss recording (port of pose2room_tpu/utils/logger.py, reference
-net_utils/utils.py:296-340), single process.  The TensorBoard LogBoard is
-not ported."""
+"""Loss recording and TensorBoard logging (port of
+pose2room_tpu/utils/logger.py, reference net_utils/utils.py:296-405),
+single process."""
 
 
 class AverageMeter:
@@ -30,3 +30,28 @@ class LossRecorder:
 
     def means(self):
         return {k: m.avg for k, m in self.loss_recorder.items()}
+
+
+class LogBoard:
+    """TensorBoard scalar writer: ``"{key}/{phase}"`` tags at the caller's
+    step numbers, in ``logdir`` (default ``runs``, relative to the working
+    directory, as the JAX package and the reference write it).  A no-op
+    where tensorboard does not import, as in the JAX package."""
+
+    def __init__(self, logdir="runs"):
+        self.writer = None
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            return
+        self.writer = SummaryWriter(logdir)
+
+    def update(self, value_dict, step, phase):
+        if self.writer is None:
+            return
+        for key, value in value_dict.items():
+            self.writer.add_scalar(f"{key}/{phase}", float(value), step)
+
+    def close(self):
+        if self.writer is not None:
+            self.writer.close()

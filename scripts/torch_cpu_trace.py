@@ -10,7 +10,7 @@ p2rnet_test.yaml (T=768, 512 seeds, 128 proposals, 100 gaussians; then
 each tensor is stored as its CRC-32, sum and sum of magnitudes, which keeps
 the dump small): two synthetic scenes from numpy's RandomState(5)
 through ``SceneDataset``, the model's weights from torch.Generator seed 42
-(as ``runners/demo.build_model`` makes them), then ``generate`` on both clips
+(as ``runners/common.build_model`` makes them), then ``generate`` on both clips
 and the detection losses.  It stores, in the order they arise, the scenes'
 items, every parameter and buffer after the init, the output of every
 module call (a global forward hook) and every loss, each under a key that

@@ -34,7 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from pose2room_tpu_torch.config.loader import CONFIG, read_to_dict  # noqa: E402
 from pose2room_tpu_torch.data.dataset import load_demo_clip  # noqa: E402
 from pose2room_tpu_torch.eval.parse import assembly_pred_map_cls, parse_predictions  # noqa: E402
-from pose2room_tpu_torch.runners import demo  # noqa: E402
+from pose2room_tpu_torch.runners import common  # noqa: E402
 from pose2room_tpu_torch.utils.vis import dump_predictions, write_ply_points  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -113,7 +113,7 @@ def main():
         config["log"]["path"] = workdir
         cfg = CONFIG(config, mode="demo")
         try:
-            model = demo.build_model(cfg, device="cuda")
+            model = common.build_model(cfg, device="cuda")
             t0 = time.perf_counter()
             folded = model.fold_eval()
             torch.cuda.synchronize()

@@ -46,7 +46,7 @@ from pose2room_tpu_torch.data import synth
 from pose2room_tpu_torch.models.graph import build_spatial_graph
 from pose2room_tpu_torch.models.layers import MLP1x1, STGCNBlock
 from pose2room_tpu_torch.ops import stgcn_train
-from pose2room_tpu_torch.runners import demo
+from pose2room_tpu_torch.runners import common
 from pose2room_tpu_torch.train import state
 from pose2room_tpu_torch.train.step import GT_KEYS, batch_to_device, train_step
 from torch_port_util import (
@@ -579,10 +579,11 @@ def test_train_step_bf16_matches_jax(bf16_step_case):
             np.testing.assert_allclose(buf.numpy(), ref_sd[name].numpy(), atol=2e-2, rtol=2e-2, err_msg=name)
 
 
-def test_cli_bf16_train_on_cpu_then_demo_loads_checkpoint(tmp_path):
+def test_cli_bf16_train_on_cpu_then_demo_loads_checkpoint(tmp_path, monkeypatch):
     """``--mode train --device cpu`` with ``compute_dtype: bfloat16`` for
     one epoch: finite losses, f32 checkpoints, which the bf16 demo runner
     loads bit for bit."""
+    monkeypatch.chdir(tmp_path)  # the TensorBoard board writes to ./runs
     synth.write_synthetic_dataset(str(tmp_path / "ds"), n_train=3, n_test=2, seed=1, n_frames=120)
     config = yaml.safe_load(open(TRAIN_YAML))
     config["data"].update(split=str(tmp_path / "ds" / "splits" / "script_level"),
@@ -608,7 +609,7 @@ def test_cli_bf16_train_on_cpu_then_demo_loads_checkpoint(tmp_path):
     demo_cfg["log"] = dict(config["log"], path=str(tmp_path / "demo_out"))
     cfg = CONFIG(demo_cfg, mode="demo")
     try:
-        served = demo.build_model(cfg, device="cpu")
+        served = common.setup(cfg, device="cpu")[0]
     finally:
         cfg.close()
     assert served.compute_dtype == BF16

@@ -761,3 +761,59 @@ def test_fused_train_layer_bf16_card_matches_cpu(cuda_device):
         if i != 6:
             assert _bulk_ok(a, b), f"grad {i}"
     assert torch.all(grads_g[6] == 0)  # conv bias: the analytic zero
+
+
+def test_train_options_on_card(cuda_device, tmp_path, monkeypatch):
+    """A SMALL train run on the card with ``train.freeze: [backbone]``,
+    ``h2d_dtype: float16`` and ``profile_steps: 1`` (4 train steps of 1, 1
+    val step of 2): 6 train_fwd + 6 train_bwd + 1 fps launches a train step
+    (the frozen backbone still gets its backward), 6 epilogue + 1 fps a val
+    step; every backbone parameter bit-identical; the trace names the three
+    hand-written train kernels."""
+    import glob
+    import os
+
+    import yaml
+
+    from pose2room_tpu_torch.config.loader import CONFIG
+    from pose2room_tpu_torch.data import synth
+    from pose2room_tpu_torch.data.dataset import SceneDataset
+    from pose2room_tpu_torch.runners import train as train_runner
+
+    monkeypatch.chdir(tmp_path)  # the TensorBoard board writes to ./runs
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    config = yaml.safe_load(open(os.path.join(repo, "configs", "config_files", "p2rnet_train.yaml")))
+    config["data"].update(num_frames=96, num_seeds=64, num_target=16, num_gaussian=10)
+    config["train"].update(epochs=1, batch_size=1, freeze=["backbone"], h2d_dtype="float16")
+    config["val"]["batch_size"] = 2
+    config["optimizer"]["weight_decay"] = 0.01
+    config["log"].update(path=str(tmp_path / "out"), profile_steps=1)
+    rng = np.random.RandomState(2)
+    scenes = [synth.as_stored(*synth.make_scene(rng, n_objects=3, n_frames=120)) for _ in range(6)]
+    datasets = {"train": SceneDataset(scenes[:4], num_frames=96, augment=True),
+                "val": SceneDataset(scenes[4:], num_frames=96)}
+    initial = P2RNet(P2RNetConfig(num_frames=96, num_seeds=64, num_proposals=16, num_gaussian=10), device="cpu",
+                     generator=torch.Generator().manual_seed(42)).state_dict()
+    cfg = CONFIG(config, mode="train")
+    try:
+        kernels.reset_launch_counts()
+        model, history = train_runner.run(cfg, device=cuda_device, datasets=datasets)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        cfg.close()
+    assert launches == {"stgcn_train_fwd": 24, "stgcn_train_bwd": 24, "stgcn_epilogue": 6, "fps": 5}
+    assert np.isfinite(history[0]["train"]["total"])
+    final = model.state_dict()
+    names = [k for k, _ in model.named_parameters()]
+    for k in names:
+        if k.startswith("backbone."):
+            assert torch.equal(final[k].cpu(), initial[k]), k
+    # a head whose loss term has no positive proposal yet keeps a zero gradient
+    moved = [k for k in names if not k.startswith("backbone.") and not torch.equal(final[k].cpu(), initial[k])]
+    assert len(moved) > len([k for k in names if not k.startswith("backbone.")]) // 2
+    (trace,) = glob.glob(os.path.join(cfg.save_path, "profile", "*.pt.trace.json"))
+    with open(trace) as f:
+        text = f.read()
+    for name in ("train_fwd_kernel", "train_bwd_kernel", "fps_kernel"):
+        assert name in text, name

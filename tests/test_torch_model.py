@@ -171,7 +171,7 @@ def test_linspace_seeds_when_seeds_cover_frames(payload):
 
 
 @pytest.mark.parametrize("path", ["train_forward", "train_runner"])
-def test_unported_options_raise(path, tmp_path):
+def test_unported_options_raise(path, tmp_path, monkeypatch):
     """bf16 training is ported: the train-mode forward gives finite outputs
     (bf16 logits, as in JAX) and gradients that reach every f32 parameter,
     and the train runner finishes an epoch; an unported compute dtype still
@@ -188,6 +188,7 @@ def test_unported_options_raise(path, tmp_path):
         assert grads and all(g.dtype == torch.float32 and torch.isfinite(g).all() for g in grads.values())
         assert "backbone.st_gcn_networks.0.gcn.conv.weight" in grads and "backbone.edge_importance.5" in grads
     else:
+        monkeypatch.chdir(tmp_path)  # the TensorBoard board writes to ./runs
         config = yaml.safe_load(open(TRAIN_YAML))
         config["model"] = {**(config.get("model") or {}), "compute_dtype": "bfloat16"}
         config["data"].update(num_frames=SMALL["num_frames"], num_seeds=SMALL["num_seeds"],

@@ -1,7 +1,9 @@
 """Serving path of the port: parse against the JAX package, the demo runner
-and CLI on the CPU, the device policy of the entry points, and the rule that
-the port imports neither JAX nor the JAX package."""
+and CLI on the CPU, the config keys every runner checks (``method``,
+``device.model_parallel``) or takes, the device policy of the entry points,
+and the rule that the port imports neither JAX nor the JAX package."""
 
+import glob
 import json
 import os
 import shutil
@@ -18,9 +20,11 @@ from pose2room_tpu.eval import parse as jax_parse
 from pose2room_tpu_torch import __main__ as cli
 from pose2room_tpu_torch.config.dataset_config import DatasetConfig
 from pose2room_tpu_torch.config.loader import CONFIG
+from pose2room_tpu_torch.data import synth
+from pose2room_tpu_torch.data.dataset import SceneDataset
 from pose2room_tpu_torch.eval import parse
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
-from pose2room_tpu_torch.runners import demo
+from pose2room_tpu_torch.runners import common, demo
 from pose2room_tpu_torch.runners import test as test_runner
 from pose2room_tpu_torch.runners import train as train_runner
 from torch_port_util import SMALL
@@ -127,7 +131,7 @@ def test_demo_finetune_loads_reference_layout_weights(tmp_path):
     torch.save({"net": {f"module.{k}": v for k, v in src.state_dict().items()}}, ckpt)
     cfg = CONFIG(_small_config(tmp_path, finetune=True, weight=[ckpt]), mode="demo")
     try:
-        model = demo.build_model(cfg, device="cpu")
+        model = common.setup(cfg, device="cpu")[0]
     finally:
         cfg.close()
     for k, v in src.state_dict().items():
@@ -150,7 +154,7 @@ def test_demo_finetune_load_is_partial(tmp_path, monkeypatch):
     logged = []
     monkeypatch.setattr(cfg, "log_string", lambda msg: logged.append(str(msg)))
     try:
-        model = demo.build_model(cfg, device="cpu")
+        model = common.setup(cfg, device="cpu")[0]
     finally:
         cfg.close()
     fresh = P2RNet(P2RNetConfig(**SMALL), device="cpu", generator=torch.Generator().manual_seed(42))
@@ -168,25 +172,67 @@ def test_demo_finetune_load_is_partial(tmp_path, monkeypatch):
     {"log": {"profile_steps": 3}},
 ])
 @pytest.mark.parametrize("runner", ["demo", "test", "train"])
-def test_unported_keys_raise_in_every_runner(tmp_path, section, runner):
-    """device.model_parallel, train.h2d_dtype and log.profile_steps, which
-    the JAX package acts on, raise in every runner instead of being
-    ignored."""
+def test_unported_keys_raise_in_every_runner(tmp_path, monkeypatch, section, runner):
+    """device.model_parallel, which the JAX package acts on, raises in every
+    runner instead of being ignored.  train.h2d_dtype and log.profile_steps
+    are ported: the demo and test runners ignore them, as the JAX package's
+    do, and the train runner takes them (its profile window traces train
+    steps [3, 3 + n) under the run dir)."""
+    monkeypatch.chdir(tmp_path)  # the TensorBoard board writes to ./runs
+    if "device" in section:
+        with pytest.raises(NotImplementedError):
+            _run_runner(tmp_path, runner, **section)
+        return
+    cfg, result = _run_runner(tmp_path, runner, **section)
+    traces = glob.glob(os.path.join(cfg.save_path, "profile", "*.pt.trace.json"))
+    assert len(traces) == (runner == "train" and "log" in section)
+
+
+@pytest.mark.parametrize("method", ["Foo", "P2RNet"])
+@pytest.mark.parametrize("runner", ["demo", "test", "train"])
+def test_method_is_checked_in_every_runner(tmp_path, monkeypatch, method, runner):
+    """The top-level ``method:`` names the model class, as the JAX
+    package's METHODS registry does: a name it does not know raises
+    KeyError in every runner, and P2RNet runs."""
+    monkeypatch.chdir(tmp_path)
+    if method == "Foo":
+        with pytest.raises(KeyError, match="'Foo' not found in registry 'methods'"):
+            _run_runner(tmp_path, runner, method=method)
+        return
+    _run_runner(tmp_path, runner, method=method)
+
+
+def _run_runner(tmp_path, runner, **sections):
+    """Run the demo (one clip), test (one scene) or train (1 epoch of 2
+    steps, 4 with a profile window, which opens at step 3) runner at the
+    SMALL sizes on the CPU, with ``sections`` merged into the config.
+    Returns (cfg, the runner's result), checked."""
     config = _small_config(tmp_path, demo_path=_demo_dir(tmp_path))
-    for key, value in section.items():
-        config[key] = {**(config.get(key) or {}), **value}
-    config["log"].setdefault("path", str(tmp_path / "out"))
+    for key, value in sections.items():
+        config[key] = {**(config.get(key) or {}), **value} if isinstance(value, dict) else value
+    config["train"] = {**(config.get("train") or {}), "epochs": 1, "batch_size": 1}
+    config["val"] = {"batch_size": 2}
+    config["device"] = {**(config.get("device") or {}), "num_workers": 0}
+    n_train = 4 if "profile_steps" in config["log"] else 2
+    rng = np.random.RandomState(0)
+    scenes = [synth.as_stored(*synth.make_scene(rng, n_objects=3, n_frames=120)) for _ in range(n_train + 2)]
     cfg = CONFIG(config, mode=runner)
     try:
-        with pytest.raises(NotImplementedError):
-            if runner == "demo":
-                demo.run(cfg, device="cpu")
-            elif runner == "test":
-                test_runner.run(cfg, device="cpu", dataset=[])
-            else:
-                train_runner.run(cfg, device="cpu", datasets={"train": [], "val": []})
+        if runner == "demo":
+            result = demo.run(cfg, device="cpu")
+            assert len(result) == 1
+        elif runner == "test":
+            result = test_runner.run(cfg, device="cpu",
+                                     dataset=SceneDataset(scenes[:1], num_frames=SMALL["num_frames"]))
+            assert set(result) == {0.25, 0.5}
+        else:
+            result = train_runner.run(cfg, device="cpu", datasets={
+                "train": SceneDataset(scenes[:n_train], num_frames=SMALL["num_frames"], augment=True),
+                "val": SceneDataset(scenes[n_train:], num_frames=SMALL["num_frames"])})
+            assert len(result[1]) == 1 and np.isfinite(result[1][0]["train"]["total"])
     finally:
         cfg.close()
+    return cfg, result
 
 
 def test_cli_demo_on_cpu(tmp_path):

@@ -2,7 +2,10 @@
 
 * ``detection_loss`` term by term;
 * AdamW + epoch MultiStepLR (+ global-norm clipping) against optax on
-  identical gradients;
+  identical gradients; the train options the JAX package acts on
+  (``freeze``, ``optim_spec``, ``bnscheduler``, ``h2d_dtype``,
+  ``profile_steps``) accepted and acting, ``device.model_parallel`` raising
+  (tests/test_torch_train_options.py holds them against the JAX package);
 * one whole train step at the SMALL sizes against JAX ``make_train_step``'s
   loss and ``value_and_grad``, with the MDN noise taken from the JAX
   package's own rng streams: loss terms, gradients, updated running stats,
@@ -41,9 +44,11 @@ from pose2room_tpu_torch.data import synth
 from pose2room_tpu_torch.data.dataset import P2RNetDataset, SceneDataset
 from pose2room_tpu_torch.data.loader import DataLoader
 from pose2room_tpu_torch.models.loss import detection_loss
-from pose2room_tpu_torch.runners import demo
+from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
+from pose2room_tpu_torch.runners import common
 from pose2room_tpu_torch.train import state
 from pose2room_tpu_torch.train.step import GT_KEYS, batch_to_device, train_step
+from pose2room_tpu_torch.utils.profiling import ProfileWindow
 from torch_port_util import SMALL, flax_payload, jax_model, mdn_eps_from_jax, port_model, scene_batch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -117,7 +122,7 @@ def test_optimizer_matches_optax(optim_cfg):
     opt_state = tx.init(params)
     jparams = params
     port_params = {k: torch.nn.Parameter(torch.from_numpy(v.copy())) for k, v in params.items()}
-    optimizer, base_lr, clip_norm = state.make_optimizer(
+    optimizer, base_lrs, clip_norm = state.make_optimizer(
         torch.nn.ParameterList(port_params.values()), optim_cfg)
     for epoch, g in enumerate(grads):
         factor = gamma ** sum(1 for m in milestones if epoch >= m)
@@ -125,7 +130,7 @@ def test_optimizer_matches_optax(optim_cfg):
         updates, opt_state = tx.update(g, opt_state, jparams)
         jparams = optax.apply_updates(jparams, updates)
 
-        state.set_learning_rate(optimizer, state.epoch_lr(base_lr, milestones, gamma, epoch))
+        state.apply_lr_schedule(optimizer, base_lrs, state.lr_factor(milestones, gamma, epoch))
         for k, p in port_params.items():
             p.grad = torch.from_numpy(g[k].copy())
         grad_list = [p.grad for p in port_params.values()]
@@ -139,6 +144,9 @@ def test_optimizer_matches_optax(optim_cfg):
                                        err_msg=f"step {epoch} {k}")
 
 
+BNS = {"bn_momentum_init": 0.5, "bn_decay_rate": 0.5, "bn_decay_step": 20, "bn_momentum_max": 0.001}
+
+
 @pytest.mark.parametrize("section", [
     {"train": {"freeze": ["backbone"]}},
     {"model": {"backbone": {"optim_spec": {"lr": 1e-4}}}},
@@ -147,9 +155,52 @@ def test_optimizer_matches_optax(optim_cfg):
     {"train": {"h2d_dtype": "float16"}},
     {"log": {"profile_steps": 3}},
 ])
-def test_unported_train_options_raise(section):
-    with pytest.raises(NotImplementedError):
-        state.check_supported(section)
+def test_unported_train_options_raise(section, tmp_path):
+    """Of these train options, which the JAX package acts on, only
+    device.model_parallel still raises in the port; each other one is
+    accepted and acts: freeze leaves the module out of every param group,
+    optim_spec gives its module its own lr (scheduled from its own base),
+    bnscheduler sets every BatchNorm's momentum, h2d_dtype rounds the
+    targets through float16 on the way to the device, and profile_steps
+    traces its window of train steps."""
+    if "device" in section:
+        with pytest.raises(NotImplementedError):
+            state.check_unported_keys(section)
+        return
+    state.check_unported_keys(section)
+    model = P2RNet(P2RNetConfig(**SMALL), device="cpu")
+    freeze, specs = state.train_options(section)
+    optimizer, base_lrs, _ = state.make_optimizer(model, {"lr": 1e-3}, freeze, specs)
+    groups = {g["name"]: g for g in optimizer.param_groups}
+    if freeze:
+        assert set(groups) == {"centervoting", "detection"}
+        grouped = {id(p) for g in optimizer.param_groups for p in g["params"]}
+        assert not any(id(p) in grouped for p in model.backbone.parameters())
+    elif specs:
+        state.apply_lr_schedule(optimizer, base_lrs, 0.1)
+        assert groups["backbone"]["lr"] == pytest.approx(1e-5, rel=1e-12)
+        assert groups["detection"]["lr"] == groups["centervoting"]["lr"] == pytest.approx(1e-4, rel=1e-12)
+    elif "bnscheduler" in section:
+        m = state.bnm_momentum({**BNS, **section["bnscheduler"]}, 0)
+        assert m == pytest.approx(0.5)
+        model.set_bn_momentum(m)
+        bns = [mod for mod in model.modules() if type(mod).__name__ == "BatchNorm"]
+        assert len(bns) > 20 and all(b.momentum == m for b in bns)
+    elif "train" in section:
+        batch = scene_batch(1, 2, SMALL["num_frames"])
+        got = batch_to_device(batch, "cpu", section["train"]["h2d_dtype"])
+        assert torch.equal(got["input_joints"], torch.from_numpy(batch["input_joints"]))
+        assert got["size"].dtype == torch.float32
+        np.testing.assert_array_equal(got["size"].numpy(), batch["size"].astype(np.float16).astype(np.float32))
+        assert not np.array_equal(got["vote_label"].numpy(), batch["vote_label"])
+    else:
+        window = ProfileWindow(tmp_path / "profile", start_step=3, n_steps=section["log"]["profile_steps"])
+        x = torch.randn(64, 64)
+        for step in range(8):
+            window.maybe_start(step)
+            x = torch.tanh(x @ x)
+            window.maybe_stop(step + 1)
+        assert len(glob.glob(str(tmp_path / "profile" / "*.pt.trace.json"))) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -304,15 +355,21 @@ def test_loader_matches_jax(tmp_path):
 
 
 def test_loader_refuses_process_workers():
-    with pytest.raises(NotImplementedError):
-        DataLoader([], batch_size=1, worker_mode="process")
+    """Process workers are ported (tests/test_torch_train_options.py holds
+    their batches); a worker mode neither package knows raises ValueError,
+    as in the JAX package."""
+    with pytest.raises(ValueError, match="worker_mode"):
+        DataLoader([], batch_size=1, worker_mode="fork")
+    with pytest.raises(ValueError, match="worker_mode"):
+        JaxDataLoader([], batch_size=1, worker_mode="fork")
 
 
 # ---------------------------------------------------------------------------
 # CLI and imports
 # ---------------------------------------------------------------------------
 
-def test_cli_train_on_cpu_then_demo_loads_checkpoint(tmp_path):
+def test_cli_train_on_cpu_then_demo_loads_checkpoint(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)  # the TensorBoard board writes to ./runs
     synth.write_synthetic_dataset(str(tmp_path / "ds"), n_train=3, n_test=2, seed=1, n_frames=120)
     config = yaml.safe_load(open(TRAIN_YAML))
     config["data"].update(split=str(tmp_path / "ds" / "splits" / "script_level"),
@@ -338,7 +395,7 @@ def test_cli_train_on_cpu_then_demo_loads_checkpoint(tmp_path):
     demo_cfg["log"] = dict(config["log"], path=str(tmp_path / "demo_out"))
     cfg = CONFIG(demo_cfg, mode="demo")
     try:
-        served = demo.build_model(cfg, device="cpu")
+        served = common.setup(cfg, device="cpu")[0]
     finally:
         cfg.close()
     for k, v in model.state_dict().items():
