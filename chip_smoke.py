@@ -110,6 +110,24 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    scenes on the card and on the CPU, with the size head's mixture means set
    so that the random boxes are ~1.5 m wide and AP is not trivially 0: every
    AP and recall within 1e-6.
+6b. Multi-mode and mesh test phase: the test runner with ``test.multi_mode:
+   true`` on the 8 scenes at batch 1 (launches exactly 6 stgcn_sparse + 6
+   epilogue + 1 FPS per batch, as the deterministic run; finite metrics;
+   ``drawn_run_salt`` / ``drawn_n_samples`` in out_config.yaml equal to
+   ``runners/test.multi_mode_draws``; the per-batch time beside the drawn
+   n); the card's multi-mode sparse ``generate`` at n=99 against the CPU's
+   on the same noise (drawn on the CPU, copied to the card): indices equal,
+   at most 1e-5 of the Bernoulli weights ``u < pi`` flipped (counted and
+   printed), the box outputs within generate_gap's bands on the proposals
+   whose masks agree, the rest on all; multi-mode against deterministic
+   ``generate`` in turns (CUDA events) at batch 1 with n = 1, the drawn n
+   and 99 and at B=32 with n=99, the device noise draw's own time, and the
+   B=32 peak device memory; three multi-mode runs with dumps at threshold
+   0.05 on 4 scenes (remove_far_box off, the metre-sized boxes), then
+   ``eval.multi_modal`` over them (max mAP finite, TMD finite and >= 1);
+   and an ``eval_mesh_ap`` run on the card and on the CPU on those 4
+   scenes: every key, ``_mesh`` ones included, within 1e-6, with the
+   voxelizing and metric stages' host times.
 7. bf16 kernel phase (``model.compute_dtype: bfloat16``): the bf16 legs of
    kernels 1 (residual on/off; 128-column items, double-buffered copies,
    the output staged in shared memory) and 5 (annealed order; on wgmma) at
@@ -203,6 +221,7 @@ from pose2room_tpu_torch.data import synth
 from pose2room_tpu_torch.data.dataset import SceneDataset, load_demo_clip
 from pose2room_tpu_torch.data.loader import DataLoader, collate
 from pose2room_tpu_torch.device import set_precision_policy
+from pose2room_tpu_torch.eval import multi_modal
 from pose2room_tpu_torch.models.graph import SPARSE_JOINT_ORDER, build_spatial_graph
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
 from pose2room_tpu_torch.ops import sampling, stgcn_fused, stgcn_sparse, stgcn_train
@@ -1973,6 +1992,18 @@ def test_config(workdir, **test_knobs):
     return config
 
 
+def metre_box_weights(cfg, path):
+    """The config's model on random weights from seed 42, with the size
+    head's mixture means set so that its boxes are ~1.5 m wide (AP is then
+    not trivially 0), saved to ``path`` for ``finetune``.  Returns path."""
+    model = P2RNet(P2RNetConfig.from_cfg(cfg), device="cpu", generator=torch.Generator().manual_seed(42))
+    mu = model.detection.gmm_size.mdn.mu
+    with torch.no_grad():
+        mu.fill_(2 * np.log(1.5) / mu.shape[0])
+    torch.save({"net": model.state_dict()}, path)
+    return path
+
+
 def profile_test_run(cfg, dataset, batch_ms, smi):
     """torch.profiler over a second test run: device kernel time per batch
     (the one-time fold included), its share of the per-batch time, and the
@@ -2054,12 +2085,7 @@ def test_phase(workdir, smi):
         cfg.close()
 
     # remove_far_box off, metre-sized random boxes: the same AP on the card and the CPU
-    model = P2RNet(P2RNetConfig.from_cfg(cfg), device="cpu", generator=torch.Generator().manual_seed(42))
-    mu = model.detection.gmm_size.mdn.mu
-    with torch.no_grad():
-        mu.fill_(2 * np.log(1.5) / mu.shape[0])
-    ckpt = os.path.join(workdir, "test_weights.pth")
-    torch.save({"net": model.state_dict()}, ckpt)
+    ckpt = metre_box_weights(cfg, os.path.join(workdir, "test_weights.pth"))
     small = SceneDataset(dataset.samples[:4], num_frames=T, augment=False)
     results = {}
     for dev in ("cuda", "cpu"):
@@ -2077,6 +2103,164 @@ def test_phase(workdir, smi):
         check(gap <= 1e-6, f"AP@{t}: card vs CPU differ by {gap}")
         print(f"remove_far_box off, 4 scenes, AP@{t}: card mAP {got['mAP']:.6f} AR {got['AR']:.6f}, "
               f"CPU mAP {want['mAP']:.6f} AR {want['AR']:.6f}, max |gap| {gap:.2e}")
+    return launches
+
+
+def multi_mode_gap(a, b, noise, what):
+    """Card vs CPU multi-mode ``generate`` on the same noise: indices equal;
+    the Bernoulli weights ``u < pi`` that flip between the two devices' pi
+    counted, at most 1e-5 of them; the box outputs within generate_gap's
+    bands on the proposals whose masks agree in every head, the other
+    outputs on every proposal.  Returns (flips, weights, agreeing
+    proposals, proposals, max |diff| of each output)."""
+    for key in ("seed_inds", "aggregated_vote_inds"):
+        check(torch.equal(a[key].cpu(), b[key].cpu()), f"{what}: {key} differ")
+    flips, total, rows = 0, 0, None
+    for k, (_, u) in noise.items():
+        u = u.cpu()
+        ma, mb = u < a["pi"][k].cpu()[..., None], u < b["pi"][k].cpu()[..., None]
+        flips += int((ma != mb).sum())
+        total += u.numel()
+        agree = (ma == mb).all(-1).all(-1)
+        rows = agree if rows is None else rows & agree
+    check(flips <= 1e-5 * total, f"{what}: {flips} of {total} Bernoulli weights flipped (more than 1e-5)")
+    diffs = {k: (a[k].cpu()[rows] - b[k].cpu()[rows]).abs().max().item() for k in ("center", "size", "heading")}
+    diffs.update({k: (a[k].cpu() - b[k].cpu()).abs().max().item()
+                  for k in ("objectness_scores", "sem_cls_scores", "seed_features")})
+    diffs.update({f"pi/{k}": (a["pi"][k].cpu() - b["pi"][k].cpu()).abs().max().item()
+                  for k in ("center", "size", "heading")})
+    for key, d in diffs.items():
+        tol = 2e-4 if key == "seed_features" else 5e-4
+        check(d <= tol, f"{what}: {key} differs by {d} (tolerance {tol})")
+    return flips, total, int(rows.sum()), rows.numel(), diffs
+
+
+def time_multi_mode_generate(gpu, folded, clip, x32, drawn, smi):
+    """Multi-mode generate (its device draw included) against the
+    deterministic one, in turns (det, multi, multi, det), CUDA events: batch
+    1 at n = 1, the drawn n and 99, and B=32 at n=99; the draw's own time;
+    the peak device memory of a B=32 generate at n=99 and a deterministic
+    one."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for B, x, n, iters in ((1, clip, 1, 10), (1, clip, drawn, 10), (1, clip, 99, 10), (32, x32, 99, 3)):
+        warmup = 1 if B == 32 else 3
+        times = {"deterministic": [], "multi-mode": []}
+        for name in ("deterministic", "multi-mode", "multi-mode", "deterministic"):
+            if name == "deterministic":
+                fn = lambda: gpu.generate(x, folded=folded)  # noqa: E731
+            else:
+                fn = lambda: gpu.generate(x, multi_mode=True, n_samples=n, folded=folded, generator=g)  # noqa: E731
+            times[name].append(cuda_ms(fn, iters=iters, warmup=warmup))
+        draw = cuda_ms(lambda: gpu.multi_noise(B, n, g), iters=iters, warmup=warmup)
+        det, multi = times["deterministic"], times["multi-mode"]
+        print(f"[{smi}] generate B={B} n={n} (CUDA events, means of {iters}): deterministic "
+              f"{' / '.join(f'{t:.3f}' for t in det)} ms, multi-mode {' / '.join(f'{t:.3f}' for t in multi)} ms "
+              f"(+{min(multi) - min(det):.3f} ms); the noise draw alone {draw:.3f} ms")
+    for name, fn in (("multi-mode n=99", lambda: gpu.generate(x32, multi_mode=True, n_samples=99, folded=folded,
+                                                               generator=g)),
+                     ("deterministic", lambda: gpu.generate(x32, folded=folded))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[{smi}] B=32 {name} generate: peak device memory {peak / 2**30:.3f} GiB "
+              f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before it)")
+
+
+def multi_mode_phase(workdir, smi):
+    """The multi-mode and mesh test phase (6b in the docstring)."""
+    dataset = scene_datasets(seed=5, n_train=0, n_val=8)["val"]
+    n = len(dataset)
+    cfg = CONFIG(test_config(workdir, multi_mode=True), mode="test")
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = test_runner.run(cfg, dataset=dataset)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        seconds = time.perf_counter() - t0
+        expect = {"stgcn_sparse": 6 * n, "stgcn_epilogue": 6 * n, "fps": n}
+        check(launches == expect, f"multi-mode test run launch counts {launches} != {expect}")
+        for t, m in metrics.items():
+            check(all(np.isfinite(v) for v in m.values()), f"multi-mode AP@{t}: a metric is not finite")
+        summary = cfg.test_summary
+        check(all(np.isfinite(v) for v in summary["mean_losses"].values()), "multi-mode test losses not finite")
+        salt, drawn = test_runner.multi_mode_draws(cfg.save_path, 42)
+        written = read_to_dict(os.path.join(cfg.save_path, "out_config.yaml"))["test"]
+        check((written["drawn_run_salt"], written["drawn_n_samples"], summary["n_samples"]) == (salt, drawn, drawn),
+              f"out_config.yaml holds {written.get('drawn_run_salt')} / {written.get('drawn_n_samples')}, "
+              f"the formula gives {salt} / {drawn}")
+        batch_ms = [b * 1e3 for b in summary["batch_seconds"]]
+        print(f"[{smi}] multi-mode sparse test run, {n} batches of 1, n_samples {drawn} (run salt {salt}, "
+              f"both in out_config.yaml): {seconds:.2f} s with set-up; per-batch time (host clock) median of "
+              f"batches 2-{n} {np.median(batch_ms[1:]):.3f} ms: {', '.join(f'{b:.3f}' for b in batch_ms)}")
+        print(f"multi-mode test launch counts: {launches}")
+
+        clip = torch.from_numpy(dataset[0]["input_joints"][None])
+        gpu = common.build_model(cfg, device="cuda")
+        cpu = common.build_model(cfg, device="cpu")
+        folded = gpu.fold_eval()
+        noise = cpu.multi_noise(1, 99, torch.Generator().manual_seed(99))
+        ep_gpu = gpu.generate(clip.cuda(), multi_mode=True, n_samples=99, folded=folded,
+                              noise={k: (e.cuda(), u.cuda()) for k, (e, u) in noise.items()})
+        ep_cpu = cpu.generate(clip, multi_mode=True, n_samples=99, folded=cpu.fold_eval(), noise=noise)
+        flips, total, agree, props, diffs = multi_mode_gap(ep_gpu, ep_cpu, noise, "multi-mode card vs CPU")
+        print(f"multi-mode sparse generate n=99 card vs CPU on the same noise: {flips} of {total} Bernoulli "
+              f"weights flipped, {agree} of {props} proposals with every mask equal; max |diff|: "
+              + json.dumps(diffs))
+        x32 = torch.from_numpy(np.stack([dataset[i % n]["input_joints"] for i in range(32)])).cuda()
+        time_multi_mode_generate(gpu, folded, clip.cuda(), x32, drawn, smi)
+        del gpu, cpu, noise, x32
+    finally:
+        cfg.close()
+
+    # three multi-mode runs with dumps, then the multi-modal metrics over them
+    ckpt = metre_box_weights(cfg, os.path.join(workdir, "multi_mode_weights.pth"))
+    small = SceneDataset(dataset.samples[:4], num_frames=T, augment=False)
+    run_dirs, drawn_ns = [], []
+    for _ in range(3):
+        config = test_config(workdir, multi_mode=True, remove_far_box=False)
+        config.update(finetune=True, weight=[ckpt])
+        config["generation"].update(dump_results=True, dump_threshold=0.05)
+        cfg = CONFIG(config, mode="test")
+        try:
+            test_runner.run(cfg, dataset=small)
+            run_dirs.append(cfg.save_path)
+            drawn_ns.append(cfg.test_summary["n_samples"])
+        finally:
+            cfg.close()
+    max_map, tmd = multi_modal.multi_modal_metrics(run_dirs)
+    check(len(max_map) == 2 and np.all(np.isfinite(max_map)), f"max mAP {max_map} not finite")
+    check(np.isfinite(tmd) and tmd >= 1.0, f"TMD {tmd} not finite or below 1")
+    print(f"three multi-mode runs (n_samples {drawn_ns}, 4 scenes, remove_far_box off, dumps at 0.05): "
+          f"max mAP per threshold {[float(m) for m in max_map]}, TMD {tmd:.6f}")
+
+    # eval_mesh_ap: the same keys and values on the card and the CPU
+    results, stages = {}, {}
+    for dev in ("cuda", "cpu"):
+        config = test_config(workdir, remove_far_box=False, eval_mesh_ap=True)
+        config.update(finetune=True, weight=[ckpt])
+        cfg = CONFIG(config, mode="test")
+        try:
+            t0 = time.perf_counter()
+            results[dev] = test_runner.run(cfg, device=dev, dataset=small)
+            stages[dev] = (time.perf_counter() - t0, cfg.test_summary["voxel_seconds"],
+                           cfg.test_summary["metrics_seconds"])
+        finally:
+            cfg.close()
+    for t, want in results["cpu"].items():
+        got = results["cuda"][t]
+        check(list(got) == list(want) and "mAP_mesh" in got, f"mesh AP@{t}: card and CPU report other keys")
+        gap = max(abs(got[k] - v) for k, v in want.items())
+        check(gap <= 1e-6, f"mesh AP@{t}: card vs CPU differ by {gap}")
+        print(f"eval_mesh_ap, 4 scenes, AP@{t}: card mAP {got['mAP']:.6f} mAP_mesh {got['mAP_mesh']:.6f} "
+              f"AR_mesh {got['AR_mesh']:.6f}, CPU mAP_mesh {want['mAP_mesh']:.6f}, max |gap| over "
+              f"{len(want)} keys {gap:.2e}")
+    for dev, (run_s, vox_s, metrics_s) in stages.items():
+        print(f"[{smi}] eval_mesh_ap run on the {dev} (host clock): {run_s:.3f} s with set-up; voxelizing "
+              f"{vox_s:.3f} s, box + mesh metrics of both thresholds {metrics_s:.3f} s")
     return launches
 
 
@@ -2119,12 +2303,7 @@ def bf16_test_phase(workdir, smi):
         cfg.close()
 
     # remove_far_box off, metre-sized random boxes: AP on the card against the CPU
-    model = P2RNet(P2RNetConfig.from_cfg(cfg), device="cpu", generator=torch.Generator().manual_seed(42))
-    mu = model.detection.gmm_size.mdn.mu
-    with torch.no_grad():
-        mu.fill_(2 * np.log(1.5) / mu.shape[0])
-    ckpt = os.path.join(workdir, "test_weights_bf16.pth")
-    torch.save({"net": model.state_dict()}, ckpt)
+    ckpt = metre_box_weights(cfg, os.path.join(workdir, "test_weights_bf16.pth"))
     small = SceneDataset(dataset.samples[:4], num_frames=T, augment=False)
     results, inds = {}, {}
     for dev in ("cuda", "cpu"):
@@ -2199,6 +2378,9 @@ def main():
         t0 = time.perf_counter()
         test_launches = test_phase(workdir, smi)
         print(f"test phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        multi_mode_phase(workdir, smi)
+        print(f"multi-mode and mesh test phase {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         bf16_launches = bf16_serving_phase(workdir, smi)
         print(f"bf16 serving phase {time.perf_counter() - t0:.1f} s")

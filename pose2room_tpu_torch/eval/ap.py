@@ -5,7 +5,8 @@ PR-envelope integration (eval_det.py:93-123), each class is matched greedily
 in confidence order (eval_det_cls_wo_mesh, eval_det.py:259-343).  Each
 (scan, class) takes its whole (n_det, n_gt) IoU matrix at once from
 native.oriented_iou_matrix (C++, or the numpy clipper), so no process pool is
-needed.  Host numpy throughout.
+needed.  Host numpy throughout.  The voxel-occupancy ("mesh") variant,
+``APCalculator.compute_metrics_w_mesh``, matches on eval/voxels.py.
 """
 
 import numpy as np
@@ -153,7 +154,28 @@ class APCalculator:
         return ret
 
     def compute_metrics_w_mesh(self):
-        raise NotImplementedError("voxel-occupancy (mesh) AP needs eval/voxels.py, not ported yet")
+        """Box AP plus voxel-occupancy ("mesh") AP, ``_mesh``-suffixed
+        (ap_helper.py:84-125), in the keys and order of the JAX package.
+        Needs scans accumulated with voxel payloads: pred entries (cls,
+        corners, score, voxels), GT entries (cls, corners, voxels); see
+        eval/voxels.py."""
+        from pose2room_tpu_torch.eval.voxels import eval_det_w_mesh
+
+        (rec, _, ap), (rec_m, _, ap_m) = eval_det_w_mesh(
+            self.pred_map_cls, self.gt_map_cls, ovthresh=self.ap_iou_thresh
+        )
+        ret = {}
+        for suffix, ap_d, rec_d in (("", ap, rec), ("_mesh", ap_m, rec_m)):
+            recs = []
+            for key in sorted(ap_d.keys()):
+                ret[f"{self._name(key)} Average Precision{suffix}"] = ap_d[key]
+                r = rec_d[key][-1] if len(rec_d[key]) else 0
+                ret[f"{self._name(key)} Recall{suffix}"] = r
+                recs.append(r)
+            vals = [v for v in ap_d.values() if not np.isnan(v)]
+            ret[f"mAP{suffix}"] = np.mean(vals) if vals else 0.0
+            ret[f"AR{suffix}"] = np.mean([r for r in recs if not np.isnan(r)]) if recs else 0.0
+        return ret
 
     def synchronize_between_processes(self):
         """A no-op in one process; merging scans across processes waits for

@@ -5,9 +5,10 @@ models/p2rnet/modules/mdn.py:17-161): a learnable global ``mu`` (G, D) set
 from task-specific grids, ``pi = sigmoid(linear(h))`` (sigmoid, not softmax),
 the deterministic ``get_mean`` = sum_g pi_g * mu_g, and the train path's
 ``predict``: the pi-weighted sum over gaussians of mu + eps * sigma,
-averaged over the samples.  The noise eps is an argument, never drawn here,
-so the card, the CPU and the JAX package's rng streams can be fed the same
-numbers.  Multi-mode generation (Bernoulli pi) is not ported yet.
+averaged over the samples, and multi-mode generation's ``generate_multi``:
+the same sum with Bernoulli weights ``u < pi`` drawn per sample in place of
+pi.  The noise (eps, u) is an argument, never drawn here, so the card, the
+CPU and the JAX package's rng streams can be fed the same numbers.
 """
 
 import numpy as np
@@ -55,17 +56,27 @@ class MDNHead(nn.Module):
         pi = self.pi(x)
         return torch.einsum("bpg,gd->bpd", pi, self.mdn.mu), pi
 
-    def _samples(self, pi, eps):
-        """pi (B, P, G), eps (B, P, G, n, D) -> (B, P, n, D):
-        sum_g pi_g * (mu_g + eps * sigma_g)."""
+    def _samples(self, w, eps):
+        """w (B, P, G, n or 1) weights, eps (B, P, G, n, D) -> (B, P, n, D):
+        sum_g w_g * (mu_g + eps * sigma_g), summed over G before any mean
+        over n, as the JAX package orders it."""
         sigma = torch.exp(self.mdn.log_sigma)  # (G, D)
         draws = self.mdn.mu[None, None, :, None, :] + eps * sigma[None, None, :, None, :]
-        return (draws * pi[:, :, :, None, None]).sum(2)
+        return (draws * w[..., None]).sum(2)
 
     def predict(self, x, eps):
         """Train-path prediction (B, P, D): the mean over eps's n samples of
         the pi-weighted gaussian draws.  eps: (B, P, G, n, D) standard normal."""
-        return self._samples(self.pi(x), eps).mean(2)
+        return self._samples(self.pi(x)[..., None], eps).mean(2)
+
+    def generate_multi(self, x, eps, u):
+        """Multi-mode sampling: (mean over n of the draws weighted by the
+        Bernoulli masks ``u < pi`` (B, P, D), pi (B, P, G)).  eps (B, P, G,
+        n, D) standard normal; u (B, P, G, n) uniform on [0, 1), in pi's
+        dtype (jax.random.bernoulli draws ``uniform < p``)."""
+        pi = self.pi(x)
+        w = (u < pi[..., None]).to(eps.dtype)
+        return self._samples(w, eps).mean(2), pi
 
 
 def center_mu_init(num_gaussian):

@@ -7,7 +7,9 @@ L2-normalised vote features, and ProposalNet.
 * ``forward`` is the train forward: MDN ``predict`` heads on injected noise,
   BatchNorm on live batch statistics in ``.train()`` mode and on the running
   statistics in ``.eval()`` mode (the validation loss);
-* ``generate`` is the deterministic eval path with MDN ``get_mean`` heads.
+* ``generate`` is the eval path: MDN ``get_mean`` heads, or with
+  ``multi_mode`` the heads' Bernoulli-sampled ``generate_multi`` on noise
+  drawn on the model's device (``multi_noise``) or injected.
 
 ``compute_dtype: bfloat16`` runs eval and training in bf16 as the JAX
 package does (p2rnet.py:96-125): parameters, optimizer state and
@@ -158,6 +160,20 @@ class P2RNet(nn.Module):
             for k in MDN_KEYS
         }
 
+    def multi_noise(self, batch_size, n_samples, generator):
+        """Noise of the three MDN ``generate_multi`` heads, drawn on the
+        model's device from ``generator`` (a torch.Generator of that device):
+        {"center", "size", "heading"} -> (eps (B, P, G, n, D) standard
+        normal, u (B, P, G, n) uniform on [0, 1), f32 as pi)."""
+        c = self.config
+        dims = {"center": 3, "size": 3, "heading": 2}
+        shape = (batch_size, c.num_proposals, c.num_gaussian, n_samples)
+        return {
+            k: (torch.randn(shape + (dims[k],), generator=generator, device=self.device),
+                torch.rand(shape, generator=generator, device=self.device))
+            for k in MDN_KEYS
+        }
+
     def forward(self, input_joints, eps=None, generator=None):
         """Train forward. input_joints: (B, T, V, 3) f32 on ``self.device``.
 
@@ -175,15 +191,23 @@ class P2RNet(nn.Module):
         return self.detection(xyz, features, end_points, eps=eps)
 
     @torch.no_grad()
-    def generate(self, input_joints, multi_mode=False, folded=None, generator=None):
-        """Deterministic eval forward. input_joints: (B, T, V, 3) f32 on
-        ``self.device``.  ``folded``: ``fold_eval()`` of the current weights
-        (re-fold after any weight change).  ``generator``: CPU generator for
-        ``seed_sampling: random``.  Returns the end_points dict."""
-        if multi_mode:
-            raise NotImplementedError("multi_mode generation is not ported")
+    def generate(self, input_joints, multi_mode=False, n_samples=1, folded=None, generator=None,
+                 noise=None):
+        """Eval forward. input_joints: (B, T, V, 3) f32 on ``self.device``.
+        ``folded``: ``fold_eval()`` of the current weights (re-fold after any
+        weight change).  ``generator``: draws the frames of ``seed_sampling:
+        random`` on its own device and, with ``multi_mode`` and no
+        ``noise``, the multi-mode noise on the model's device (so it must be
+        a generator of that device).  ``multi_mode``: MDN heads sampled
+        ``n_samples`` times with Bernoulli mixture weights and averaged, on
+        ``noise`` (the ``multi_noise`` layout) when given.  Returns the
+        end_points dict."""
         if self.training:
             raise RuntimeError("generate runs on the running statistics: call model.eval() first")
+        if multi_mode and noise is None:
+            if generator is None:
+                raise ValueError("multi_mode: pass the noise or a generator of the model's device")
+            noise = self.multi_noise(input_joints.shape[0], n_samples, generator)
         assert_precision_policy()
         end_points, xyz, features = self._trunk(input_joints, folded=folded, generator=generator)
-        return self.detection(xyz, features, end_points)
+        return self.detection(xyz, features, end_points, noise=noise if multi_mode else None)

@@ -12,8 +12,9 @@ bn=False, max pooling):
 * shared two-layer 1x1 MLP (no BN) and max-pool over the ball;
 * four head stacks (center/size/heading -> 128-d GMM features, sem_obj ->
   2+num_class logits) and three MDN heads: the deterministic ``get_mean``
-  for generation, the sampled ``predict`` (injected noise) for training and
-  the validation loss.
+  for generation, multi-mode ``generate_multi`` (injected noise, Bernoulli
+  mixture weights) for sampled generation, the sampled ``predict``
+  (injected noise) for training and the validation loss.
 
 With a bf16 ``dtype`` the shared MLP runs in bf16 and its max-pool goes to
 f32; the three head stacks end in f32 BatchNorm + ReLU, and conv_sem_obj in
@@ -103,12 +104,15 @@ class ProposalNet(nn.Module):
         ball_idx = ball_query(self.radius, new_xyz.detach(), xyz.detach(), self.nsample)  # (B,P,S)
         return new_xyz, self.vote_aggregation(group_points(features, ball_idx)), inds
 
-    def forward(self, xyz, features, end_points, eps=None):
+    def forward(self, xyz, features, end_points, eps=None, noise=None):
         """xyz (B,N,3) votes, features (B,N,C) -> end_points with boxes.
 
-        ``eps``: None for generation (MDN ``get_mean``, pi exported), or the
-        train path's noise {"center", "size", "heading"} -> (B, P, G, n, D)
-        standard normal draws for the three MDN ``predict`` heads."""
+        ``eps``: None for generation, or the train path's noise {"center",
+        "size", "heading"} -> (B, P, G, n, D) standard normal draws for the
+        three MDN ``predict`` heads.  ``noise``: for multi-mode generation,
+        {"center", "size", "heading"} -> (eps (B, P, G, n, D), u (B, P, G,
+        n)) for the heads' ``generate_multi``; None for MDN ``get_mean``.
+        Generation exports pi either way."""
         agg_xyz, agg_feat, inds = self._aggregate(xyz, features, end_points)
         end_points["aggregated_vote_xyz"] = agg_xyz
         end_points["aggregated_vote_inds"] = inds
@@ -116,9 +120,11 @@ class ProposalNet(nn.Module):
         sem_obj = self.conv_sem_obj(agg_feat)  # (B,P,2+num_class)
         heads = (self.gmm_center, self.gmm_size, self.gmm_heading)
         if eps is None:
-            (pred_center, pi_center), (pred_size, pi_size), (pred_heading, pi_heading) = (
-                head.get_mean(f) for head, f in zip(heads, feats)
-            )
+            if noise is None:
+                means = [head.get_mean(f) for head, f in zip(heads, feats)]
+            else:
+                means = [head.generate_multi(f, *noise[k]) for head, f, k in zip(heads, feats, MDN_KEYS)]
+            (pred_center, pi_center), (pred_size, pi_size), (pred_heading, pi_heading) = means
             end_points["pi"] = {"center": pi_center, "size": pi_size, "heading": pi_heading}
         else:
             pred_center, pred_size, pred_heading = (

@@ -193,8 +193,10 @@ class STGCN(nn.Module):
         if self.seed_sampling == "uniform":
             return arc_length_seed_inds(origin, self.n_seeds)
         if self.seed_sampling == "random":
-            # drawn on the host generator so a seed gives the same frames on any device
-            scores = torch.rand((B, T), generator=generator).to(origin.device)
+            # drawn on the generator's device (the host's by default), so a
+            # host generator's seed gives the same frames on any device
+            gen_device = generator.device if generator is not None else "cpu"
+            scores = torch.rand((B, T), generator=generator, device=gen_device).to(origin.device)
             picked = torch.argsort(scores, dim=1)[:, : self.n_seeds]
             return torch.sort(picked, dim=1).values.to(torch.int32)
         raise NotImplementedError(self.seed_sampling)

@@ -53,9 +53,8 @@ def run(cfg, device=None):
             use_height=not data_cfg.get("no_height", True),
         )[None]  # (1,T,V,3)
         joints = torch.from_numpy(joints_np).to(device)
-        end_points = model.generate(
-            joints, multi_mode=cfg.eval_config["multi_mode"], folded=folded
-        )
+        # deterministic whatever test.multi_mode says, as the JAX demo serves
+        end_points = model.generate(joints, folded=folded)
         eval_dict, parsed = parse_predictions(end_points, {"input_joints": joints}, cfg.eval_config)
         eval_dict = assembly_pred_map_cls(eval_dict, parsed, cfg.eval_config)
 

@@ -392,6 +392,119 @@ def test_generate_card_matches_cpu_small(cuda_device):
         torch.testing.assert_close(a[key].cpu(), b[key], atol=5e-4, rtol=0)
 
 
+SMALL_CFG = dict(num_frames=96, num_seeds=64, num_proposals=16, num_gaussian=10)
+
+
+def _walking_clip(B, seed=0):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(B, 96, 53, 3) * 0.4).astype(np.float32)
+    x[..., 0] += np.linspace(0, 3, 96, dtype=np.float32)[None, :, None]
+    return torch.from_numpy(x)
+
+
+def _on(noise, device):
+    return {k: (eps.to(device), u.to(device)) for k, (eps, u) in noise.items()}
+
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("n", [1, 37, 99])
+def test_generate_multi_mode_card_matches_cpu_small(cuda_device, B, n):
+    """Multi-mode generate on the card against the CPU on the same noise
+    (drawn on the CPU, copied to the card): 6 epilogue + 1 fps launches;
+    indices equal; at most 1e-5 of the Bernoulli weights ``u < pi`` flipped
+    between the two devices' pi; the box outputs within 5e-4 on the
+    proposals whose masks agree in every head, the rest everywhere."""
+    x = _walking_clip(B)
+    gpu, cpu = P2RNet(P2RNetConfig(**SMALL_CFG), device=cuda_device), P2RNet(P2RNetConfig(**SMALL_CFG), device="cpu")
+    noise = cpu.multi_noise(B, n, torch.Generator().manual_seed(n))
+    kernels.reset_launch_counts()
+    a = gpu.generate(x.to(cuda_device), multi_mode=True, n_samples=n, folded=gpu.fold_eval(),
+                     noise=_on(noise, cuda_device))
+    assert dict(kernels.LAUNCHES) == {"stgcn_epilogue": 6, "fps": 1}
+    b = cpu.generate(x, multi_mode=True, n_samples=n, folded=cpu.fold_eval(), noise=noise)
+    for key in ("seed_inds", "aggregated_vote_inds"):
+        assert torch.equal(a[key].cpu(), b[key]), key
+    flips, total, rows = 0, 0, torch.ones(B, SMALL_CFG["num_proposals"], dtype=torch.bool)
+    for k, (_, u) in noise.items():
+        ma, mb = u < a["pi"][k].cpu()[..., None], u < b["pi"][k][..., None]
+        flips += int((ma != mb).sum())
+        total += u.numel()
+        rows &= (ma == mb).all(-1).all(-1)
+    print(f"B={B} n={n}: {flips} of {total} Bernoulli weights flipped")
+    assert flips <= 1e-5 * total
+    for key in ("center", "size", "heading"):
+        torch.testing.assert_close(a[key].cpu()[rows], b[key][rows], atol=5e-4, rtol=0)
+        torch.testing.assert_close(a["pi"][key].cpu(), b["pi"][key], atol=5e-4, rtol=0)
+    for key in ("objectness_scores", "sem_cls_scores"):
+        torch.testing.assert_close(a[key].cpu(), b[key], atol=5e-4, rtol=0)
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_generate_multi_mode_same_bits_on_relaunch(cuda_device, B):
+    """The same noise gives the same bits on a relaunch; so does noise drawn
+    on the card from a card generator of the same seed."""
+    x = _walking_clip(B, seed=1).to(cuda_device)
+    gpu = P2RNet(P2RNetConfig(**SMALL_CFG), device=cuda_device)
+    folded = gpu.fold_eval()
+    noise = gpu.multi_noise(B, 99, torch.Generator(device=cuda_device).manual_seed(7))
+    assert all(eps.device.type == u.device.type == "cuda" for eps, u in noise.values())
+    runs = [gpu.generate(x, multi_mode=True, n_samples=99, folded=folded, noise=noise) for _ in range(2)]
+    runs += [gpu.generate(x, multi_mode=True, n_samples=99, folded=folded,
+                          generator=torch.Generator(device=cuda_device).manual_seed(7)) for _ in range(2)]
+    for other in runs[1:]:
+        for key in ("center", "size", "heading", "objectness_scores", "sem_cls_scores"):
+            assert torch.equal(runs[0][key], other[key]), key
+
+
+def test_eval_mesh_ap_test_run_on_card(cuda_device, tmp_path):
+    """An ``eval_mesh_ap`` sparse test run on the card (metre-sized boxes,
+    remove_far_box off, a 0.25 m lattice) reports every key, the ``_mesh``
+    ones included, within 1e-6 of the same run on the CPU, after 6
+    stgcn_sparse + 6 epilogue + 1 fps launches a batch."""
+    import os
+
+    import yaml
+
+    from pose2room_tpu_torch.config.loader import CONFIG
+    from pose2room_tpu_torch.data import synth
+    from pose2room_tpu_torch.data.dataset import SceneDataset
+    from pose2room_tpu_torch.runners import test as test_runner
+
+    model = P2RNet(P2RNetConfig(**SMALL_CFG, sparse_eval=True), device="cpu")
+    with torch.no_grad():
+        mu = model.detection.gmm_size.mdn.mu
+        mu.fill_(2 * np.log(1.5) / mu.shape[0])
+    weight = str(tmp_path / "model.pth")
+    torch.save({"net": model.state_dict()}, weight)
+    rng = np.random.RandomState(4)
+    dataset = SceneDataset([synth.as_stored(*synth.make_scene(rng, n_objects=3, n_frames=120)) for _ in range(4)],
+                           num_frames=96)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    results = {}
+    for dev in ("cuda", "cpu"):
+        config = yaml.safe_load(open(os.path.join(repo, "configs", "config_files", "p2rnet_test.yaml")))
+        config["data"].update(num_frames=96, num_seeds=64, num_target=16, num_gaussian=10)
+        config["model"]["sparse_eval"] = True
+        config["test"].update(batch_size=2, remove_far_box=False, eval_mesh_ap=True, mesh_voxel_size=0.25)
+        config["generation"]["dump_results"] = False
+        config.update(finetune=True, weight=[weight], seed=42, device={"num_workers": 0},
+                      log={**config["log"], "path": str(tmp_path / dev)})
+        cfg = CONFIG(config, mode="test")
+        try:
+            kernels.reset_launch_counts()
+            results[dev] = test_runner.run(cfg, device=dev, dataset=dataset)
+            launches = dict(kernels.LAUNCHES)
+        finally:
+            cfg.close()
+        if dev == "cuda":
+            assert launches == {"stgcn_sparse": 12, "stgcn_epilogue": 12, "fps": 2}
+    for t, want in results["cpu"].items():
+        got = results["cuda"][t]
+        assert list(got) == list(want) and "mAP_mesh" in got
+        for k, v in want.items():
+            assert abs(got[k] - v) <= 1e-6, (t, k)
+
+
 # ---------------------------------------------------------------------------
 # bf16 legs of kernels 1 and 5 (model.compute_dtype: bfloat16)
 # ---------------------------------------------------------------------------

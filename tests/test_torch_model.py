@@ -214,6 +214,8 @@ def test_unported_options_raise(path, tmp_path, monkeypatch):
 
 
 def test_multi_mode_raises(port):
+    """Multi-mode generation draws its noise from a generator of the model's
+    device or takes it injected; with neither it raises."""
     x = torch.from_numpy(walking_clip(np.random.RandomState(4), 1, SMALL["num_frames"]))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="multi_mode"):
         port.generate(x, multi_mode=True)

@@ -125,6 +125,27 @@ def test_demo_runner_on_cpu_writes_dumps(tmp_path):
             == (n_boxes > 0))
 
 
+def test_demo_ignores_multi_mode(tmp_path):
+    """As the JAX demo runner, which always serves MDN ``get_mean``
+    (runners/demo.py:60-85): a demo run with ``test.multi_mode: True``
+    writes the same dumps as one with False."""
+    dumps = {}
+    for multi_mode in (False, True):
+        config = _small_config(tmp_path / str(multi_mode), demo_path=_demo_dir(tmp_path / str(multi_mode)))
+        config["test"].update(multi_mode=multi_mode, remove_far_box=False)
+        config["generation"]["dump_threshold"] = 0.0
+        cfg = CONFIG(config, mode="demo")
+        try:
+            (result,) = demo.run(cfg, device="cpu")
+        finally:
+            cfg.close()
+        dump_dir = result[1]
+        dumps[multi_mode] = {name: open(os.path.join(dump_dir, name), "rb").read()
+                             for name in sorted(os.listdir(dump_dir))}
+    assert "000000_pred_confident_nms_bbox.npz" in dumps[False]
+    assert dumps[True] == dumps[False]
+
+
 def test_demo_finetune_loads_reference_layout_weights(tmp_path):
     src = P2RNet(P2RNetConfig(**SMALL), device="cpu", generator=torch.Generator().manual_seed(9))
     ckpt = str(tmp_path / "model.pth")

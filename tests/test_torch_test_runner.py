@@ -20,6 +20,7 @@ from pose2room_tpu.data import P2RNetDataset as JaxP2RNetDataset
 from pose2room_tpu.data.loader import collate as jax_collate
 from pose2room_tpu.eval import ap as jax_ap
 from pose2room_tpu.eval import parse as jax_parse
+from pose2room_tpu.eval import voxels as jax_voxels
 from pose2room_tpu.models import P2RNet as JaxP2RNet
 from pose2room_tpu.models.loss import detection_loss as jax_detection_loss
 from pose2room_tpu.ops import boxes as jax_boxes
@@ -28,13 +29,11 @@ from pose2room_tpu_torch import native
 from pose2room_tpu_torch.config.loader import CONFIG
 from pose2room_tpu_torch.convert import state_dict_from_flax
 from pose2room_tpu_torch.data.synth import write_synthetic_dataset
-from pose2room_tpu_torch.eval import ap, parse
+from pose2room_tpu_torch.eval import ap, parse, voxels
 from pose2room_tpu_torch.ops import boxes
 from pose2room_tpu_torch.runners import test as test_runner
-from torch_port_util import SMALL, flax_payload, jax_model
+from torch_port_util import SMALL, flax_payload, jax_model, jax_test_metrics, small_test_config
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TEST_YAML = os.path.join(REPO, "configs", "config_files", "p2rnet_test.yaml")
 THRESHOLDS = [0.05, 0.25, 0.5]
 
 
@@ -119,8 +118,15 @@ def test_ap_calculator_matches_jax():
     assert list(got) == list(want) and ours.scan_cnt == 6
     for k, v in want.items():
         assert abs(got[k] - v) <= 1e-12, k
-    with pytest.raises(NotImplementedError):
-        ours.compute_metrics_w_mesh()
+    # the mesh path: the same scans with each package's voxel payloads
+    ours, ref = ap.APCalculator(0.25, names), jax_ap.APCalculator(0.25, names)
+    for calc, vox in ((ours, voxels.voxelize_box), (ref, jax_voxels.voxelize_box)):
+        calc.step([[(c, b, s, vox(b, 0.1)) for c, b, s in pred_all[i]] for i in range(6)],
+                  [[(c, b, vox(b, 0.1)) for c, b in gt_all[i]] for i in range(6)])
+    got, want = ours.compute_metrics_w_mesh(), ref.compute_metrics_w_mesh()
+    assert list(got) == list(want) and "mAP_mesh" in got and want["mAP_mesh"] > 0
+    for k, v in want.items():
+        assert abs(got[k] - v) <= 1e-12, k
 
 
 def test_perfect_predictions_map_one(rng):
@@ -185,18 +191,6 @@ def weights(tmp_path_factory):
     return {"params": payload["params"], "batch_stats": payload["batch_stats"]}, path
 
 
-def _test_config(root, split_dir, weight=None, **test_knobs):
-    config = yaml.safe_load(open(TEST_YAML))
-    config["data"].update(split=split_dir, num_frames=SMALL["num_frames"], num_seeds=SMALL["num_seeds"],
-                          num_target=SMALL["num_proposals"], num_gaussian=SMALL["num_gaussian"])
-    config["model"]["sparse_eval"] = True
-    config["test"].update(batch_size=2, ap_iou_thresholds=THRESHOLDS, **test_knobs)
-    config["generation"]["dump_results"] = False
-    config.update(finetune=weight is not None, weight=[weight] if weight else [], seed=42,
-                  device={"num_workers": 2}, log={**config["log"], "path": os.path.join(root, "out")})
-    return config
-
-
 @pytest.fixture(scope="module")
 def jax_outputs(split, weights):
     """The JAX package's sparse generate and loss on the test split, batches
@@ -215,36 +209,13 @@ def jax_outputs(split, weights):
     return out
 
 
-def _jax_metrics(jax_outputs, knobs):
-    ds_cfg = JaxDatasetConfig()
-    test_cfg = yaml.safe_load(open(TEST_YAML))["test"]
-    eval_cfg = {
-        "dataset_config": ds_cfg, "remove_far_box": test_cfg["remove_far_box"], "use_3d_nms": True,
-        "nms_iou": test_cfg["nms_iou"], "use_old_type_nms": False, "cls_nms": False,
-        "per_class_proposal": True, "conf_thresh": test_cfg["conf_thresh"], "sample_cls": False,
-        **knobs,
-    }
-    calcs = {t: jax_ap.APCalculator(t, ds_cfg.class2type) for t in THRESHOLDS}
-    n_pred, sums = 0, {}
-    for arrays, ep, losses in jax_outputs:
-        eval_dict, parsed = jax_parse.parse_predictions(ep, arrays, eval_cfg)
-        pred_map = jax_parse.assembly_pred_map_cls(eval_dict, parsed, eval_cfg)["batch_pred_map_cls"]
-        gt_map = jax_parse.assembly_gt_map_cls(jax_parse.parse_groundtruths(arrays))
-        n_pred += sum(len(p) for p in pred_map)
-        for calc in calcs.values():
-            calc.step(pred_map, gt_map)
-        for k, v in losses.items():
-            sums[k] = sums.get(k, 0.0) + v
-    means = {k: v / len(jax_outputs) for k, v in sums.items()}
-    return {t: c.compute_metrics() for t, c in calcs.items()}, means, n_pred
-
-
 @pytest.mark.parametrize("remove_far_box", [True, False])
 def test_test_runner_matches_jax(tmp_path, split, weights, jax_outputs, remove_far_box):
     """Per-class AP and recall, mAP and AR equal within 1e-6; mean losses
     within 1e-4 relative.  With remove_far_box off the random weights' boxes
     survive the pruning, so the prediction maps are not empty."""
-    config = _test_config(str(tmp_path), split, weight=weights[1], remove_far_box=remove_far_box)
+    config = small_test_config(str(tmp_path), split, THRESHOLDS, weight=weights[1],
+                               remove_far_box=remove_far_box)
     config["generation"]["dump_results"] = not remove_far_box
     cfg = CONFIG(config, mode="test")
     try:
@@ -253,7 +224,7 @@ def test_test_runner_matches_jax(tmp_path, split, weights, jax_outputs, remove_f
         vis_path = cfg.config["log"]["vis_path"]
     finally:
         cfg.close()
-    want, want_losses, n_pred = _jax_metrics(jax_outputs, {"remove_far_box": remove_far_box})
+    want, want_losses, n_pred = jax_test_metrics(jax_outputs, THRESHOLDS, {"remove_far_box": remove_far_box})
     if not remove_far_box:
         assert n_pred > 0
         dumps = sorted(glob.glob(os.path.join(vis_path, "test_*")))
@@ -271,13 +242,16 @@ def test_test_runner_matches_jax(tmp_path, split, weights, jax_outputs, remove_f
 
 
 def test_runner_unported_options_raise(tmp_path, split):
-    for knobs in (dict(multi_mode=True), dict(eval_mesh_ap=True)):
-        cfg = CONFIG(_test_config(str(tmp_path), split, **knobs), mode="test")
-        try:
-            with pytest.raises(NotImplementedError):
-                test_runner.run(cfg, device="cpu")
-        finally:
-            cfg.close()
+    """``multi_mode`` and ``eval_mesh_ap`` are ported (test_torch_multimode.py,
+    test_torch_voxels.py); the tensor-parallel mode still raises."""
+    config = small_test_config(str(tmp_path), split, THRESHOLDS)
+    config["device"]["model_parallel"] = 2
+    cfg = CONFIG(config, mode="test")
+    try:
+        with pytest.raises(NotImplementedError, match="model_parallel"):
+            test_runner.run(cfg, device="cpu")
+    finally:
+        cfg.close()
 
 
 def test_resolve_test_batch_size(monkeypatch):
@@ -289,7 +263,7 @@ def test_resolve_test_batch_size(monkeypatch):
 
 def test_cli_test_on_cpu(tmp_path, split):
     yaml_path = tmp_path / "cfg.yaml"
-    yaml_path.write_text(yaml.safe_dump(_test_config(str(tmp_path), split)))
+    yaml_path.write_text(yaml.safe_dump(small_test_config(str(tmp_path), split, THRESHOLDS)))
     metrics = cli.main(["--config", str(yaml_path), "--mode", "test", "--device", "cpu"])
     assert set(metrics) == set(THRESHOLDS)
     for m in metrics.values():
