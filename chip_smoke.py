@@ -194,7 +194,39 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    kernel 4 shares its two products over all warps; their sums are the
    earlier legs', so the one-ulp shares are printed beside the earlier
    legs' (EARLIER_TRAIN_SHARES).
-11. Prints the ``kernels`` JSON line (nine entries), the nvidia-smi line,
+11. Data-parallel phase: ranks as subprocesses of ``python -m
+   torch.distributed.run ... chip_smoke.py --ddp-worker <spec.json>`` on
+   localhost (the kernels are built already), each from its own working
+   directory, with deterministic algorithms, p2rnet_train.yaml at full
+   width, f32, clipping at 1.0, two train steps on eight synthetic clips
+   with each step's noise drawn for the whole batch and sliced by rank.
+   (a) World 1 on NCCL: losses, step-1 gradients, parameters and running
+   statistics after each step bit-equal to the same steps in this process;
+   6 + 6 + 1 launches a step.  (b) World 2 on gloo, both ranks on cuda:0,
+   4 + 4, 6 + 6 + 1 launches a step a rank: both ranks' states bit-equal;
+   step 1 against this process at 8:
+   losses within 1e-4 relative, each gradient within 1e-3 of its max or
+   no further from a CPU float64 step's (whose seeds and proposals must
+   equal the card's) than three times that leaf's own error in two
+   one-process runs (this batch order and another), running statistics
+   within 1e-4.  After step 1 f32 runs that round differently part (ROADMAP
+   section 3), so the card's later state is printed, not held; the update
+   through DDP is held in float64 instead: the two ranks run the same two
+   steps on the CPU in float64 (gloo), against this process's float64
+   steps at 8: step-1 gradients within 1e-8 of their max, losses within
+   1e-6 relative, parameters and running statistics after each step within
+   1e-5 of their max, both ranks bit-equal.  Then the train runner under the two ranks (1
+   epoch of 16 train and 8 val scenes, 4 a rank): 6 + 6 + 1 launches a
+   train step and 6 + 1 a val step a rank, both ranks' final states bit-equal
+   (at the config's lr), one run dir holding rank 0's files only, no board
+   from rank 1.  (c) The sparse_eval test runner
+   under the two ranks on 8 scenes (4 a rank; metre-sized boxes,
+   remove_far_box off): 6 + 6 + 1 launches a batch a rank, every merged
+   AP / recall within 1e-6 of this process's run, the merged mean losses
+   too, one out_config.yaml.  The backend of each run, the B=8 step times
+   of this process, (a) and (b) (CUDA events, median of 5), and the
+   collectives' host and device time a step from the profiler.
+12. Prints the ``kernels`` JSON line (nine entries), the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -206,6 +238,8 @@ import dataclasses
 import json
 import os
 import re
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -225,6 +259,7 @@ from pose2room_tpu_torch.eval import multi_modal
 from pose2room_tpu_torch.models.graph import SPARSE_JOINT_ORDER, build_spatial_graph
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
 from pose2room_tpu_torch.ops import sampling, stgcn_fused, stgcn_sparse, stgcn_train
+from pose2room_tpu_torch.parallel import init_distributed, process_count, process_index, shutdown, wrap_model
 from pose2room_tpu_torch.runners import common, demo
 from pose2room_tpu_torch.runners import test as test_runner
 from pose2room_tpu_torch.runners import train as train_runner
@@ -2336,6 +2371,422 @@ def bf16_test_phase(workdir, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# data-parallel phase: ranks as subprocesses of torch.distributed.run
+# ---------------------------------------------------------------------------
+
+DDP_STEPS = 2
+DDP_TIMED = 5
+DDP_BATCH = 8
+# profiler rows of the collectives: the backends' host ops (gloo:*, nccl:*) and NCCL's kernels
+COLLECTIVE_KEYS = ("nccl", "gloo")
+
+
+def ddp_config(workdir, name, batch):
+    """p2rnet_train.yaml at full width as the train phase's, ``batch`` a
+    process, clipping by the global norm on, under <workdir>/<name>."""
+    config = train_config(os.path.join(workdir, name))
+    config["train"]["batch_size"] = config["val"]["batch_size"] = batch
+    config["optimizer"]["clip_norm"] = 1.0
+    return config
+
+
+def ddp_clips():
+    """The eight clips of the data-parallel steps: synthetic scenes without
+    augmentation, made from a seed in every process."""
+    dataset = scene_datasets(seed=3, n_train=0, n_val=DDP_BATCH)["val"]
+    return [dataset[i] for i in range(DDP_BATCH)]
+
+
+def collective_rows(prof, n_steps):
+    """(host ms, device ms) a step in the collectives' profiler rows, and the
+    rows: host time is the CPU total of the c10d / gloo / NCCL ops, device
+    time NCCL's kernels."""
+    from torch.autograd import DeviceType
+
+    host_ms = dev_ms = 0.0
+    rows = []
+    for e in prof.key_averages():
+        if not any(k in e.key.lower() for k in COLLECTIVE_KEYS):
+            continue
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+            dev_ms += us / n_steps / 1e3
+            rows.append((f"device {e.key[:70]}", us / n_steps / 1e3, e.count / n_steps))
+        else:
+            host_ms += e.cpu_time_total / n_steps / 1e3
+            rows.append((f"host {e.key[:70]}", e.cpu_time_total / n_steps / 1e3, e.count / n_steps))
+    return host_ms, dev_ms, sorted(rows, key=lambda r: -r[1])[:6]
+
+
+def ddp_steps(cfg, items, perm=None, timed=0, profile=False):
+    """DDP_STEPS train steps on this process's rows of the global batch of
+    eight (``perm``: the batch's rows in another order, for one process)
+    with each step's noise drawn for the whole batch: the launches of those
+    steps, each step's global losses, the first step's gradients (reduced)
+    and the state (parameters and running statistics) after each step; then
+    ``timed`` more steps' times (CUDA events) and, with ``profile``, the
+    collectives' share of two profiled steps."""
+    rank, n = process_index(), process_count()
+    rows = list(perm if perm is not None else range(DDP_BATCH))[rank::n]
+    model = P2RNet(P2RNetConfig.from_cfg(cfg), device="cuda", generator=torch.Generator().manual_seed(42))
+    optimizer, _, clip_norm = make_optimizer(model, cfg.config["optimizer"])
+    net = wrap_model(model)
+    batch = batch_to_device(collate([items[i] for i in rows]), "cuda")
+
+    def step(i):
+        eps = {k: v[rows] for k, v in model.mdn_eps(DDP_BATCH, torch.Generator().manual_seed(100 + i)).items()}
+        return train_step(net, optimizer, batch, eps=eps, clip_norm=clip_norm)
+
+    out = {"losses": [], "state": []}
+    kernels.reset_launch_counts()
+    for i in range(DDP_STEPS):
+        losses, end_points = step(i)
+        out["losses"].append({k: float(v) for k, v in losses.items()})
+        if i == 0:
+            scale = max(out["losses"][0]["grad_norm"] / clip_norm, 1.0)  # undo the clipping
+            out["grads"] = {k: (p.grad * scale).cpu() for k, p in model.named_parameters()}
+            out["picks"] = {k: end_points[k].cpu() for k in ("seed_inds", "aggregated_vote_inds")}
+        out["state"].append(host_copy(model.state_dict()))
+    torch.cuda.synchronize()
+    out["launches"] = dict(kernels.LAUNCHES)
+    times = []
+    for i in range(timed):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(DDP_STEPS + i)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    out["step_ms"] = times
+    if profile:
+        from torch.profiler import ProfilerActivity, profile as torch_profile
+
+        t0 = time.perf_counter()
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+            for i in range(2):
+                step(100 + i)
+            torch.cuda.synchronize()
+        out["profiled_ms"] = (time.perf_counter() - t0) * 1e3 / 2
+        out["collectives"] = collective_rows(prof, 2)
+    return out
+
+
+def float64_steps(cfg, items):
+    """``ddp_steps``' steps on the CPU in float64 on this process's rows of
+    the global batch (through DDP in a group): each step's losses and state,
+    and the first step's gradients (reduced, before clipping) and discrete
+    choices (seeds, proposals), the referee of the f32 train band."""
+    rank, n = process_index(), process_count()
+    rows = list(range(DDP_BATCH))[rank::n]
+    model = P2RNet(P2RNetConfig.from_cfg(cfg), device="cpu", generator=torch.Generator().manual_seed(42)).double()
+    optimizer, _, clip_norm = make_optimizer(model, cfg.config["optimizer"])
+    net = wrap_model(model)
+    batch = {k: v.double() if v.is_floating_point() else v
+             for k, v in batch_to_device(collate([items[i] for i in rows]), "cpu").items()}
+    out = {"losses": [], "state": []}
+    for i in range(DDP_STEPS):
+        eps = {k: v[rows].double() for k, v in model.mdn_eps(DDP_BATCH, torch.Generator().manual_seed(100 + i)).items()}
+        losses, end_points = train_step(net, optimizer, batch, eps=eps, clip_norm=clip_norm)
+        out["losses"].append({k: float(v) for k, v in losses.items()})
+        if i == 0:
+            scale = max(out["losses"][0]["grad_norm"] / clip_norm, 1.0)  # undo the clipping
+            out["grads"] = {k: p.grad * scale for k, p in model.named_parameters()}
+            out["picks"] = {k: end_points[k] for k in ("seed_inds", "aggregated_vote_inds")}
+        out["state"].append(host_copy(model.state_dict()))
+    return out
+
+
+def ddp_train_run(cfg, datasets):
+    """The train runner under the group: launches, losses, run dir, the
+    final state and what this rank's working directory holds."""
+    kernels.reset_launch_counts()
+    model, history = train_runner.run(cfg, datasets=datasets)
+    torch.cuda.synchronize()
+    return {"launches": dict(kernels.LAUNCHES), "history": history, "save_path": cfg.save_path,
+            "state": host_copy(model.state_dict()),
+            "run_dir": sorted(os.listdir(cfg.save_path)) if cfg.is_main_process else None,
+            "cwd": sorted(os.listdir("."))}
+
+
+def ddp_test_run(cfg, dataset):
+    """The test runner under the group, written as the CLI writes it."""
+    cfg.write_config()
+    kernels.reset_launch_counts()
+    metrics = test_runner.run(cfg, dataset=dataset)
+    torch.cuda.synchronize()
+    return {"launches": dict(kernels.LAUNCHES), "metrics": metrics, "save_path": cfg.save_path,
+            "mean_losses": cfg.test_summary["mean_losses"], "batch_seconds": cfg.test_summary["batch_seconds"]}
+
+
+def ddp_worker(spec_path):
+    """One rank under torch.distributed.run (``chip_smoke.py --ddp-worker
+    <spec.json>``): joins the group, runs the spec's parts from its own
+    working directory and saves their results to <workdir>/rank<r>.pt."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    backend = init_distributed()
+    try:
+        set_precision_policy()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        rank = process_index()
+        workdir = os.path.join(spec["workdir"], f"rank{rank}")
+        os.makedirs(workdir, exist_ok=True)
+        os.chdir(workdir)  # the train runner's board writes to ./runs
+        out = {"backend": backend, "card": torch.cuda.current_device()}
+        batch = DDP_BATCH // process_count()
+        if spec.get("steps"):
+            cfg = CONFIG(ddp_config(spec["workdir"], "steps", batch), mode="train")
+            try:
+                mount_external_config(cfg)
+                items = ddp_clips()
+                out["steps"] = ddp_steps(cfg, items, timed=DDP_TIMED, profile=True)
+                if spec.get("steps64"):
+                    # torchrun gives each of several ranks one thread
+                    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // process_count()))
+                    t0 = time.perf_counter()
+                    out["steps64"] = float64_steps(cfg, items)
+                    out["steps64"]["seconds"] = time.perf_counter() - t0
+            finally:
+                cfg.close()
+        if spec.get("train_run"):
+            cfg = CONFIG(ddp_config(spec["workdir"], "train_run", batch), mode="train")
+            try:
+                out["train_run"] = ddp_train_run(cfg, scene_datasets(seed=3, n_train=16, n_val=8))
+            finally:
+                cfg.close()
+        if spec.get("test_run"):
+            config = test_config(os.path.join(spec["workdir"], "test_run"), remove_far_box=False)
+            config.update(finetune=True, weight=[spec["test_weights"]])
+            cfg = CONFIG(config, mode="test")
+            try:
+                out["test_run"] = ddp_test_run(cfg, scene_datasets(seed=5, n_train=0, n_val=8)["val"])
+            finally:
+                cfg.close()
+        torch.save(out, os.path.join(spec["workdir"], f"rank{rank}.pt"))
+    finally:
+        shutdown()
+
+
+def launch_ranks(nproc, spec, workdir, timeout=600):
+    """``python -m torch.distributed.run --nproc_per_node nproc chip_smoke.py
+    --ddp-worker`` on localhost: each rank's results, the ranks' log lines of
+    the group and the launch's wall seconds.  The launch gets an OS
+    process group of its own, killed whole if it outlasts ``timeout``."""
+    os.makedirs(workdir, exist_ok=True)
+    spec = dict(spec, workdir=workdir)
+    spec_path = os.path.join(workdir, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(nproc), "--master_addr",
+           "localhost", "--master_port", str(port), os.path.abspath(__file__), "--ddp-worker", spec_path]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError(f"chip_smoke check failed: {nproc} ranks did not finish within {timeout} s")
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{nproc} ranks exited with {proc.returncode}:\n{stderr[-6000:]}")
+    groups = [line for line in (stdout + stderr).splitlines() if line.startswith("process group:")]
+    results = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False) for r in range(nproc)]
+    return results, groups, seconds
+
+
+def ddp_phase(workdir, smi):
+    """(a) world 1 on NCCL against the same steps in this process, bit for
+    bit; (b) world 2 on gloo, both ranks on the one card, 4 + 4 against the
+    steps at 8, and the train runner under the two ranks; (c) the test runner
+    under two gloo ranks against one process; step times in this call."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        cfg = CONFIG(ddp_config(workdir, "single", DDP_BATCH), mode="train")
+        try:
+            mount_external_config(cfg)
+            items = ddp_clips()
+            single = ddp_steps(cfg, items, timed=DDP_TIMED)
+            perm = ddp_steps(cfg, items, perm=[3, 6, 0, 5, 2, 7, 4, 1])
+            t0 = time.perf_counter()
+            single64 = float64_steps(cfg, items)
+            seconds64 = time.perf_counter() - t0
+        finally:
+            cfg.close()
+        test_cfg = CONFIG(test_config(os.path.join(workdir, "single_test"), remove_far_box=False), mode="test")
+        try:
+            mount_external_config(test_cfg)
+            weights = metre_box_weights(test_cfg, os.path.join(workdir, "ddp_test_weights.pth"))
+            test_cfg.config.update(finetune=True, weight=[weights])
+            test_dataset = scene_datasets(seed=5, n_train=0, n_val=8)["val"]
+            single_metrics = test_runner.run(test_cfg, dataset=test_dataset)
+            single_losses = test_cfg.test_summary["mean_losses"]
+        finally:
+            test_cfg.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    per_step = {"stgcn_train_fwd": 6 * DDP_STEPS, "stgcn_train_bwd": 6 * DDP_STEPS, "fps": DDP_STEPS}
+    check(single["launches"] == per_step, f"single-process steps: launches {single['launches']} != {per_step}")
+
+    # (a) world 1, NCCL: bit-equal to the same steps in this process
+    (one,), groups, seconds_a = launch_ranks(1, {"steps": True}, os.path.join(workdir, "world1"))
+    print(f"(a) world 1 ({seconds_a:.1f} s with start-up): {'; '.join(groups)}")
+    check(one["backend"] == "nccl", f"world 1 on one card ran on {one['backend']}, not nccl")
+    a = one["steps"]
+    check(a["launches"] == per_step, f"(a) launches {a['launches']} != {per_step}")
+    for i in range(DDP_STEPS):
+        check(a["losses"][i] == single["losses"][i], f"(a) step {i + 1} losses differ: {a['losses'][i]} vs "
+              f"{single['losses'][i]}")
+        same, gap = tree_gap(a["state"][i], single["state"][i])
+        check(same, f"(a) state after step {i + 1} differs from one process's by up to {gap}")
+    same, gap = tree_gap(a["grads"], single["grads"])
+    check(same, f"(a) step-1 gradients differ from one process's by up to {gap}")
+    print(f"(a) world 1 on NCCL vs one process, deterministic algorithms: losses, step-1 gradients, "
+          f"parameters and running statistics after each of {DDP_STEPS} steps bit-equal; "
+          f"launches {a['launches']}")
+
+    # (b) + (c) world 2, gloo, both ranks on card 0
+    spec = {"steps": True, "steps64": True, "train_run": True, "test_run": True, "test_weights": weights}
+    ranks, groups, seconds_b = launch_ranks(2, spec, os.path.join(workdir, "world2"))
+    print(f"(b, c) world 2 ({seconds_b:.1f} s with start-up): {'; '.join(groups)}")
+    check([r["backend"] for r in ranks] == ["gloo", "gloo"] and [r["card"] for r in ranks] == [0, 0],
+          f"world 2 on one card: backends {[r['backend'] for r in ranks]}, cards {[r['card'] for r in ranks]}")
+    b = [r["steps"] for r in ranks]
+    for r, got in enumerate(b):
+        check(got["launches"] == per_step, f"(b) rank {r} launches {got['launches']} != {per_step}")
+    for i in range(DDP_STEPS):
+        same, gap = tree_gap(b[0]["state"][i], b[1]["state"][i])
+        check(same, f"(b) the two ranks' states after step {i + 1} differ by up to {gap}")
+    # step 1, from the same parameters: losses, gradients (ROADMAP §3's f32
+    # train band, a CPU float64 step the referee), running statistics
+    grads64 = single64["grads"]
+    for k, v in single64["picks"].items():
+        check(torch.equal(single["picks"][k], v), f"(b) the float64 referee's {k} differ from the card's")
+    # each leaf's referee band: its own error in two one-process runs
+    ref_err = {k: max(relative_gap(single["grads"][k], v), relative_gap(perm["grads"][k], v))
+               for k, v in grads64.items()}
+    gaps = {k: relative_gap(b[0]["grads"][k], v) for k, v in single["grads"].items()}
+    errs = {k: relative_gap(b[0]["grads"][k], v) for k, v in grads64.items()}
+    for k, v in gaps.items():
+        check(v <= 1e-3 or errs[k] <= 3 * ref_err[k],
+              f"(b) step-1 gradient {k}: {v} of max|g| from one process's, {errs[k]} from float64 against one "
+              f"process's {ref_err[k]}")
+    by_referee = sorted((errs[k] / ref_err[k], k) for k, v in gaps.items() if v > 1e-3)
+    loss_gap = {k: abs(b[0]["losses"][0][k] - v) / max(abs(v), 1e-7) for k, v in single["losses"][0].items()}
+    for k, v in loss_gap.items():
+        check(v <= 1e-4, f"(b) step-1 loss {k} differs by {v} relative")
+    stats = [k for k in single["state"][0] if k.endswith(("running_mean", "running_var"))]
+    for k in stats:
+        check(torch.allclose(b[0]["state"][0][k], single["state"][0][k], atol=1e-4, rtol=1e-4),
+              f"(b) running statistic {k} after step 1")
+    # after step 1, f32 runs that round differently part (AdamW's first
+    # updates are ~lr times the sign of each gradient entry, and an entry
+    # within rounding of 0 takes either sign; ROADMAP §3): the card's later
+    # state is printed beside a batch-order run's, and the update through
+    # DDP is held in float64 on the CPU
+    last = DDP_STEPS - 1
+    param_gap = max((b[0]["state"][last][k] - v).abs().max().item() for k, v in single["state"][last].items()
+                    if k not in stats and v.is_floating_point())
+    perm_param_gap = max((perm["state"][last][k] - v).abs().max().item() for k, v in single["state"][last].items()
+                         if k not in stats and v.is_floating_point())
+    rel_loss = lambda a, b_: max(abs(a[k] - v) / max(abs(v), 1e-7) for k, v in b_.items())  # noqa: E731
+    last_gap, perm_last = rel_loss(b[0]["losses"][last], single["losses"][last]), rel_loss(perm["losses"][last],
+                                                                                       single["losses"][last])
+    stat_gap = max(relative_gap(b[0]["state"][last][k], single["state"][last][k]) for k in stats)
+    perm_stat = max(relative_gap(perm["state"][last][k], single["state"][last][k]) for k in stats)
+    print(f"(b) world 2 on gloo (4 + 4) vs one process at 8, step 1: losses max rel gap {max(loss_gap.values()):.2e}; "
+          f"gradients max gap {max(gaps.values()):.2e} of max|g| ({len(gaps) - len(by_referee)} of {len(gaps)} "
+          f"within 1e-3; the largest ratios of another's error against float64 to its one-process error: "
+          f"{', '.join(f'{r:.2f} {k}' for r, k in by_referee[-5:]) or 'none'}), max error against float64 "
+          f"{max(errs.values()):.2e} (one process {max(ref_err.values()):.2e}; the float64 CPU steps {seconds64:.1f} s; "
+          f"their seeds and proposals equal the card's); running statistics within 1e-4.  After step {DDP_STEPS}, "
+          f"not held: parameters max |gap| {param_gap:.2e} (a batch-order run {perm_param_gap:.2e}), losses max rel "
+          f"gap {last_gap:.2e} (batch order {perm_last:.2e}), running statistics {stat_gap:.2e} of max (batch order "
+          f"{perm_stat:.2e}); both ranks' states bit-equal; launches per rank {b[0]['launches']}")
+
+    # (b) the same steps in float64 on the CPU under the two ranks
+    w64 = [r["steps64"] for r in ranks]
+    for i in range(DDP_STEPS):
+        same, gap = tree_gap(w64[0]["state"][i], w64[1]["state"][i])
+        check(same, f"(b) float64: the two ranks' states after step {i + 1} differ by up to {gap}")
+    grad64_gap = max(relative_gap(w64[0]["grads"][k], v) for k, v in grads64.items())
+    check(grad64_gap <= 1e-8, f"(b) float64 step-1 gradients {grad64_gap} of max|g| from one process's")
+    loss64_gap = max(abs(w64[0]["losses"][i][k] - v) / max(abs(v), 1.0)
+                     for i in range(DDP_STEPS) for k, v in single64["losses"][i].items())
+    check(loss64_gap <= 1e-6, f"(b) float64 losses differ by {loss64_gap} relative")
+    state64_gap = []
+    for i in range(DDP_STEPS):
+        for k, v in single64["state"][i].items():
+            if v.is_floating_point():
+                gap = relative_gap(w64[0]["state"][i][k], v)
+                check(gap <= 1e-5, f"(b) float64 {k} after step {i + 1}: {gap} of its max from one process's")
+                state64_gap.append(gap)
+    print(f"(b) the same {DDP_STEPS} steps in float64 on the CPU, 2 gloo ranks of 4 ({w64[0]['seconds']:.1f} s) vs "
+          f"one process at 8 ({seconds64:.1f} s): step-1 gradients max gap {grad64_gap:.2e} of max|g|, losses "
+          f"{loss64_gap:.2e} relative, parameters and running statistics after each step {max(state64_gap):.2e} "
+          f"of their max; both ranks' states bit-equal")
+
+    # (b) the train runner under the two ranks
+    runs = [r["train_run"] for r in ranks]
+    expect = {"stgcn_train_fwd": 6 * 2, "stgcn_train_bwd": 6 * 2, "stgcn_epilogue": 6 * 1, "fps": 2 + 1}
+    for r, run in enumerate(runs):
+        check(run["launches"] == expect, f"(b) train run rank {r} launches {run['launches']} != {expect}")
+        for phase in ("train", "val"):
+            check(all(np.isfinite(v) for v in run["history"][0][phase].values()), f"(b) rank {r} {phase} losses")
+    check(runs[0]["save_path"] == runs[1]["save_path"], "(b) the ranks used different run dirs")
+    check(runs[0]["history"] == runs[1]["history"], "(b) the ranks logged different mean losses")
+    same, gap = tree_gap(runs[0]["state"], runs[1]["state"])
+    check(same, f"(b) after the train runner's epoch the two ranks' states differ by up to {gap}")
+    run_root = os.path.dirname(runs[0]["save_path"])
+    check(os.listdir(run_root) == [os.path.basename(runs[0]["save_path"])], f"(b) run dirs {os.listdir(run_root)}")
+    check(runs[0]["run_dir"] == ["log.txt", "model_best.pth", "model_final.pth", "visualization"],
+          f"(b) run dir holds {runs[0]['run_dir']}")
+    check("runs" not in runs[1]["cwd"], "(b) rank 1 wrote a TensorBoard board")
+    print(f"(b) train runner, 2 ranks of 4, 1 epoch (2 train steps, 1 val step): launches per rank "
+          f"{runs[0]['launches']}; both ranks' final states bit-equal; one run dir, written by rank 0: {runs[0]['run_dir']}; mean train total "
+          f"{runs[0]['history'][0]['train']['total']:.5f}, val total {runs[0]['history'][0]['val']['total']:.5f}")
+
+    # (c) the test runner under the two ranks: the merged metrics and losses
+    tests = [r["test_run"] for r in ranks]
+    expect = {"stgcn_sparse": 6 * 4, "stgcn_epilogue": 6 * 4, "fps": 4}
+    for r, run in enumerate(tests):
+        check(run["launches"] == expect, f"(c) test run rank {r} launches {run['launches']} != {expect}")
+        for t, want in single_metrics.items():
+            check(list(run["metrics"][t]) == list(want), f"(c) rank {r} AP@{t}: other keys")
+            gap = max(abs(run["metrics"][t][k] - v) for k, v in want.items())
+            check(gap <= 1e-6, f"(c) rank {r} AP@{t} differs from one process's by {gap}")
+        gap = max(abs(run["mean_losses"][k] - v) / max(abs(v), 1.0) for k, v in single_losses.items())
+        check(gap <= 1e-6, f"(c) rank {r} merged mean losses differ by {gap}")
+    check(tests[0]["save_path"] == tests[1]["save_path"], "(c) the ranks used different run dirs")
+    configs = [os.path.join(dp, f) for dp, _, fs in os.walk(os.path.join(workdir, "world2", "test_run")) for f in fs
+               if f == "out_config.yaml"]
+    check(len(configs) == 1, f"(c) out_config.yaml written {len(configs)} times")
+    batch_ms = [s * 1e3 for s in tests[0]["batch_seconds"]]
+    print(f"(c) test runner, 2 ranks x 4 scenes (sparse_eval, metre-sized boxes): AP@0.25 mAP "
+          f"{tests[0]['metrics'][0.25]['mAP']:.6f} AR {tests[0]['metrics'][0.25]['AR']:.6f}, equal to one process's "
+          f"within 1e-6, merged mean losses too; one out_config.yaml; launches per rank {tests[0]['launches']}; "
+          f"rank 0 per-batch time {', '.join(f'{t:.3f}' for t in batch_ms)} ms")
+
+    # step times, in this call
+    med = lambda t: float(np.median(t))  # noqa: E731
+    print(f"[{smi}] B=8 train step (CUDA events, median of {DDP_TIMED}, deterministic algorithms): one process "
+          f"{med(single['step_ms']):.3f} ms; (a) world 1 NCCL {med(a['step_ms']):.3f} ms; (b) world 2 gloo on one "
+          f"card, 4 a rank: rank 0 {med(b[0]['step_ms']):.3f} ms, rank 1 {med(b[1]['step_ms']):.3f} ms")
+    for name, got in (("(a) world 1 NCCL", a), ("(b) world 2 gloo rank 0", b[0])):
+        host_ms, dev_ms, rows = got["collectives"]
+        print(f"[{smi}] {name}, profiler over 2 steps ({got['profiled_ms']:.3f} ms a step under the profiler): "
+              f"collectives {host_ms:.3f} ms a step of host time, {host_ms / med(got['step_ms']):.3f} of the "
+              f"unprofiled {med(got['step_ms']):.3f} ms step; {dev_ms:.3f} ms of device time")
+        for key, ms, count in rows:
+            print(f"  {ms:9.3f} ms  x{count:<5.1f} {key}")
+    return {"single_ms": med(single["step_ms"]), "a_ms": med(a["step_ms"]), "b_ms": med(b[0]["step_ms"])}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
@@ -2390,6 +2841,9 @@ def main():
         t0 = time.perf_counter()
         bf16_train_launches = bf16_train_phase(workdir, smi)
         print(f"bf16 train phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        ddp_phase(workdir, smi)
+        print(f"data-parallel phase {time.perf_counter() - t0:.1f} s")
         os.chdir(REPO)
 
     line = {"kernels": [
@@ -2428,4 +2882,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        ddp_worker(sys.argv[2])
+    else:
+        main()

@@ -5,6 +5,17 @@ Same flags as the JAX package's main.py: ``--mode train`` (training with val
 phases and checkpoints), ``--mode test`` (AP evaluation of the test split)
 and ``--mode demo`` (serving).  Each runs on the CUDA card, or on the CPU
 with ``--device cpu``.
+
+Data parallel, one process a card (NCCL; gloo with ``--device cpu`` or
+when ranks share a card):
+
+    python -m torch.distributed.run --nproc_per_node N -m pose2room_tpu_torch \
+        --config <yaml> --mode {train,test}
+
+``train.batch_size`` is then each process's batch (the reference's 4-GPU
+recipe is ``--nproc_per_node 4`` at 8); the test set is sharded and its
+metrics merged.  Without torchrun's environment it is one process, as
+before.
 """
 
 import argparse
@@ -28,11 +39,16 @@ def main(argv=None):
     args = parse_args(argv)
     from pose2room_tpu_torch.config.loader import CONFIG, read_to_dict
     from pose2room_tpu_torch.device import resolve_device
+    from pose2room_tpu_torch.parallel import in_group, init_distributed, shutdown
     from pose2room_tpu_torch.runners import demo, test, train
 
-    device = resolve_device(args.device)
-    cfg = CONFIG(read_to_dict(args.config), mode=args.mode)
+    joined = not in_group()
+    # before anything is built: the rank's card, and one run dir for all ranks
+    init_distributed(args.device)
+    cfg = None
     try:
+        device = resolve_device(args.device)
+        cfg = CONFIG(read_to_dict(args.config), mode=args.mode)
         if args.mode == "demo":
             cfg.update_config(demo_path=args.demo_path)
         cfg.log_string("Loading configurations.")
@@ -44,8 +60,10 @@ def main(argv=None):
             return test.run(cfg, device=device)
         return demo.run(cfg, device=device)
     finally:
-        cfg.close()
-
+        if cfg is not None:
+            cfg.close()
+        if joined:
+            shutdown()
 
 if __name__ == "__main__":
     main()

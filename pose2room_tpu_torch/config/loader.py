@@ -3,6 +3,13 @@ pose2room_tpu/config/loader.py, reference configs/config_utils.py:10-160).
 
 Same YAML surface and per-run layout ``<log.path>/<mode>/<ISO-timestamp>/``
 with a ``log.txt`` file logger and an ``out_config.yaml`` snapshot.
+
+In a data-parallel run (``parallel.init_distributed`` before the CONFIG is
+built; under torchrun's environment without it the CONFIG raises) every rank holds rank 0's run dir, broadcast to the others, and only
+rank 0 (``is_main_process``) makes directories, logs and writes files.  The
+JAX package stamps each process's path with its own clock (JAX
+config/loader.py:66-67), so its processes can disagree on the run dir and on
+what derives from it, such as the multi-mode run salt; here they cannot.
 """
 
 import logging
@@ -12,6 +19,7 @@ from datetime import datetime
 import yaml
 
 from pose2room_tpu_torch.config.dataset_config import DatasetConfig
+from pose2room_tpu_torch.parallel.collectives import broadcast_object, process_index, require_joined
 
 
 def read_to_dict(input_data):
@@ -42,12 +50,17 @@ class CONFIG:
     def __init__(self, config, mode=None):
         self.config = config
         self.config["mode"] = mode or self.config.get("mode", "demo")
+        require_joined()
+        self.is_main_process = process_index() == 0
         root = self.config.get("log", {}).get("path", "out/p2rnet")
         stamp = datetime.now().isoformat().replace(":", "-")
-        self.save_path = os.path.join(root, self.config["mode"], stamp)
-        vis_path = os.path.join(self.save_path, self.config.get("log", {}).get("vis_path", "visualization"))
-        os.makedirs(vis_path, exist_ok=True)
-        self.config.setdefault("log", {})["vis_path"] = vis_path
+        save_path = os.path.join(root, self.config["mode"], stamp)
+        vis_sub = self.config.get("log", {}).get("vis_path", "visualization")
+        if self.is_main_process:
+            os.makedirs(os.path.join(save_path, vis_sub), exist_ok=True)
+        # after rank 0 made it: every rank reads and resumes from one run dir
+        self.save_path = broadcast_object(save_path)
+        self.config.setdefault("log", {})["vis_path"] = os.path.join(self.save_path, vis_sub)
 
         self._logger = logging.getLogger(f"p2r_torch.{id(self)}")
         self._logger.setLevel(logging.INFO)
@@ -55,12 +68,14 @@ class CONFIG:
         stream = logging.StreamHandler()
         stream.setFormatter(logging.Formatter("%(message)s"))
         self._logger.addHandler(stream)
-        fh = logging.FileHandler(os.path.join(self.save_path, "log.txt"))
-        fh.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
-        self._logger.addHandler(fh)
+        if self.is_main_process:
+            fh = logging.FileHandler(os.path.join(self.save_path, "log.txt"))
+            fh.setFormatter(logging.Formatter("%(asctime)s %(message)s"))
+            self._logger.addHandler(fh)
 
     def log_string(self, content):
-        self._logger.info(str(content))
+        if self.is_main_process:
+            self._logger.info(str(content))
 
     def close(self):
         for handler in list(self._logger.handlers):
@@ -74,6 +89,8 @@ class CONFIG:
         update_recursive(self.config, cfg1)
 
     def write_config(self):
+        if not self.is_main_process:
+            return
         with open(os.path.join(self.save_path, "out_config.yaml"), "w") as f:
             yaml.dump(self.config, f, default_flow_style=False)
 

@@ -1,11 +1,20 @@
 """Host-side batched data loader with a worker pool and one-batch prefetch.
 
-Port of pose2room_tpu/data/loader.py (single process).  Per epoch the
-sample order is ``RandomState(seed + epoch).permutation`` when shuffling,
-and every sample's augmentation seed is pre-drawn from
-``RandomState(seed * 7919 + epoch)``, so the batches do not depend on which
-worker read which sample.  Batches are collated numpy dicts; the last one
-may be short (no drop_last by default).
+Port of pose2room_tpu/data/loader.py.  Per epoch the sample order is
+``RandomState(seed + epoch).permutation`` when shuffling, and every sample's
+augmentation seed is pre-drawn from ``RandomState(seed * 7919 + epoch)``, so
+the batches do not depend on which worker read which sample.  Batches are
+collated numpy dicts; the last one may be short (no drop_last by default).
+
+Data parallel (``process_count`` > 1, one loader a process): the order is
+wrap-padded to a multiple of ``process_count * batch_size`` and process i
+takes ``order[i::process_count]``, so every process runs the same number of
+full batches (DistributedSampler's padding), and batch k of process i holds
+rows i, i + N, ... of the global batch k of one process at N times the
+batch.  Seeds go by position in the process's shard; a sample that the
+padding repeats in a shard takes the seed of its last position there, as
+the JAX loader's ``i_pos`` map gives it, so the shards equal the JAX
+package's bit for bit.
 
 Two worker modes (``device.worker_mode``):
 
@@ -49,15 +58,19 @@ def collate(samples):
 
 class DataLoader:
     def __init__(self, dataset, batch_size, shuffle=False, seed=42, drop_last=False,
-                 num_workers=8, worker_mode="thread"):
+                 num_workers=8, worker_mode="thread", process_index=0, process_count=1):
         if worker_mode not in ("thread", "process"):
             raise ValueError(f"unknown worker_mode {worker_mode!r}")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} is not in [0, {process_count})")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.worker_mode = worker_mode
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
         if not num_workers:
             self._pool = None
@@ -83,19 +96,27 @@ class DataLoader:
                 pool.shutdown(wait=True)
 
     def _epoch_indices(self):
+        """This process's sample order for the epoch."""
         n = len(self.dataset)
         if self.shuffle:
-            return np.random.RandomState(self.seed + self.epoch).permutation(n)
-        return np.arange(n)
+            order = np.random.RandomState(self.seed + self.epoch).permutation(n)
+        else:
+            order = np.arange(n)
+        if self.process_count > 1:
+            stride = self.process_count * self.batch_size
+            order = np.resize(order, -(-n // stride) * stride)  # cyclic repeat up to full batches
+        return order[self.process_index::self.process_count]
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self._epoch_indices())
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __iter__(self):
         order = self._epoch_indices()
         rng = np.random.RandomState(self.seed * 7919 + self.epoch)
-        seeds = rng.randint(0, 2 ** 31 - 1, size=len(order))  # by position in the epoch
+        drawn = rng.randint(0, 2 ** 31 - 1, size=len(order))  # by position in the shard
+        last = {int(idx): pos for pos, idx in enumerate(order)}
+        seeds = [drawn[last[int(idx)]] for idx in order]
 
         def fetch(pos):
             return self.dataset.__getitem__(int(order[pos]), rng=np.random.RandomState(seeds[pos]))

@@ -1,9 +1,10 @@
 """Device choice and precision policy of the port's entry points.
 
-The entry points (``P2RNet``, the demo runner, the CLI) run on the card.
-They take the CPU only when the caller asks for it (``device="cpu"``, as the
-tests do); without a card and without that request they raise rather than
-fall back.
+The entry points (``P2RNet``, the demo runner, the CLI) run on the card:
+inside a data-parallel process group the card ``parallel.init_distributed``
+made current (``cuda:<LOCAL_RANK>``).  They take the CPU only when the caller
+asks for it (``device="cpu"``, as the tests do); without a card and without
+that request they raise rather than fall back.
 
 Precision: every float32 matrix product and convolution runs in full f32.
 PyTorch runs cuDNN convolutions in TF32 by default, which keeps ~3 decimal
@@ -12,6 +13,8 @@ points switch TF32 off and the generate path asserts it stays off.
 """
 
 import torch
+
+from pose2room_tpu_torch.parallel.collectives import in_group
 
 
 def set_precision_policy():
@@ -28,13 +31,16 @@ def assert_precision_policy():
 
 
 def resolve_device(device=None):
-    """``torch.device`` for an entry point: the card unless told otherwise."""
+    """``torch.device`` for an entry point: the card unless told otherwise
+    (in a process group, this rank's card)."""
     set_precision_policy()
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: pass device='cpu' to run the port on the CPU"
             )
+        if in_group():
+            return torch.device("cuda", torch.cuda.current_device())
         return torch.device("cuda")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

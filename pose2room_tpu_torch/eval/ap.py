@@ -10,10 +10,10 @@ needed.  Host numpy throughout.  The voxel-occupancy ("mesh") variant,
 """
 
 import numpy as np
-import torch
 
 from pose2room_tpu_torch import native
 from pose2room_tpu_torch.ops.boxes import box3d_iou_oriented
+from pose2room_tpu_torch.parallel.collectives import allgather_object
 
 
 def voc_ap(rec, prec, use_07_metric=False):
@@ -177,12 +177,23 @@ class APCalculator:
             ret[f"AR{suffix}"] = np.mean([r for r in recs if not np.isnan(r)]) if recs else 0.0
         return ret
 
-    def synchronize_between_processes(self):
-        """A no-op in one process; merging scans across processes waits for
-        the data-parallel port."""
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError("AP state across processes is not ported")
+    def synchronize_between_processes(self, allgather=None):
+        """Union the scans of every process (each evaluates its shard of the
+        test set) before ``compute_metrics``: re-keyed densely in process
+        order, voxel payloads as they are (JAX eval/ap.py:216-245).  A no-op
+        in one process.  ``allgather`` (default
+        ``parallel.allgather_object``) returns one object a process in rank
+        order."""
+        states = (allgather or allgather_object)((self.pred_map_cls, self.gt_map_cls))
+        if len(states) == 1:
+            return
+        merged_pred, merged_gt, cnt = {}, {}, 0
+        for pred, gt in states:
+            for k in sorted(pred.keys()):
+                merged_pred[cnt] = pred[k]
+                merged_gt[cnt] = gt[k]
+                cnt += 1
+        self.pred_map_cls, self.gt_map_cls, self.scan_cnt = merged_pred, merged_gt, cnt
 
     def reset(self):
         self.gt_map_cls = {}

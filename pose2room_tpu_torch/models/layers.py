@@ -12,7 +12,12 @@ normalise as ``(x - mean) * (scale * rsqrt(var + eps)) + bias`` with eps
 over every axis but the last, and the running stats follow the flax EMA
 ``ra = m * ra + (1 - m) * batch`` with the keep-rate m = ``bn_momentum``.
 ``torch.nn.BatchNorm*`` would update running_var with the unbiased variance
-and the torch momentum convention, so it is not used.
+and the torch momentum convention, so it is not used.  In a data-parallel
+process group the train-mode moments are global, as in the JAX package's
+sharded step: each rank's (E[x], E[x^2]) are averaged over the ranks (they
+hold batches of one size) through a differentiable all-reduce, whose
+backward sums the moments' gradients over the ranks (SyncBatchNorm's
+scheme); so every rank's running statistics take the same values.
 
 A compute ``dtype`` (None: float32, or ``torch.bfloat16``) follows flax's
 ``nn.Dense(dtype=bf16)`` (``dense``): parameters stay f32, the input and
@@ -29,6 +34,7 @@ from torch import nn
 
 from pose2room_tpu_torch.ops.stgcn_fused import LANE, N_VEC_ROWS, block_diag_taps, pad_merged, widen
 from pose2room_tpu_torch.ops.stgcn_train import BN_EPS, FusedTrainLayer
+from pose2room_tpu_torch.parallel.collectives import all_reduce_sum, in_group, process_count
 
 
 def lecun_normal_(tensor, fan_in, generator):
@@ -89,8 +95,10 @@ class BatchNorm(nn.Module):
         x = widen(x)
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = x.mean(axes)
-            var = torch.clamp((x * x).mean(axes) - mean * mean, min=0.0)
+            mean, meansq = x.mean(axes), (x * x).mean(axes)
+            if in_group():
+                mean, meansq = (all_reduce_sum(torch.stack([mean, meansq])) / process_count()).unbind(0)
+            var = torch.clamp(meansq - mean * mean, min=0.0)
             self.update_running_stats(mean, var)
         else:
             mean, var = self.running_mean, self.running_var

@@ -13,12 +13,18 @@ BoxNetDetectionLoss), with the same terms, weights and masking:
   log-size and (sin, cos) heading of the assigned GT, CE on the class, all
   gated by the objectness label;
 * total = 10*vote + 5*objectness + 10*center + 10*size + 10*heading + sem_cls.
+
+Data parallel (``reduce``): every normaliser is a sum over the global batch
+(the masks' sums, the proposal count), as in the JAX package's sharded
+step, so each rank's terms are its numerators over the global normalisers:
+its share of the global loss, whose gradient is the sum of the ranks'.
 """
 
 import torch
 import torch.nn.functional as F
 
 from pose2room_tpu_torch.ops.nn_distance import huber_loss, nn_distance
+from pose2room_tpu_torch.parallel.collectives import process_count
 
 FAR_THRESHOLD = 0.6
 NEAR_THRESHOLD = 0.3
@@ -45,6 +51,7 @@ def _take(values, idx):
 
 
 def compute_vote_loss(end_points, gt, origin_joint_id=0):
+    """(numerator, normaliser) of the vote loss."""
     seed_skeleton = end_points["seed_skeleton"]  # (B,S,V,3)
     B, S, V, _ = seed_skeleton.shape
     seed_inds = end_points["seed_inds"]  # (B,S)
@@ -61,10 +68,12 @@ def compute_vote_loss(end_points, gt, origin_joint_id=0):
     gt_vote = _take(flat_votes, chosen)[:, 0].reshape(B, S, 3)
 
     per_seed = huber_loss(end_points["vote_xyz"] - gt_vote, delta=1.0).mean(-1)
-    return (per_seed * mask).sum() / (mask.sum() + 1e-6)
+    return (per_seed * mask).sum(), mask.sum()
 
 
 def compute_correspondence(end_points, gt):
+    """(object_assignment, objectness numerator, label, mask); the
+    objectness loss is its numerator over ``mask.sum()``."""
     agg_xyz = end_points["aggregated_vote_xyz"]  # (B,K,3)
     gt_center = gt["center_label"][:, :, 0:3]  # (B,K2,3)
     box_mask = gt["box_label_mask"]  # (B,K2)
@@ -78,19 +87,21 @@ def compute_correspondence(end_points, gt):
     objectness_label = (euclid < NEAR_THRESHOLD).long()
     objectness_mask = ((euclid < NEAR_THRESHOLD) | (euclid > FAR_THRESHOLD)).float()
     ce = _weighted_ce(end_points["objectness_scores"], objectness_label, OBJECTNESS_CLS_WEIGHTS)
-    objectness_loss = (ce * objectness_mask).sum() / (objectness_mask.sum() + 1e-6)
-    return object_assignment, objectness_loss, objectness_label, objectness_mask
+    return object_assignment, (ce * objectness_mask).sum(), objectness_label, objectness_mask
 
 
-def compute_box_and_sem_cls_loss(end_points, gt, object_assignment, objectness_label):
+def compute_box_and_sem_cls_loss(end_points, gt, object_assignment, objectness_label, label_sum, box_sum):
+    """(center, size, heading, sem_cls) losses; ``label_sum`` and ``box_sum``:
+    the sums of the objectness label and of the GT box mask (global ones in
+    a data-parallel step)."""
     label = objectness_label.float()
-    denom = label.sum() + 1e-6
+    denom = label_sum + 1e-6
 
     # center: bidirectional Chamfer over the full padded GT array
     box_mask = gt["box_label_mask"]
     dist1, _, dist2, _ = nn_distance(end_points["center"], gt["center_label"])
     loss1 = (dist1 * label).sum() / denom
-    loss2 = (dist2 * box_mask).sum() / (box_mask.sum() + 1e-6)
+    loss2 = (dist2 * box_mask).sum() / (box_sum + 1e-6)
     center_loss = (loss1 + loss2) / 2.0
 
     size_l = huber_loss(end_points["size"] - _take(gt["size"], object_assignment), delta=1.0).mean(-1)
@@ -106,15 +117,30 @@ def compute_box_and_sem_cls_loss(end_points, gt, object_assignment, objectness_l
     return center_loss, size_loss, heading_loss, sem_cls_loss
 
 
-def detection_loss(end_points, gt, origin_joint_id=0):
+def detection_loss(end_points, gt, origin_joint_id=0, reduce=None):
     """Full BoxNetDetectionLoss: a dict of scalar tensors ('total' drives the
-    gradient; the rest are logging statistics)."""
-    vote_loss = compute_vote_loss(end_points, gt, origin_joint_id)
-    object_assignment, objectness_loss, objectness_label, objectness_mask = (
+    gradient; the rest are logging statistics).
+
+    ``reduce``: None for the batch at hand, or a function that sums a tensor
+    over the ranks of a data-parallel step (``parallel.all_reduce_sum_``):
+    the normalisers then go through it in one call, and the proposal count
+    is every rank's (each holds the same number), so each term is this
+    rank's share of the global one and the global loss is their sum."""
+    vote_num, vote_den = compute_vote_loss(end_points, gt, origin_joint_id)
+    object_assignment, objectness_num, objectness_label, objectness_mask = (
         compute_correspondence(end_points, gt)
     )
+    n_prop = objectness_label.numel()
+    sums = (vote_den, objectness_mask.sum(), objectness_label.float().sum(), gt["box_label_mask"].sum())
+    if reduce is not None:
+        # one collective; the sums are counts, exact in every dtype they take
+        sums = [r.to(t.dtype) for r, t in zip(reduce(torch.stack(sums)).unbind(0), sums)]
+        n_prop *= process_count()
+    vote_den, mask_sum, label_sum, box_sum = sums
+    vote_loss = vote_num / (vote_den + 1e-6)
+    objectness_loss = objectness_num / (mask_sum + 1e-6)
     center_loss, size_loss, heading_loss, sem_cls_loss = compute_box_and_sem_cls_loss(
-        end_points, gt, object_assignment, objectness_label
+        end_points, gt, object_assignment, objectness_label, label_sum, box_sum
     )
     total = (
         10.0 * vote_loss
@@ -124,13 +150,10 @@ def detection_loss(end_points, gt, origin_joint_id=0):
         + 10.0 * heading_loss
         + sem_cls_loss
     )
-    n_prop = objectness_label.numel()
     pos_ratio = objectness_label.float().sum() / n_prop
     neg_ratio = objectness_mask.sum() / n_prop - pos_ratio
     obj_pred = end_points["objectness_scores"].argmax(2)
-    obj_acc = ((obj_pred == objectness_label).float() * objectness_mask).sum() / (
-        objectness_mask.sum() + 1e-6
-    )
+    obj_acc = ((obj_pred == objectness_label).float() * objectness_mask).sum() / (mask_sum + 1e-6)
     return {
         "total": total,
         "vote_loss": vote_loss,

@@ -139,24 +139,28 @@ class P2RNet(nn.Module):
         load and pass to ``generate(folded=...)``.  None when the chain is off."""
         return self.backbone.fold_eval_operands() if self.config.fused_eval else None
 
-    def _trunk(self, input_joints, folded=None, generator=None):
-        end_points = self.backbone(input_joints, folded=folded, generator=generator)
+    def _trunk(self, input_joints, folded=None, generator=None, shard=(0, 1)):
+        end_points = self.backbone(input_joints, folded=folded, generator=generator, shard=shard)
         xyz, features = self.centervoting(end_points["seed_skeleton"], end_points["seed_features"])
         features = l2_normalize(features)
         end_points["vote_xyz"] = xyz
         end_points["vote_features"] = features
         return end_points, xyz, features
 
-    def mdn_eps(self, batch_size, generator):
+    def mdn_eps(self, batch_size, generator, shard=(0, 1)):
         """Standard-normal noise of the three MDN ``predict`` heads, one
         sample each: {"center", "size", "heading"} -> (B, P, G, 1, D), drawn
         on the host from the CPU ``generator`` (so the card and the CPU see
-        the same numbers) and moved to the model's device."""
+        the same numbers) and moved to the model's device.  ``shard``
+        (index, count): the noise of a batch ``count`` times this one is
+        drawn and rows index, index + count, ... kept, so a data-parallel
+        rank holds its rows of the global batch's noise."""
         c = self.config
         dims = {"center": 3, "size": 3, "heading": 2}
+        index, count = shard
         return {
-            k: torch.randn((batch_size, c.num_proposals, c.num_gaussian, 1, dims[k]),
-                           generator=generator).to(self.device)
+            k: torch.randn((batch_size * count, c.num_proposals, c.num_gaussian, 1, dims[k]),
+                           generator=generator)[index::count].to(self.device)
             for k in MDN_KEYS
         }
 
@@ -174,20 +178,23 @@ class P2RNet(nn.Module):
             for k in MDN_KEYS
         }
 
-    def forward(self, input_joints, eps=None, generator=None):
+    def forward(self, input_joints, eps=None, generator=None, shard=(0, 1)):
         """Train forward. input_joints: (B, T, V, 3) f32 on ``self.device``.
 
         ``eps``: the MDN noise (``mdn_eps`` layout); drawn from ``generator``
         (a CPU torch.Generator, also used for ``seed_sampling: random``)
-        when None.  BatchNorm is live in ``.train()`` mode and uses the
-        running statistics in ``.eval()`` mode.  Returns the end_points dict.
+        when None.  ``shard`` (index, count): this batch is rows index,
+        index + count, ... of a global batch ``count`` times its size (a
+        data-parallel rank's), and the draws are that batch's rows.
+        BatchNorm is live in ``.train()`` mode and uses the running
+        statistics in ``.eval()`` mode.  Returns the end_points dict.
         """
         assert_precision_policy()
         if eps is None:
             if generator is None:
                 raise ValueError("pass the MDN noise eps or a CPU generator to draw it from")
-            eps = self.mdn_eps(input_joints.shape[0], generator)
-        end_points, xyz, features = self._trunk(input_joints, generator=generator)
+            eps = self.mdn_eps(input_joints.shape[0], generator, shard)
+        end_points, xyz, features = self._trunk(input_joints, generator=generator, shard=shard)
         return self.detection(xyz, features, end_points, eps=eps)
 
     @torch.no_grad()

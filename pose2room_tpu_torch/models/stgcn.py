@@ -185,7 +185,11 @@ class STGCN(nn.Module):
             "vlist": torch.as_tensor(vlist, device=dev),
         }
 
-    def seed_indices(self, origin, generator=None):
+    def seed_indices(self, origin, generator=None, shard=(0, 1)):
+        """(B, n_seeds) int32 frame indices.  ``shard`` (index, count): with
+        'random' sampling the scores of a batch ``count`` times this one are
+        drawn and rows index, index + count, ... kept (a data-parallel
+        rank's rows of the global batch)."""
         B, T, _ = origin.shape
         if self.n_seeds >= T:
             inds = torch.round(torch.linspace(0, T - 1, self.n_seeds, device=origin.device))
@@ -196,20 +200,23 @@ class STGCN(nn.Module):
             # drawn on the generator's device (the host's by default), so a
             # host generator's seed gives the same frames on any device
             gen_device = generator.device if generator is not None else "cpu"
-            scores = torch.rand((B, T), generator=generator, device=gen_device).to(origin.device)
+            index, count = shard
+            scores = torch.rand((B * count, T), generator=generator, device=gen_device)[index::count]
+            scores = scores.to(origin.device)
             picked = torch.argsort(scores, dim=1)[:, : self.n_seeds]
             return torch.sort(picked, dim=1).values.to(torch.int32)
         raise NotImplementedError(self.seed_sampling)
 
-    def forward(self, input_joints, folded=None, generator=None):
+    def forward(self, input_joints, folded=None, generator=None, shard=(0, 1)):
         """input_joints: (B, T, V, 3) -> dict of seed tensors.  ``folded``:
-        ``fold_eval_operands()`` of the current weights (eval mode only)."""
+        ``fold_eval_operands()`` of the current weights (eval mode only);
+        ``shard``: see ``seed_indices``."""
         B, T, V, _ = input_joints.shape
         if T != self.num_frames:
             raise ValueError(f"clip has {T} frames; the model was built for {self.num_frames}")
         oid = self.origin_joint_id
         origin = input_joints[:, :, oid, :3]  # (B,T,3)
-        seed_inds = self.seed_indices(origin, generator)
+        seed_inds = self.seed_indices(origin, generator, shard)
 
         x = input_joints - input_joints[:, :, oid : oid + 1]
         neigh = origin[:, self.window_idx, :]  # (B,T,knn,3)

@@ -33,6 +33,17 @@ from the rounded activations, and parameters, statistics and the per-column
 vectors stay f32.  On f32 every rounding cast is a no-op.  The wrappers
 launch each dtype's leg of the kernels.
 
+Data parallel: inside a process group the statistics are those of the
+global batch, as in the JAX package's sharded step.  Before each set of
+statistics is formed its column (or channel) sums are summed over the ranks,
+one all-reduce of the two packed vectors a set: BN1's [sum y, sum y^2],
+kernel 3's summed parts, the BN2 backward's [sum dz, sum dz*y2] and kernel
+4's summed parts, four a block; the count is every rank's rows (each holds
+a batch of one size).  The activation gradients dy2 and dyf use the global
+sums; the parameter gradients of g1, b1, g2, b2 are formed from this rank's
+own sums, since DDP sums them over the ranks afterwards (SyncBatchNorm's
+split).  The kernels take the same operands as in one process.
+
 Padding contract (as the eval chain): the merged width 3392 pads to 3456;
 pad rows/columns of M and pad entries of every per-column vector are zero,
 so pad columns stay exactly zero forward and backward.
@@ -44,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from pose2room_tpu_torch import kernels
+from pose2room_tpu_torch.parallel.collectives import all_reduce_sum_, in_group, process_count
 from pose2room_tpu_torch.ops.stgcn_fused import (
     LANE,
     block_diag_taps,
@@ -71,6 +83,14 @@ def _tile_cols(vec_c, V, C, Wp):
 def _chan_sum(col_vec, C):
     """(Wp,) per-column sums -> (C,) per-channel (pad groups are zero)."""
     return col_vec.reshape(-1, C).sum(0)
+
+
+def _global(*vecs):
+    """The vectors summed over the ranks, in one all-reduce (themselves
+    outside a process group)."""
+    if not in_group():
+        return vecs
+    return all_reduce_sum_(torch.stack(vecs)).unbind(0)
 
 
 def _stats_from_cols(colsum, colsumsq, count, C):
@@ -280,17 +300,17 @@ def _layer_forward(x, M, bias_col, g1, b1, taps, cb, g2, b2, *, residual, V, C, 
     B, Tx, W = x.shape
     Wp = M.shape[1]
     N = B * Tx
-    cnt = N * V
+    cnt = N * V * process_count()
     y = (torch.matmul(widen(x), widen(M[:W])) + bias_col).to(x.dtype)  # (B, T, Wp)
     yf = widen(y)
-    mean1, var1 = _stats_from_cols(yf.sum((0, 1)), (yf * yf).sum((0, 1)), cnt, C)
+    mean1, var1 = _stats_from_cols(*_global(yf.sum((0, 1)), (yf * yf).sum((0, 1))), cnt, C)
     s1 = g1 * torch.rsqrt(var1 + BN_EPS)
     s1col = _tile_cols(s1, V, C, Wp)
     vecs = torch.stack([s1col, _tile_cols(b1 - mean1 * s1, V, C, Wp),
                         _tile_cols(cb, V, C, Wp), torch.zeros_like(s1col)])
     y = y.reshape(N, Wp)
     y2, parts = tconv_fwd(y, vecs, block_diag_taps(taps.to(x.dtype)).contiguous(), T=T)
-    mean2, var2 = _stats_from_cols(parts[:, 0].sum(0), parts[:, 1].sum(0), cnt, C)
+    mean2, var2 = _stats_from_cols(*_global(parts[:, 0].sum(0), parts[:, 1].sum(0)), cnt, C)
     s2 = g2 * torch.rsqrt(var2 + BN_EPS)
     z = widen(y2).reshape(B, Tx, Wp) * _tile_cols(s2, V, C, Wp) + _tile_cols(b2 - mean2 * s2, V, C, Wp)
     if residual:
@@ -336,7 +356,7 @@ class FusedTrainLayer(torch.autograd.Function):
         B, Tx, W = x.shape
         Wp = M.shape[1]
         N = B * Tx
-        cnt = N * V
+        cnt = N * V * process_count()
         dt = x.dtype
         dout = widen(dout)
 
@@ -357,8 +377,11 @@ class FusedTrainLayer(torch.autograd.Function):
         dz = torch.where(z > 0.0, dout, torch.zeros_like(dout))
         sum_dz_c = _chan_sum(dz.sum((0, 1)), C)
         sum_dzy2_c = _chan_sum((dz * y2f).sum((0, 1)), C)
+        # the parameter gradients from this rank's sums (DDP sums them), the
+        # activation gradient from the global ones
         dg2 = inv2 * (sum_dzy2_c - mean2 * sum_dz_c)
         db2 = sum_dz_c
+        sum_dz_c, sum_dzy2_c = _global(sum_dz_c, sum_dzy2_c)
         n2 = (y2f - cols(mean2)) * cols(inv2)
         mdzn2_col = cols((sum_dzy2_c / cnt - mean2 * (sum_dz_c / cnt)) * inv2)
         dy2 = s2col * (dz - cols(sum_dz_c / cnt) - n2 * mdzn2_col)
@@ -375,6 +398,7 @@ class FusedTrainLayer(torch.autograd.Function):
         sum_dpy_c = _chan_sum(parts[:, 1].sum(0), C)
         dg1 = inv1 * (sum_dpy_c - mean1 * sum_dp_c)
         db1 = sum_dp_c
+        sum_dp_c, sum_dpy_c = _global(sum_dp_c, sum_dpy_c)
         n1 = (widen(y).reshape(B, Tx, Wp) - cols(mean1)) * cols(inv1)
         mdpn1_col = cols((sum_dpy_c / cnt - mean1 * (sum_dp_c / cnt)) * inv1)
         dyf = s1col * (widen(dpre).reshape(B, Tx, Wp) - cols(sum_dp_c / cnt) - n1 * mdpn1_col)
@@ -394,7 +418,9 @@ class FusedTrainLayer(torch.autograd.Function):
 def train_layer_ref(x, M, bias_col, g1, b1, taps, cb, g2, b2, residual, V, C, T):
     """The same forward as ``FusedTrainLayer`` from the plain versions only,
     for torch autograd to differentiate (the JAX ``custom_vjp=False``
-    counterpart).  Same arguments and outputs."""
+    counterpart).  Same arguments and outputs.  One process only: in a
+    process group its statistics are summed across ranks out of autograd's
+    sight."""
     outs, _ = _layer_forward(
         x, M, bias_col, g1, b1, taps, cb, g2, b2,
         residual=residual, V=V, C=C, T=T, tconv_fwd=tconv_stats_fwd_ref,

@@ -4,13 +4,16 @@ optimizer, and a resumed or finetuned start.
 Port of pose2room_tpu/runners/common.py (reference net_utils/utils.py:
 205-294).  All three runners (demo, test, train) go through ``setup``, so
 ``method``, ``resume`` and ``finetune`` act the same in each, as in the JAX
-package.
+package.  In a data-parallel run every rank builds the same model from the
+same seed and loads the same checkpoints onto its own card.
 """
 
+import numpy as np
 import torch
 
 from pose2room_tpu_torch.config.loader import mount_external_config
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
+from pose2room_tpu_torch.parallel.collectives import process_index
 from pose2room_tpu_torch.train.checkpoint import CheckpointIO
 from pose2room_tpu_torch.train.state import make_optimizer, train_options
 
@@ -45,7 +48,12 @@ def setup(cfg, device=None):
     restored whole (weights, running statistics, optimizer state, epoch,
     min_loss); otherwise, with ``finetune``, each ``weight:`` checkpoint
     (reference or port layout) is loaded partially, each skip logged (JAX
-    runners/common.py:78-87)."""
+    runners/common.py:78-87).
+
+    Seeds numpy's global stream with ``seed + rank`` (JAX
+    runners/common.py:41); in a data-parallel run the caller has joined the
+    group before building ``cfg`` (the CONFIG raises otherwise)."""
+    np.random.seed(int(cfg.config.get("seed", 42)) + process_index())
     model = build_model(cfg, device)
     freeze, phase_specs = train_options(cfg.config)
     optimizer, base_lrs, clip_norm = make_optimizer(

@@ -15,6 +15,14 @@ sample count derive from its run dir and seed and go to
 seeded by them.  ``test.eval_mesh_ap``: every pred and GT box is also
 voxelized (``test.mesh_voxel_size``, eval/voxels.py) and the metrics gain
 their ``_mesh`` twins.
+
+Data parallel (under torchrun): each process evaluates its shard of the
+test set (its losses over its own batches, as JAX runners/test.py computes
+them), then the loss recorder's sums and the AP calculators' scans are
+merged across processes before the metrics (JAX runners/test.py:226-231);
+the seeds of the run's generators take the rank (``parallel.fold_rank``),
+as JAX folds ``process_index`` into its key; rank 0 alone logs, writes and
+dumps (its shard's batches).
 """
 
 import os
@@ -37,6 +45,7 @@ from pose2room_tpu_torch.eval.parse import (
     parse_predictions_device,
 )
 from pose2room_tpu_torch.models.loss import detection_loss
+from pose2room_tpu_torch.parallel.collectives import fold_rank, process_count, process_index
 from pose2room_tpu_torch.runners.common import setup
 from pose2room_tpu_torch.runners.train import split_datasets
 from pose2room_tpu_torch.train.state import check_unported_keys
@@ -134,7 +143,8 @@ def run(cfg, device=None, dataset=None):
     device_cfg = cfg.config.get("device", {}) or {}
     loader = DataLoader(dataset, batch_size, shuffle=False, seed=seed,
                         num_workers=device_cfg.get("num_workers", 8) or 0,
-                        worker_mode=device_cfg.get("worker_mode", "thread"))
+                        worker_mode=device_cfg.get("worker_mode", "thread"),
+                        process_index=process_index(), process_count=process_count())
     iou_path = native.path()
     cfg.log_string(f"{len(dataset)} test samples; IoU matrices on the {iou_path} path")
 
@@ -142,9 +152,9 @@ def run(cfg, device=None, dataset=None):
     thresholds = eval_cfg["ap_iou_thresholds"]
     calculators = {t: APCalculator(t, cfg.dataset_config.class2type) for t in thresholds}
     recorder = LossRecorder(batch_size)
-    dump = eval_cfg["dump_results"]
+    dump = eval_cfg["dump_results"] and cfg.is_main_process
     dump_threshold = cfg.config.get("generation", {}).get("dump_threshold", 0.5)
-    generator = torch.Generator().manual_seed(seed)  # for seed_sampling: random
+    generator = torch.Generator().manual_seed(fold_rank(seed))  # for seed_sampling: random
     n_samples, noise_gen = 1, None
     if multi_mode:
         run_salt, n_samples = multi_mode_draws(cfg.save_path, seed)
@@ -153,7 +163,7 @@ def run(cfg, device=None, dataset=None):
         cfg.config["test"]["drawn_n_samples"] = n_samples
         cfg.write_config()
         cfg.log_string(f"multi_mode: run salt {run_salt}, {n_samples} samples a proposal")
-        noise_gen = torch.Generator(device=device).manual_seed((seed + run_salt) % (2**31))
+        noise_gen = torch.Generator(device=device).manual_seed(fold_rank((seed + run_salt) % (2**31)))
     attach_voxels = voxel_attacher(test_cfg.get("mesh_voxel_size", 0.0625)) if eval_mesh_ap else None
     voxel_seconds = 0.0
     n_batches = len(loader)
@@ -215,6 +225,7 @@ def run(cfg, device=None, dataset=None):
         loader.close()
 
     cfg.log_string(f"Test total elapsed: {time.perf_counter() - start:.2f}s")
+    recorder.synchronize_between_processes()
     for calc in calculators.values():
         calc.synchronize_between_processes()
     means = recorder.means()

@@ -6,6 +6,12 @@ loop; checkpoints under the run directory.  ``model.compute_dtype:
 bfloat16`` trains in bf16 (f32 parameters, optimizer state and
 checkpoints; the val step runs the bf16 eval chain).
 
+Data parallel (under torchrun, one process a card): each process trains on
+its shard of both splits at ``train.batch_size`` / ``val.batch_size`` (the
+batch of one process, as in the reference's per-GPU recipe and the JAX
+package's hosts), with global BatchNorm statistics and loss normalisers and
+summed gradients (``parallel.wrap_model``); rank 0 writes the files.
+
 The keys of ``train.state.check_unported_keys`` are not ported and raise.
 """
 
@@ -14,6 +20,8 @@ import os
 from pose2room_tpu_torch.data.dataset import P2RNetDataset
 from pose2room_tpu_torch.data.loader import DataLoader
 from pose2room_tpu_torch.device import resolve_device
+from pose2room_tpu_torch.parallel.collectives import process_count, process_index
+from pose2room_tpu_torch.parallel.mesh import wrap_model
 from pose2room_tpu_torch.runners.common import setup
 from pose2room_tpu_torch.train.engine import train as train_loop
 from pose2room_tpu_torch.train.state import check_unported_keys
@@ -62,13 +70,14 @@ def run(cfg, device=None, datasets=None):
             datasets[mode], batch_size=config[mode]["batch_size"], shuffle=(mode == "train"),
             seed=seed, num_workers=device_cfg.get("num_workers", 8) or 0,
             worker_mode=device_cfg.get("worker_mode", "thread"),
+            process_index=process_index(), process_count=process_count(),
         )
         for mode in ("train", "val")
     }
     cfg.log_string(f"{len(datasets['train'])} train / {len(datasets['val'])} val samples")
     cfg.log_string("Starting training.")
     try:
-        history = train_loop(cfg, model, optimizer, base_lrs, clip_norm, loaders["train"],
+        history = train_loop(cfg, wrap_model(model), optimizer, base_lrs, clip_norm, loaders["train"],
                              loaders["val"], checkpoint, start_epoch=start_epoch, min_loss=min_loss)
     finally:
         for loader in loaders.values():

@@ -29,6 +29,12 @@ from pose2room_tpu_torch.convert import load_partial_state_dict
 _LAST = re.compile(r"model_last(?:_(\d+))?(?:\.pth)?$")
 
 
+def model_device(model):
+    """Where a checkpoint for ``model`` is loaded: its own device (each
+    data-parallel rank's card)."""
+    return next(model.parameters()).device
+
+
 def _epoch_of(name):
     """``model_last_<k>[.pth]`` -> k; a bare ``model_last[.pth]`` -> -1."""
     m = _LAST.match(name)
@@ -77,7 +83,7 @@ class CheckpointIO:
         """Resume: restore the model's state_dict (weights and BatchNorm
         running statistics) and the optimizer's state in place.  Returns
         (epoch, min_loss) of the checkpoint."""
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        ckpt = torch.load(path, map_location=model_device(model), weights_only=True)
         model.load_state_dict(ckpt["net"], strict=True)
         optimizer.load_state_dict(ckpt["optimizer"])
         return int(ckpt["epoch"]), float(ckpt["min_loss"])
@@ -91,5 +97,5 @@ class CheckpointIO:
             raise NotImplementedError(
                 f"weight {path}: downloading weights is not ported (the port reads local "
                 "checkpoints only); fetch the file and give its path")
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        ckpt = torch.load(path, map_location=model_device(model), weights_only=True)
         return load_partial_state_dict(model, ckpt.get("net", ckpt), log=self.log)

@@ -21,6 +21,17 @@ seeded ``seed * 1000003 + e * 100000 + it`` (the JAX package folds
 the loader's epoch seeds, the optimizer state and the momentum recomputed
 from the epoch, nothing else carries across epochs, so a resumed run
 repeats an uninterrupted one.
+
+Data parallel (``model`` wrapped by ``parallel.wrap_model``): every rank
+draws the noise of the whole global batch from that generator and keeps its
+rows (``shard``), matching the loader's strided shards, so N processes at
+batch B train as one process at batch N*B on the same data (augmentation
+aside: its seeds go by position in each shard).  The JAX package folds
+``process_index`` into its key instead (JAX train/engine.py:183), a stream
+the port cannot reproduce anyway.  The steps log global losses; each
+phase's recorder is merged across processes all the same (idempotent), and
+only rank 0 writes the board, the profile and the checkpoints, with a
+barrier after each save.
 """
 
 import contextlib
@@ -29,6 +40,8 @@ import time
 
 import torch
 
+from pose2room_tpu_torch.parallel.collectives import barrier, process_count, process_index
+from pose2room_tpu_torch.parallel.mesh import unwrap
 from pose2room_tpu_torch.train.state import apply_lr_schedule, bnm_momentum, lr_factor, optimizer_steps
 from pose2room_tpu_torch.train.step import batch_to_device, eval_step, train_step
 from pose2room_tpu_torch.utils.logger import LogBoard, LossRecorder
@@ -88,9 +101,10 @@ def run_epoch(phase, epoch, loader, step_fn, device, seed, log_fn, print_step=10
 
 def train(cfg, model, optimizer, base_lrs, clip_norm, train_loader, val_loader, checkpoint,
           start_epoch=0, min_loss=float("inf")):
-    """The full run from ``start_epoch``.  ``base_lrs``: each param group's
-    base lr (``state.make_optimizer``).  Returns one {"train": means, "val":
-    means} per epoch run."""
+    """The full run from ``start_epoch``.  ``model``: the P2RNet, or its
+    ``parallel.wrap_model`` wrapper in a process group.  ``base_lrs``: each
+    param group's base lr (``state.make_optimizer``).  Returns one
+    {"train": means, "val": means} per epoch run (global means)."""
     log = cfg.log_string
     config = cfg.config
     origin = cfg.dataset_config.origin_joint_id
@@ -104,12 +118,20 @@ def train(cfg, model, optimizer, base_lrs, clip_norm, train_loader, val_loader, 
     save_weight_step = log_cfg.get("save_weight_step", 50)
     seed = int(config.get("seed", 42))
     h2d_dtype = config["train"].get("h2d_dtype")
-    device = model.device
-    board = LogBoard()
+    net = unwrap(model)
+    device = net.device
+    main = cfg.is_main_process
+    shard = (process_index(), process_count())
+    board = LogBoard(enabled=main)
+
+    def save(*args):
+        if main:
+            checkpoint.save(*args)
+        barrier()
 
     profile_steps = int(log_cfg.get("profile_steps", 0) or 0)
     profile_window = None
-    if profile_steps > 0:
+    if profile_steps > 0 and main:
         profile_dir = os.path.join(cfg.save_path, "profile")
         # skip the first steps (allocator and kernel warm-up); trace steady state
         profile_window = ProfileWindow(profile_dir, start_step=3, n_steps=profile_steps,
@@ -118,17 +140,17 @@ def train(cfg, model, optimizer, base_lrs, clip_norm, train_loader, val_loader, 
 
     def train_fn(batch, generator):
         return train_step(model, optimizer, batch, generator=generator, clip_norm=clip_norm,
-                          origin_joint_id=origin)[0]
+                          origin_joint_id=origin, shard=shard)[0]
 
     def val_fn(batch, generator):
-        return eval_step(model, batch, generator=generator, origin_joint_id=origin)
+        return eval_step(net, batch, generator=generator, origin_joint_id=origin, shard=shard)
 
     history = []
     step_no = optimizer_steps(optimizer)
     for epoch in range(start_epoch, total_epochs):
         if bns_cfg:
             flax_m = bnm_momentum(bns_cfg, epoch)
-            model.set_bn_momentum(flax_m)
+            net.set_bn_momentum(flax_m)
             # reference BNMomentumScheduler.show_momentum (torch convention)
             log(f"Current BN decay momentum :{1.0 - flax_m:f}.")
         factor = lr_factor(milestones, gamma, epoch)
@@ -140,6 +162,8 @@ def train(cfg, model, optimizer, base_lrs, clip_norm, train_loader, val_loader, 
         val_rec, _ = run_epoch("val", epoch, val_loader, val_fn, device, seed, log, print_step,
                                board, step_no, h2d_dtype=h2d_dtype)
         log(f"Epoch {epoch + 1} elapsed: {time.time() - start:.2f}s")
+        for rec in (train_rec, val_rec):
+            rec.synchronize_between_processes()
         means = {"train": train_rec.means(), "val": val_rec.means()}
         for phase, m in means.items():
             log(f"Epoch {epoch + 1} mean {phase} losses: "
@@ -154,12 +178,12 @@ def train(cfg, model, optimizer, base_lrs, clip_norm, train_loader, val_loader, 
         # this epoch's val loss is counted, and a resumed run there can
         # overwrite model_best with a worse model)
         if (epoch + 1) % save_weight_step == 0:
-            checkpoint.save(f"last_{epoch + 1}", model, optimizer, epoch + 1, min_loss)
+            save(f"last_{epoch + 1}", net, optimizer, epoch + 1, min_loss)
         if improved:
-            checkpoint.save("best", model, optimizer, epoch + 1, min_loss)
+            save("best", net, optimizer, epoch + 1, min_loss)
             log(f"Best VAL loss so far: {min_loss:.5f}")
     if profile_window is not None:
         profile_window.close()
-    checkpoint.save("final", model, optimizer, total_epochs, min_loss)
+    save("final", net, optimizer, total_epochs, min_loss)
     board.close()
     return history

@@ -5,12 +5,22 @@ detection loss, the backward, the global gradient norm (optax's
 ``global_norm``, taken before any clipping) and the AdamW update.  Losses
 come back as device tensors; the engine reads them one step late, so the
 host never waits for the card between steps.
+
+Data parallel (inside a process group, the model wrapped by
+``parallel.wrap_model``): each rank's batch is its rows of the global batch
+(``shard``), the loss normalisers and BatchNorm statistics are global, so
+each rank's loss is its share of the global loss; DDP's hook SUMS the
+ranks' gradients (not their mean), which makes the gradient that reaches
+the global norm, the clipping and AdamW the global loss's gradient on every
+rank.  The returned losses are the global values, summed over the ranks.
 """
 
 import numpy as np
 import torch
 
 from pose2room_tpu_torch.models.loss import detection_loss
+from pose2room_tpu_torch.parallel.collectives import all_reduce_sum_, in_group
+from pose2room_tpu_torch.parallel.mesh import unwrap
 from pose2room_tpu_torch.train.state import clip_by_global_norm, global_norm
 
 GT_KEYS = (
@@ -44,38 +54,56 @@ def batch_to_device(batch, device, h2d_dtype=None):
     return out
 
 
+def _global_losses(losses):
+    """Each rank's shares summed over the ranks, in one all-reduce (the
+    losses themselves outside a process group)."""
+    losses = {k: v.detach() for k, v in losses.items()}
+    if not in_group():
+        return losses
+    return dict(zip(losses, all_reduce_sum_(torch.stack(list(losses.values()))).unbind(0)))
+
+
 def train_step(model, optimizer, batch, *, eps=None, generator=None, clip_norm=-1.0,
-               origin_joint_id=0):
+               origin_joint_id=0, shard=(0, 1)):
     """One optimisation step on a ``batch_to_device`` batch.
 
-    ``eps`` / ``generator``: the MDN noise, or the CPU generator it is drawn
-    from (see ``P2RNet.forward``).  Returns (losses, end_points): detached
-    scalar tensors including ``grad_norm``, and the forward's outputs.  The
-    gradients stay in each parameter's ``.grad`` until the next step.  Every
-    parameter gets its gradient, those of a frozen module (in no param
-    group) too, and all count in the global norm and its clipping.
+    ``model``: the P2RNet, or its ``parallel.wrap_model`` wrapper inside a
+    process group.  ``eps`` / ``generator``: the MDN noise, or the CPU
+    generator it is drawn from; ``shard``: (process_index, process_count)
+    of a data-parallel step (see ``P2RNet.forward``).  Returns (losses,
+    end_points): detached scalar tensors including ``grad_norm``, and the
+    forward's outputs.  The gradients stay in each parameter's ``.grad``
+    until the next step.  Every parameter gets its gradient, those of a
+    frozen module (in no param group) too, and all count in the global norm
+    and its clipping.
     """
-    model.train()
-    end_points = model(batch["input_joints"], eps=eps, generator=generator)
-    losses = detection_loss(end_points, batch, origin_joint_id)
+    net = unwrap(model)
+    net.train()
+    end_points = model(batch["input_joints"], eps=eps, generator=generator, shard=shard)
+    losses = detection_loss(end_points, batch, origin_joint_id,
+                            reduce=all_reduce_sum_ if in_group() else None)
     # the model's, not the optimizer's: a frozen module's .grad would
     # otherwise accumulate across steps and grow the global norm
-    model.zero_grad(set_to_none=True)
-    losses["total"].backward()
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    net.zero_grad(set_to_none=True)
+    losses["total"].backward()  # through DDP: every rank holds the summed gradients
+    grads = [p.grad for p in net.parameters() if p.grad is not None]
     with torch.no_grad():
         norm = global_norm(grads)
     if clip_norm > 0:
         clip_by_global_norm(grads, clip_norm, norm)
     optimizer.step()
+    losses = _global_losses(losses)
     losses["grad_norm"] = norm
-    return {k: v.detach() for k, v in losses.items()}, end_points
+    return losses, end_points
 
 
 @torch.no_grad()
-def eval_step(model, batch, *, eps=None, generator=None, origin_joint_id=0):
+def eval_step(model, batch, *, eps=None, generator=None, origin_joint_id=0, shard=(0, 1)):
     """Validation loss: the train forward in ``.eval()`` mode (running
-    BatchNorm statistics, sampled MDN heads), no gradient."""
+    BatchNorm statistics, sampled MDN heads), no gradient; inside a process
+    group over global normalisers and summed over the ranks, as
+    ``train_step``.  ``model``: the P2RNet (not its DDP wrapper)."""
     model.eval()
-    end_points = model(batch["input_joints"], eps=eps, generator=generator)
-    return detection_loss(end_points, batch, origin_joint_id)
+    end_points = model(batch["input_joints"], eps=eps, generator=generator, shard=shard)
+    return _global_losses(detection_loss(end_points, batch, origin_joint_id,
+                                         reduce=all_reduce_sum_ if in_group() else None))

@@ -930,3 +930,133 @@ def test_train_options_on_card(cuda_device, tmp_path, monkeypatch):
         text = f.read()
     for name in ("train_fwd_kernel", "train_bwd_kernel", "fps_kernel"):
         assert name in text, name
+
+
+# ---------------------------------------------------------------------------
+# data parallel on the card: ranks spawned by tests/torch_ddp_worker.py
+# ---------------------------------------------------------------------------
+
+def _card_steps_case(B=4, seed=3):
+    """SMALL-size weights, a batch of B synthetic clips and its MDN noise."""
+    from pose2room_tpu_torch.data import synth
+    from pose2room_tpu_torch.data.dataset import SceneDataset
+    from pose2room_tpu_torch.data.loader import collate
+
+    sizes = dict(num_frames=96, num_seeds=64, num_proposals=16, num_gaussian=10)
+    rng = np.random.RandomState(seed)
+    scenes = [synth.as_stored(*synth.make_scene(rng, n_objects=3, n_frames=120)) for _ in range(B)]
+    dataset = SceneDataset(scenes, num_frames=sizes["num_frames"])
+    batch = collate([dataset[i] for i in range(B)])
+    batch.pop("sample_idx")
+    model = P2RNet(P2RNetConfig(**sizes), device="cpu", generator=torch.Generator().manual_seed(seed))
+    eps = {k: v.numpy() for k, v in model.mdn_eps(B, torch.Generator().manual_seed(seed + 1)).items()}
+    return {"sizes": sizes, "state_dict": model.state_dict(), "batch": batch, "eps": eps,
+            "optimizer": {"lr": 1e-3}}
+
+
+def _one_process_steps(case, dev):
+    """The card steps of torch_ddp_worker.card_steps in this process, on the
+    whole batch."""
+    from pose2room_tpu_torch.train.state import make_optimizer
+    from pose2room_tpu_torch.train.step import batch_to_device, train_step
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        model = P2RNet(P2RNetConfig(**case["sizes"]), device=dev)
+        model.load_state_dict(case["state_dict"])
+        optimizer, _, _ = make_optimizer(model, case["optimizer"])
+        batch = batch_to_device(case["batch"], dev)
+        eps = {k: torch.from_numpy(v.copy()).to(dev) for k, v in case["eps"].items()}
+        out = {"losses": [], "state": []}
+        for i in range(2):
+            losses, end_points = train_step(model, optimizer, batch, eps=eps)
+            out["losses"].append({k: float(v) for k, v in losses.items()})
+            if i == 0:
+                out["grads"] = {k: p.grad.cpu() for k, p in model.named_parameters()}
+                out["picks"] = {k: end_points[k].cpu() for k in ("seed_inds", "aggregated_vote_inds")}
+            out["state"].append({k: v.cpu() for k, v in model.state_dict().items()})
+        torch.cuda.synchronize()
+        return out
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def test_ddp_world_one_nccl_bit_equal(cuda_device, tmp_path):
+    """One rank on NCCL (DDP with the summing hook, the collectives around
+    kernels 3 and 4, the loss normalisers) equals the same two steps in one
+    process bit for bit, with deterministic algorithms; 6 + 6 + 1 launches a
+    step."""
+    from torch_ddp_worker import Ranks
+
+    case = _card_steps_case()
+    ranks = Ranks(1, {"card_steps": case}, tmp_path, device="cuda")
+    want = _one_process_steps(case, cuda_device)
+    (got,) = [r["card_steps"] for r in ranks.results()]
+    assert got["launches"] == {"stgcn_train_fwd": 12, "stgcn_train_bwd": 12, "fps": 2}
+    assert got["losses"] == want["losses"]
+    for k, v in want["grads"].items():
+        assert torch.equal(got["grads"][k], v), k
+    for i in range(2):
+        for k, v in want["state"][i].items():
+            assert torch.equal(got["state"][i][k], v), (i, k)
+
+
+def _float64_grads(case):
+    """The first step's gradients and discrete choices in one process on
+    the CPU in float64: the referee of the f32 train band."""
+    from pose2room_tpu_torch.train.state import make_optimizer
+    from pose2room_tpu_torch.train.step import batch_to_device, train_step
+
+    model = P2RNet(P2RNetConfig(**case["sizes"]), device="cpu").double()
+    model.load_state_dict(case["state_dict"])
+    optimizer, _, _ = make_optimizer(model, case["optimizer"])
+    batch = {k: v.double() if v.is_floating_point() else v for k, v in batch_to_device(case["batch"], "cpu").items()}
+    eps = {k: torch.from_numpy(v.copy()).double() for k, v in case["eps"].items()}
+    _, end_points = train_step(model, optimizer, batch, eps=eps)
+    return ({k: p.grad for k, p in model.named_parameters()},
+            {k: end_points[k] for k in ("seed_inds", "aggregated_vote_inds")})
+
+
+def test_ddp_world_two_gloo_on_one_card(cuda_device, tmp_path):
+    """Two gloo ranks on cuda:0, 2 + 2, against one process at 4 on the same
+    clips and noise: step-1 losses within 1e-4 relative; each gradient
+    within 1e-3 of its max of the one process's, or no further from a CPU
+    float64 step's than three times the one process's worst (ROADMAP §3's
+    f32 train band); the running statistics after step 1 within 1e-4; both
+    ranks' states bit-equal; 6 + 6 + 1 launches a step a rank.
+
+    The band is the worst leaf's, not each leaf's own: at this size a ReLU
+    input within rounding of zero can take another side in the two ranks
+    than in one process, and every leaf upstream of it then moves by far
+    more than one process's own error on that leaf, which has no such flip
+    (ROADMAP §3).  The update through DDP is held in float64 by
+    tests/test_torch_ddp.py."""
+    from torch_ddp_worker import Ranks
+
+    case = _card_steps_case()
+    ranks = Ranks(2, {"card_steps": case}, tmp_path, device="cuda")
+    want = _one_process_steps(case, cuda_device)
+    grads64, picks64 = _float64_grads(case)
+    got = [r["card_steps"] for r in ranks.results()]
+    assert [g["card"] for g in got] == [0, 0]
+    for g in got:
+        assert g["launches"] == {"stgcn_train_fwd": 12, "stgcn_train_bwd": 12, "fps": 2}
+    for i in range(2):
+        for k, v in got[0]["state"][i].items():
+            assert torch.equal(got[1]["state"][i][k], v), (i, k)
+
+    def rel(a, b):
+        return (a.double() - b.double()).abs().max().item() / max(b.double().abs().max().item(), 1e-30)
+
+    for k, v in want["losses"][0].items():
+        assert abs(got[0]["losses"][0][k] - v) <= 1e-4 * max(abs(v), 1e-3), k
+    for k, v in picks64.items():
+        assert torch.equal(want["picks"][k], v), k  # the referee takes the card's discrete choices
+    held = [k for k in want["grads"] if not k.endswith("tcn.2.bias")]  # analytically zero
+    worst = max(rel(want["grads"][k], grads64[k]) for k in held)
+    for k in held:
+        gap, err = rel(got[0]["grads"][k], want["grads"][k]), rel(got[0]["grads"][k], grads64[k])
+        assert gap <= 1e-3 or err <= 3 * worst, (k, gap, err, worst)
+    for k, v in want["state"][0].items():
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(got[0]["state"][0][k], v, atol=1e-4, rtol=1e-4, msg=k)

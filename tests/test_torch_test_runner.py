@@ -32,6 +32,7 @@ from pose2room_tpu_torch.data.synth import write_synthetic_dataset
 from pose2room_tpu_torch.eval import ap, parse, voxels
 from pose2room_tpu_torch.ops import boxes
 from pose2room_tpu_torch.runners import test as test_runner
+from torch_ddp_worker import Ranks
 from torch_port_util import SMALL, flax_payload, jax_model, jax_test_metrics, small_test_config
 
 THRESHOLDS = [0.05, 0.25, 0.5]
@@ -127,6 +128,31 @@ def test_ap_calculator_matches_jax():
     assert list(got) == list(want) and "mAP_mesh" in got and want["mAP_mesh"] > 0
     for k, v in want.items():
         assert abs(got[k] - v) <= 1e-12, k
+
+
+def test_ap_calculator_merges_across_two_ranks(tmp_path):
+    """Under a 2-rank gloo group (tests/torch_ddp_worker.py), each rank's
+    calculator holds every other scan; ``synchronize_between_processes``
+    unions them (it raised across processes before data parallelism was
+    ported): both ranks then report the metrics of JAX's calculator over all
+    six scans, at 1e-12, and their loss recorders the merged means."""
+    pred_all, gt_all = _scans(np.random.RandomState(5), n_scans=6)
+    names = JaxDatasetConfig().class2type
+    scans = [([pred_all[i] for i in range(r, 6, 2)], [gt_all[i] for i in range(r, 6, 2)]) for r in range(2)]
+    losses = [[{"total": 1.0, "center": 0.5}, {"total": 3.0, "center": 0.1}], [{"total": 2.0, "center": 0.2}]]
+    got = Ranks(2, {"ap_merge": {"scans": scans, "class2type": names, "losses": losses}}, tmp_path).results()
+    ref = jax_ap.APCalculator(0.25, names)
+    for r in range(2):
+        ref.step(*scans[r])
+    want = ref.compute_metrics()
+    assert want["mAP"] > 0
+    for r, out in enumerate(got):
+        merged = out["ap_merge"]
+        assert merged["scan_cnt"] == 6 and merged["ranks"] == [0, 1]
+        assert list(merged["metrics"]) == list(want)
+        for k, v in want.items():
+            assert abs(merged["metrics"][k] - v) <= 1e-12, (r, k)
+        assert merged["means"] == pytest.approx({"total": 2.0, "center": 0.8 / 3}, rel=1e-12)
 
 
 def test_perfect_predictions_map_one(rng):
