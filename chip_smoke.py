@@ -226,7 +226,34 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    too, one out_config.yaml.  The backend of each run, the B=8 step times
    of this process, (a) and (b) (CUDA events, median of 5), and the
    collectives' host and device time a step from the profiler.
-12. Prints the ``kernels`` JSON line (nine entries), the nvidia-smi line,
+12. Data pipeline phase, recordings to pictures, in its own directory: a
+   scene graph made here (an 8x3x8 m room, a sofa, a fridge, a tv and a
+   desk, an apple to grab, a door) through stage 1
+   (``datagen.generate_room_programs``, 3 scripts), stage 2
+   (``render_recordings`` driving a stand-in simulator that writes a
+   900-frame, 56-joint ``pd_script.txt`` walk past the scripts' objects),
+   stage 3 (``read_pd_script`` and ``build_samples``, 8 augmentations: 24
+   samples, each checked for shapes, class ids and a vote mask).  Where
+   h5py imports, ``generate_samples`` writes them and
+   scripts/torch_split_samples.py splits them (they must read back equal to
+   the in-memory samples, and ``DatasetConfig(split=)`` must read the
+   written avg_data.json); otherwise they stay in memory, split by
+   ``generate_splits``' rule.  Then one train runner epoch at
+   p2rnet_train.yaml's width, batch 8 (6 + 6 + 1 launches a train step,
+   6 + 1 a val step, finite losses, model_final.pth), ``eval_nn_loss`` on
+   a val batch on the card and the CPU (same weights, batch and MDN noise:
+   assignments equal, each term within 1e-4 relative), the sparse_eval test
+   runner finetuned from model_final.pth on the held-out samples at batch 1
+   (6 + 6 + 1 launches a batch, dumps, per-class AP), ``three_nn`` at B=8,
+   1024 x 256 with repeated known points (indices equal on the card and the
+   CPU, distances within 1e-5, also with TF32 on around the call), and,
+   where matplotlib imports, scripts/torch_render_results.py on the first
+   test dump (with its sample file where h5py imports) and
+   scripts/torch_render_sample.py (where h5py imports): each PNG over
+   10 kB.  Host seconds of datagen, the train epoch, the test run and the
+   renders, and the phase's wall time, beside the card's name and power
+   limit.
+13. Prints the ``kernels`` JSON line (nine entries), the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -235,6 +262,7 @@ It needs a CUDA card and the repository around it.
 
 import ctypes
 import dataclasses
+import glob
 import json
 import os
 import re
@@ -2787,6 +2815,362 @@ def ddp_phase(workdir, smi):
     return {"single_ms": med(single["step_ms"]), "a_ms": med(a["step_ms"]), "b_ms": med(b[0]["step_ms"])}
 
 
+# data pipeline phase: recordings to pictures (12 in the docstring)
+PRIOR_SPLIT = os.path.join("datasets", "virtualhome_22_classes", "splits", "script_level")
+PIPELINE_FRAMES = 900  # a real clip's length; the loader resamples it to 768
+
+
+def pipeline_graph():
+    """A recorded-scene-graph stand-in: one 8x3x8 m room (floor, two walls),
+    four detectable raw classes with one interaction each (sofa: sit, fridge:
+    put the apple in, tv: switch, desk: put the apple on), a grabbable
+    apple, a door and its jamb, and a bench outside the room."""
+    def node(nid, cls, category, center, size, properties=(), states=()):
+        return {"id": nid, "class_name": cls, "category": category, "properties": list(properties),
+                "states": list(states), "bounding_box": {"center": list(center), "size": list(size)},
+                "obj_transform": {"rotation": [1.0, 0.0, 0.0, 0.0]}}
+
+    nodes = [
+        node(1, "livingroom", "Rooms", [0, 1.5, 0], [8, 3, 8]),
+        node(2, "floor", "Floors", [0, -0.05, 0], [8, 0.1, 8]),
+        node(3, "wall", "Walls", [-4, 1.5, 0], [0.1, 3, 8]),
+        node(4, "wall", "Walls", [4, 1.5, 0], [0.1, 3, 8]),
+        node(10, "sofa", "Furniture", [2, 0.4, 2], [2.0, 0.8, 0.9], ["SITTABLE"]),
+        node(11, "fridge", "Appliances", [-2.5, 1.0, 1.5], [0.9, 2.0, 0.9], ["CAN_OPEN", "CONTAINERS"], ["CLOSED"]),
+        node(12, "tv", "Electronics", [3, 1.0, -3], [1.2, 0.7, 0.2], ["HAS_SWITCH"], ["OFF"]),
+        node(13, "desk", "Furniture", [-2, 0.4, -2], [1.4, 0.8, 0.7], ["SURFACES"]),
+        node(20, "apple", "Props", [0.5, 0.9, -1], [0.1, 0.1, 0.1], ["GRABBABLE"]),
+        node(30, "door", "Doors", [0, 1.0, -3.9], [1.0, 2.0, 1.4]),
+        node(31, "doorjamb", "Decor", [0, 1.0, -3.95], [1.0, 2.1, 0.2]),
+        node(40, "bench", "Furniture", [100, 0.4, 100], [1.5, 0.5, 0.5], ["SITTABLE"]),
+    ]
+    edges = [{"from_id": i, "to_id": 1, "relation_type": "INSIDE"} for i in (10, 11, 12, 13, 20, 40)]
+    return {"nodes": nodes, "edges": edges}
+
+
+class StandInSimulator:
+    """The UnityCommunication surface that stage 2 drives (the role of
+    tests/test_programs.py's FakeSim): render_script writes a
+    ``pd_script.txt`` of PIPELINE_FRAMES frames of 56 joints, a walk from the
+    door past every object the script names, in its order."""
+
+    def __init__(self, seed=0):
+        rng = np.random.RandomState(seed)
+        self.body = np.stack([rng.uniform(-0.25, 0.25, 56), np.linspace(-0.9, 0.8, 56),
+                              rng.uniform(-0.15, 0.15, 56)], axis=1)  # joint offsets from the hips
+        self.noise = rng.randn(PIPELINE_FRAMES, 56, 3) * 0.01
+        self.centers = {}
+
+    def reset(self, scene_id):
+        self.scene = scene_id
+
+    def expand_scene(self, graph):
+        self.centers = {n["id"]: np.asarray(n["bounding_box"]["center"], dtype=np.float64) for n in graph["nodes"]}
+        return (True,)
+
+    def add_character(self, name, initial_room=None):
+        self.character = name
+
+    def render_script(self, script, output_folder=None, **kw):
+        ids = [int(i) for line in script for i in re.findall(r"\((\d+)\)", line)]
+        stops = [np.array([0.0, 0.9, -3.5])] + [self.centers[i] * [1, 0, 1] + [0, 0.9, 0] for i in ids]
+        stops = np.stack(stops)
+        arc = np.concatenate([[0.0], np.cumsum(np.linalg.norm(np.diff(stops, axis=0), axis=1))])
+        s = np.linspace(0.0, arc[-1], PIPELINE_FRAMES)
+        hips = np.stack([np.interp(s, arc, stops[:, d]) for d in range(3)], axis=1)
+        joints = hips[:, None, :] + self.body[None] + self.noise
+        out = os.path.join(output_folder, "script", "0")
+        os.makedirs(out, exist_ok=True)
+        with open(os.path.join(out, "pd_script.txt"), "w") as f:
+            for i, frame in enumerate(joints):
+                f.write(f"{i} " + " ".join(f"{x:.5f}" for x in frame.ravel()) + "\n")
+        return True, None
+
+
+def pipeline_datagen(root):
+    """Stages 1-3 in memory: {sample name: build_samples sample}, 8 a
+    recording, and the stage-1 output."""
+    from pose2room_tpu_torch.config.dataset_config import CLASS_LABELS_RAW
+    from pose2room_tpu_torch.datagen import generate_room_programs, render_recordings
+    from pose2room_tpu_torch.datagen.samples import build_samples, find_recordings, load_recording
+
+    graph = pipeline_graph()
+    stage1 = generate_room_programs(graph, 0, CLASS_LABELS_RAW, out_dir=os.path.join(root, "script_bbox"),
+                                    scene_id=0, n_seq=3)
+    names = sorted(n["class_name"] for n in stage1["nodes_for_det"])
+    check(names == ["desk", "fridge", "sofa", "tv"], f"stage 1 detection targets {names}")
+    check(len(stage1["scripts"]) == 3, f"stage 1 wrote {len(stage1['scripts'])} scripts, not 3")
+    stats = render_recordings(StandInSimulator, os.path.join(root, "script_bbox"), os.path.join(root, "recording"),
+                              {"0": graph}, characters=("Chars/Male1",), log=lambda msg: print(f"  stage 2: {msg}"))
+    check(len(stats["recorded"]) == 3 and not stats["failed"] and not stats["skipped"], f"stage 2: {stats}")
+    samples = {}
+    recordings = find_recordings(os.path.join(root, "recording"))
+    for sk_file in recordings:
+        name, joints, room_bbox, nodes = load_recording(os.path.join(root, "recording"), sk_file)
+        check(joints.shape == (PIPELINE_FRAMES, 53, 3), f"{sk_file}: joints {joints.shape}")
+        for sample in build_samples(joints, room_bbox, nodes):
+            samples[f"{name}_{sample['aug_idx']}"] = sample
+    check(len(samples) == 24, f"{len(recordings)} recordings gave {len(samples)} samples, not 3 x 8")
+    for name, s in samples.items():
+        F = s["skeleton_joints"].shape[0]
+        check(s["skeleton_joints"].shape == (F, 53, 3) and s["skeleton_joint_votes"].shape == (F, 53, 10),
+              f"{name}: joints {s['skeleton_joints'].shape}, votes {s['skeleton_joint_votes'].shape}")
+        check(s["skeleton_joints"].dtype == s["skeleton_joint_votes"].dtype == np.float32, f"{name}: not float32")
+        ids = [int(n["class_id"][0]) for n in s["object_nodes"]]
+        check(len(ids) == 4 and all(0 <= i < 22 for i in ids), f"{name}: class ids {ids}")
+        check((s["skeleton_joint_votes"][..., 0] > 0).any(), f"{name}: no vote mask set")
+    return samples
+
+
+def pipeline_files(root, samples):
+    """With h5py: generate_samples and scripts/torch_split_samples.py write
+    the files; they must read back as the in-memory samples, and the
+    DatasetConfig of the split must read the written prior.  Returns
+    {"train", "val"} of sample names."""
+    from pose2room_tpu_torch.config.dataset_config import DatasetConfig
+    from pose2room_tpu_torch.data.dataset import P2RNetDataset, load_sample
+    from pose2room_tpu_torch.datagen import generate_samples
+    from pose2room_tpu_torch.datagen.samples import stored_sample
+
+    written = generate_samples(os.path.join(root, "recording"), os.path.join(root, "samples"), n_workers=8)
+    check(len(written) == 24, f"generate_samples wrote {len(written)} files")
+    for path in written:
+        name = os.path.splitext(os.path.basename(path))[0]
+        (j, v, inst), (wj, wv, winst) = load_sample(path), stored_sample(samples[name])
+        check(np.array_equal(j, wj) and np.array_equal(v, wv), f"{path}: joints or votes differ from memory")
+        check(len(inst) == len(winst) and all(a["class_id"] == b["class_id"] and all(
+            np.array_equal(a[k], b[k]) for k in ("centroid", "R_mat", "size")) for a, b in zip(inst, winst)),
+            f"{path}: instances differ from memory")
+    out = subprocess.run([sys.executable, os.path.join(REPO, "scripts", "torch_split_samples.py"), "--samples",
+                          os.path.join(root, "samples"), "--out", os.path.dirname(PRIOR_SPLIT)],
+                         cwd=root, capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"torch_split_samples.py: {out.stderr[-2000:]}")
+    print(f"  scripts/torch_split_samples.py: {out.stdout.strip()}")
+    with open(os.path.join(root, PRIOR_SPLIT, "avg_data.json")) as f:
+        prior = json.load(f)["obj_size_cls_avg"]
+    config = DatasetConfig(split=PRIOR_SPLIT)
+    classes = sorted({int(n["class_id"][0]) for s in samples.values() for n in s["object_nodes"]})
+    check(sorted(map(int, prior)) == classes, f"prior classes {sorted(prior)}, the samples' {classes}")
+    check(all(config.mean_size_arr[int(c)].tolist() == v for c, v in prior.items()),
+          "DatasetConfig(split=) did not read the written avg_data.json")
+    split = {}
+    for mode in ("train", "val"):
+        with open(os.path.join(root, PRIOR_SPLIT, f"{mode}.json")) as f:
+            split[mode] = [os.path.splitext(os.path.basename(p))[0] for p in json.load(f)]
+    from_files = P2RNetDataset(os.path.join(root, PRIOR_SPLIT, "val.json"), num_frames=T)
+    in_memory = SceneDataset([stored_sample(samples[n]) for n in split["val"]], num_frames=T)
+    for i in range(len(in_memory)):
+        a, b = from_files[i], in_memory[i]
+        check(all(np.array_equal(a[k], b[k]) for k in a if k != "sample_idx"),
+              f"P2RNetDataset item {i} differs from the in-memory sample's")
+    print(f"  {len(written)} HDF5 samples read back equal to the in-memory ones (and the val items through "
+          f"P2RNetDataset); split {len(split['train'])} train / "
+          f"{len(split['val'])} val; DatasetConfig(split=) read avg_data.json ({len(prior)} classes)")
+    return split
+
+
+def pipeline_split_in_memory(root, samples):
+    """Without h5py: generate_splits' rule on the names the files would have."""
+    from pose2room_tpu_torch.datagen import generate_splits
+
+    paths = [os.path.join(root, "samples", f"{name}.hdf5") for name in samples]
+    split = generate_splits(paths, os.path.join(root, PRIOR_SPLIT))
+    return {mode: [os.path.splitext(os.path.basename(p))[0] for p in split[mode]] for mode in ("train", "val")}
+
+
+def pipeline_train(root, samples, split, device, has_h5py):
+    """One epoch of the train runner at p2rnet_train.yaml's width on the
+    generated samples; returns (its run dir, seconds, its P2RNetConfig)."""
+    from pose2room_tpu_torch.datagen.samples import stored_sample
+
+    config = train_config(root)
+    config["data"]["split"] = PRIOR_SPLIT
+    cfg = CONFIG(config, mode="train")
+    try:
+        mount_external_config(cfg)
+        datasets = None
+        if not has_h5py:
+            datasets = {"train": SceneDataset([stored_sample(samples[n]) for n in split["train"]], num_frames=T,
+                                              augment=True),
+                        "val": SceneDataset([stored_sample(samples[n]) for n in split["val"]], num_frames=T)}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        model, history = train_runner.run(cfg, device=device, datasets=datasets)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        n_train = -(-len(split["train"]) // 8)
+        n_val = -(-len(split["val"]) // 8)
+        expect = {"stgcn_train_fwd": 6 * n_train, "stgcn_train_bwd": 6 * n_train, "stgcn_epilogue": 6 * n_val,
+                  "fps": n_train + n_val}
+        check(launches == expect, f"pipeline train run launch counts {launches} != {expect} (6 train_fwd + 6 "
+              "train_bwd + 1 fps per train step, 6 epilogue + 1 fps per val step)")
+        for phase in ("train", "val"):
+            means = history[0][phase]
+            check(all(np.isfinite(v) for v in means.values()), f"pipeline {phase} losses not finite: {means}")
+        check(os.path.isfile(os.path.join(cfg.save_path, "model_final.pth")), "model_final.pth not written")
+        print(f"  train run: {n_train} train steps of <= 8, {n_val} val step(s), {seconds:.2f} s; launches {launches}; "
+              f"mean val losses " + json.dumps({k: round(v, 5) for k, v in history[0]["val"].items()}))
+        del model
+        return cfg.save_path, seconds, P2RNetConfig.from_cfg(cfg)
+    finally:
+        cfg.close()
+
+
+def pipeline_eval_nn_loss(run_dir, model_cfg, samples, names, device):
+    """eval_nn_loss on one val batch, on the card and on the CPU: the same
+    trained weights, batch and MDN noise; the assignments exactly equal,
+    each term within 1e-4 relative."""
+    from pose2room_tpu_torch.datagen.samples import stored_sample
+    from pose2room_tpu_torch.models.loss import eval_nn_assignment, eval_nn_loss
+
+    state = torch.load(os.path.join(run_dir, "model_final.pth"), map_location="cpu", weights_only=True)["net"]
+    dataset = SceneDataset([stored_sample(samples[n]) for n in names[:8]], num_frames=T)
+    batch = collate([dataset[i] for i in range(len(dataset))])
+    results = []
+    for dev in (device, "cpu"):
+        model = P2RNet(model_cfg, device=dev)
+        model.load_state_dict(state)
+        model.eval()
+        inputs = batch_to_device(batch, dev)
+        with torch.no_grad():
+            eps = model.mdn_eps(len(dataset), torch.Generator().manual_seed(3))
+            end_points = model(inputs["input_joints"], eps=eps)
+            results.append((eval_nn_loss(end_points, inputs), eval_nn_assignment(end_points, inputs)[1].cpu()))
+    (got, got_a), (want, want_a) = results
+    check(torch.equal(got_a, want_a), "eval_nn_loss: card and CPU assign other GT boxes")
+    gaps = {k: abs(got[k].item() - v.item()) / max(abs(v.item()), 1e-6) for k, v in want.items()}
+    check(all(g <= 1e-4 for g in gaps.values()), f"eval_nn_loss card vs CPU relative gaps {gaps}")
+    print(f"  eval_nn_loss on a val batch of {len(dataset)}: card "
+          + json.dumps({k: round(v.item(), 6) for k, v in got.items()})
+          + f"; assignments equal, max relative gap to the CPU {max(gaps.values()):.2e}")
+
+
+def pipeline_test(root, samples, split, weights, device, has_h5py):
+    """The sparse_eval test runner, finetuned from the train run's
+    model_final.pth, on the held-out samples at batch 1.  Returns (the dump
+    dir of its first batch, seconds)."""
+    from pose2room_tpu_torch.datagen.samples import stored_sample
+
+    config = test_config(root)
+    config.update(finetune=True, weight=[weights])
+    config["data"]["split"] = PRIOR_SPLIT
+    config["generation"] = {"dump_results": True, "dump_threshold": 0.05}
+    cfg = CONFIG(config, mode="test")
+    try:
+        dataset = None if has_h5py else SceneDataset([stored_sample(samples[n]) for n in split["val"]], num_frames=T)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = test_runner.run(cfg, device=device, dataset=dataset)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        n = len(split["val"])
+        expect = {"stgcn_sparse": 6 * n, "stgcn_epilogue": 6 * n, "fps": n}
+        check(launches == expect, f"pipeline test run launch counts {launches} != {expect} "
+              "(6 stgcn_sparse + 6 epilogue + 1 fps per batch of 1)")
+        dumps = sorted(glob.glob(os.path.join(cfg.config["log"]["vis_path"], "test_*")))
+        check(len(dumps) == n, f"{len(dumps)} dump dirs for {n} test batches")
+        for t, m in metrics.items():
+            check(all(np.isfinite(v) for v in m.values()), f"pipeline AP@{t}: a metric is not finite")
+            per_class = {k: round(v, 4) for k, v in m.items() if k.endswith("Average Precision")}
+            check(per_class, f"pipeline AP@{t}: no per-class AP")
+            print(f"  AP@{t}: mAP {m['mAP']:.6f} AR {m['AR']:.6f}; per class " + json.dumps(per_class))
+        print(f"  test run, {n} batches of 1 (sparse_eval, finetuned from model_final.pth): {seconds:.2f} s; "
+              f"launches {launches}; {len(dumps)} dump dirs")
+        first = os.path.join(cfg.config["log"]["vis_path"], f"test_0_{split['val'][0] if has_h5py else 'scene_0000'}")
+        check(first in dumps, f"no dump dir {first}")
+        return first, seconds
+    finally:
+        cfg.close()
+
+
+def pipeline_three_nn(device):
+    """three_nn at B=8, 1024 unknowns, 256 known points (ten repeated):
+    indices exactly equal on the card and the CPU, distances within 1e-5,
+    also with TF32 on around the call."""
+    from pose2room_tpu_torch.ops.interpolate import three_nn
+
+    g = torch.Generator().manual_seed(11)
+    unknown = torch.rand(8, 1024, 3, generator=g) * 8 - 4
+    known = torch.rand(8, 256, 3, generator=g) * 8 - 4
+    known[:, 100:110] = known[:, 10:20]
+    want_d, want_i = three_nn(unknown, known)
+    before = torch.backends.cuda.matmul.allow_tf32
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            got_d, got_i = three_nn(unknown.to(device), known.to(device))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = before
+        check(torch.equal(got_i.cpu(), want_i), f"three_nn (TF32 {tf32}): card and CPU indices differ")
+        gap = (got_d.cpu() - want_d).abs().max().item()
+        check(gap <= 1e-5, f"three_nn (TF32 {tf32}): distances differ by {gap}")
+        print(f"  three_nn B=8, 1024 x 256 (TF32 {'on' if tf32 else 'off'}): indices equal, max |dist gap| {gap:.2e}")
+
+
+def pipeline_render(root, dump_dir, sample_name, has_h5py):
+    """The render CLIs as subprocesses; each PNG must pass 10 kB."""
+    runs = []
+    args = [dump_dir, "--out", os.path.join(root, "results.png")]
+    if has_h5py:
+        args += ["--sample", os.path.join(root, "samples", f"{sample_name}.hdf5"), "--skeleton-every", "100"]
+    runs.append(("torch_render_results.py", args, args[2]))
+    if has_h5py:
+        out = os.path.join(root, "sample.png")
+        runs.append(("torch_render_sample.py", [os.path.join(root, "samples", f"{sample_name}.hdf5"), "--out", out],
+                     out))
+    else:
+        print("  h5py is not installed: scripts/torch_render_sample.py (which reads a sample file) not run")
+    for script, args, png in runs:
+        out = subprocess.run([sys.executable, os.path.join(REPO, "scripts", script), *args], cwd=root,
+                             capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0, f"{script}: {out.stderr[-2000:]}")
+        size = os.path.getsize(png)
+        check(size > 10_000, f"{script}: {png} is {size} bytes")
+        print(f"  scripts/{script}: {os.path.basename(png)} {size} bytes")
+
+
+def pipeline_phase(workdir, smi, device):
+    """The data pipeline phase (12 in the docstring)."""
+    import importlib.util
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "pipeline")
+    os.makedirs(root)
+    os.chdir(root)  # DatasetConfig reads the prior under ./datasets, the board writes ./runs
+    try:
+        has_h5py = importlib.util.find_spec("h5py") is not None
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        t0 = time.perf_counter()
+        samples = pipeline_datagen(root)
+        if has_h5py:
+            split = pipeline_files(root, samples)
+        else:
+            print("  h5py is not installed: the samples stay in memory, split by generate_splits' rule")
+            split = pipeline_split_in_memory(root, samples)
+        datagen_s = time.perf_counter() - t0
+        print(f"  datagen: 3 recordings -> {len(samples)} samples ({len(split['train'])} train / "
+              f"{len(split['val'])} held out) in {datagen_s:.2f} s")
+        run_dir, train_s, model_cfg = pipeline_train(root, samples, split, device, has_h5py)
+        pipeline_eval_nn_loss(run_dir, model_cfg, samples, split["val"], device)
+        dump_dir, test_s = pipeline_test(root, samples, split, os.path.join(run_dir, "model_final.pth"), device,
+                                         has_h5py)
+        pipeline_three_nn(device)
+        render_s = None
+        if has_mpl:
+            t0 = time.perf_counter()
+            pipeline_render(root, dump_dir, split["val"][0], has_h5py)
+            render_s = time.perf_counter() - t0
+        else:
+            print("  matplotlib is not installed: the render CLIs not run")
+        render = "not run" if render_s is None else f"{render_s:.2f} s"
+        print(f"[{smi}] data pipeline phase, host seconds: datagen {datagen_s:.2f}, train epoch {train_s:.2f}, "
+              f"test run {test_s:.2f}, render {render}; phase wall time {time.perf_counter() - t_phase:.2f} s")
+    finally:
+        os.chdir(workdir)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
@@ -2844,6 +3228,10 @@ def main():
         t0 = time.perf_counter()
         ddp_phase(workdir, smi)
         print(f"data-parallel phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        print("data pipeline phase:")
+        pipeline_phase(workdir, smi, "cuda")
+        print(f"data pipeline phase {time.perf_counter() - t0:.1f} s")
         os.chdir(REPO)
 
     line = {"kernels": [

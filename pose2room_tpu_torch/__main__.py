@@ -19,6 +19,28 @@ before.
 """
 
 import argparse
+import os
+import subprocess
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def get_sha():
+    """Git SHA, status and branch of the checkout, as the reference stamps a
+    run (net_utils/utils.py:471-488): each field "N/A" (the status "clean")
+    where git cannot say."""
+
+    def _run(cmd):
+        return subprocess.check_output(cmd, cwd=REPO, stderr=subprocess.DEVNULL).decode("ascii").strip()
+
+    sha, status, branch = "N/A", "clean", "N/A"
+    try:
+        sha = _run(["git", "rev-parse", "HEAD"])
+        status = "has uncommitted changes" if _run(["git", "diff-index", "HEAD"]) else "clean"
+        branch = _run(["git", "rev-parse", "--abbrev-ref", "HEAD"])
+    except (OSError, subprocess.CalledProcessError):
+        pass
+    return f"sha: {sha}, status: {status}, branch: {branch}"
 
 
 def parse_args(argv=None):
@@ -52,6 +74,7 @@ def main(argv=None):
         if args.mode == "demo":
             cfg.update_config(demo_path=args.demo_path)
         cfg.log_string("Loading configurations.")
+        cfg.log_string(get_sha())
         cfg.log_string(cfg.config)
         cfg.write_config()
         if args.mode == "train":

@@ -96,8 +96,10 @@ class CONFIG:
 
 
 def mount_external_config(cfg):
-    """Attach the DatasetConfig and the eval knob dict (config_utils.py:140-160)."""
-    dataset_config = DatasetConfig(cfg.config.get("data", {}).get("dataset", "virtualhome"))
+    """Attach the DatasetConfig (its size prior read for ``data.split``'s
+    level) and the eval knob dict (config_utils.py:140-160)."""
+    data_cfg = cfg.config.get("data", {})
+    dataset_config = DatasetConfig(data_cfg.get("dataset", "virtualhome"), split=data_cfg.get("split"))
     cfg.dataset_config = dataset_config
     test_cfg = cfg.config.get("test", {})
     cfg.eval_config = {

@@ -12,7 +12,8 @@ BoxNetDetectionLoss), with the same terms, weights and masking:
 * box: bidirectional center Chamfer over the FULL padded GT array, huber on
   log-size and (sin, cos) heading of the assigned GT, CE on the class, all
   gated by the objectness label;
-* total = 10*vote + 5*objectness + 10*center + 10*size + 10*heading + sem_cls.
+* total = 10*vote + 5*objectness + 10*center + 10*size + 10*heading + sem_cls;
+* ``eval_nn_loss``: the reference trainer's alternative validation loss.
 
 Data parallel (``reduce``): every normaliser is a sum over the global batch
 (the masks' sums, the proposal count), as in the JAX package's sharded
@@ -165,4 +166,54 @@ def detection_loss(end_points, gt, origin_joint_id=0, reduce=None):
         "pos_ratio": pos_ratio,
         "neg_ratio": neg_ratio,
         "obj_acc": obj_acc,
+    }
+
+
+def eval_nn_assignment(end_points, gt_data):
+    """``eval_nn_loss``'s pairwise smooth-L1 center distance (B, K, K2)
+    (nn_distance l1smooth=True), +_BIG on the padded GT columns, and each
+    proposal's nearest GT box (B, K)."""
+    diff = end_points["center"][:, :, None, :] - gt_data["center_label"][:, None, :, 0:3]
+    pc_dist = huber_loss(diff, delta=1.0).sum(-1) + (1.0 - gt_data["box_label_mask"])[:, None, :] * _BIG
+    return pc_dist, pc_dist.argmin(2)
+
+
+def eval_nn_loss(end_points, gt_data):
+    """Alternative validation loss, reference Trainer.eval_nn_loss
+    (models/p2rnet/training.py:38-91; defined but unused in the reference
+    loop): smooth-L1 Chamfer on centers over the VALID GT boxes, then size,
+    heading and class penalties gathered at each proposal's nearest GT box,
+    with no objectness gating.
+
+    The padded (B, K2) GT array is masked with +_BIG on the padded columns,
+    a suffix, so the first minimum ``torch.argmin`` returns is the index the
+    reference's slice of the valid prefix gives.  total = 10*center +
+    10*size + 10*heading + sem_cls (training.py:83).
+    """
+    box_mask = gt_data["box_label_mask"]  # (B,K2)
+    B, K = end_points["center"].shape[:2]
+    pc_dist, object_assignment = eval_nn_assignment(end_points, gt_data)
+    dist1 = pc_dist.amin(2)
+    dist2 = pc_dist.amin(1)  # (B,K2); the padded columns are masked in the sum
+
+    centroid_reg_loss1 = dist1.sum() / (B * K + 1e-6)
+    centroid_reg_loss2 = (dist2 * box_mask).sum() / (box_mask.sum() + 1e-6)
+    center_loss = (centroid_reg_loss1 + centroid_reg_loss2) / 2.0
+
+    size_loss = huber_loss(end_points["size"] - _take(gt_data["size"], object_assignment), delta=1.0).mean(-1).mean()
+    heading_loss = huber_loss(
+        end_points["heading"] - _take(gt_data["heading"], object_assignment), delta=1.0
+    ).mean(-1).mean()
+    gt_cls = torch.gather(gt_data["sem_cls_label"].long(), 1, object_assignment)
+    sem_cls_loss = _weighted_ce(end_points["sem_cls_scores"], gt_cls).mean()
+
+    total = 10.0 * center_loss + 10.0 * size_loss + 10.0 * heading_loss + sem_cls_loss
+    return {
+        "total": total,
+        "center_loss": center_loss,
+        "size_loss": size_loss,
+        "heading_loss": heading_loss,
+        "sem_cls_loss": sem_cls_loss,
+        "centroid_reg_loss1": centroid_reg_loss1,
+        "centroid_reg_loss2": centroid_reg_loss2,
     }

@@ -14,8 +14,8 @@ Port of pose2room_tpu/ops/boxes.py, with the reference conventions:
 
 ``head2rot``, ``box_corners_from_params`` and ``points_in_obb`` take numpy
 arrays or torch tensors (the parse runs them on the card); ``corners2params``,
-``rot2head``, ``get_3d_box`` and the IoU functions are host numpy (the AP
-evaluation runs on the host).
+``rot2head``, ``get_3d_box`` and the IoU functions (oriented and
+axis-aligned) are host numpy (the AP evaluation runs on the host).
 """
 
 import numpy as np
@@ -111,8 +111,21 @@ def get_3d_box(box_size, heading_angle, center):
 
 
 # ---------------------------------------------------------------------------
-# Oriented IoU (host numpy)
+# IoU (host numpy)
 # ---------------------------------------------------------------------------
+
+def box3d_iou_aabb(minmax_a, minmax_b):
+    """Axis-aligned IoU between box sets: minmax_a (..., A, 6) and minmax_b
+    (..., B, 6) as (xmin, ymin, zmin, xmax, ymax, zmax).  Returns (..., A, B)."""
+    minmax_a, minmax_b = np.asarray(minmax_a), np.asarray(minmax_b)
+    lo = np.maximum(minmax_a[..., :, None, 0:3], minmax_b[..., None, :, 0:3])
+    hi = np.minimum(minmax_a[..., :, None, 3:6], minmax_b[..., None, :, 3:6])
+    inter = np.prod(np.maximum(hi - lo, 0.0), axis=-1)
+    vol_a = np.prod(minmax_a[..., :, 3:6] - minmax_a[..., :, 0:3], axis=-1)
+    vol_b = np.prod(minmax_b[..., :, 3:6] - minmax_b[..., :, 0:3], axis=-1)
+    union = vol_a[..., :, None] + vol_b[..., None, :] - inter
+    return inter / np.maximum(union, 1e-12)
+
 
 def _bev_rect(corners):
     """The CCW BEV rectangle of the reference clipper: corners reordered to

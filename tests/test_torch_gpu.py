@@ -1060,3 +1060,46 @@ def test_ddp_world_two_gloo_on_one_card(cuda_device, tmp_path):
     for k, v in want["state"][0].items():
         if k.endswith(("running_mean", "running_var")):
             torch.testing.assert_close(got[0]["state"][0][k], v, atol=1e-4, rtol=1e-4, msg=k)
+
+
+def test_eval_nn_loss_card_matches_cpu(cuda_device):
+    """eval_nn_loss on the card and on the CPU, same inputs: the assignments
+    exactly equal, each term within 1e-4 relative."""
+    from pose2room_tpu_torch.models.loss import eval_nn_assignment, eval_nn_loss
+
+    g = torch.Generator().manual_seed(0)
+    B, K, K2 = 8, 128, 10
+    ep = {"center": torch.randn(B, K, 3, generator=g) * 2, "size": torch.randn(B, K, 3, generator=g),
+          "heading": torch.randn(B, K, 2, generator=g), "sem_cls_scores": torch.randn(B, K, 22, generator=g)}
+    mask = (torch.arange(K2)[None] < torch.randint(1, K2 + 1, (B, 1), generator=g)).float()
+    gt = {"center_label": torch.randn(B, K2, 3, generator=g) * 2, "box_label_mask": mask,
+          "size": torch.randn(B, K2, 3, generator=g), "heading": torch.randn(B, K2, 2, generator=g),
+          "sem_cls_label": torch.randint(0, 22, (B, K2), generator=g)}
+    card = lambda d: {k: v.to(cuda_device) for k, v in d.items()}  # noqa: E731
+    got, want = eval_nn_loss(card(ep), card(gt)), eval_nn_loss(ep, gt)
+    assert torch.equal(eval_nn_assignment(card(ep), card(gt))[1].cpu(), eval_nn_assignment(ep, gt)[1])
+    for k, v in want.items():
+        assert got[k].device.type == "cuda"
+        assert abs(got[k].item() - v.item()) <= 1e-4 * max(abs(v.item()), 1e-6), k
+
+
+@pytest.mark.parametrize("tf32", [False, True])
+def test_three_nn_card_matches_cpu(cuda_device, tf32):
+    """three_nn at B=8, 1024 unknowns, 256 known points with repeats: indices
+    exactly equal on the card and the CPU, distances within 1e-5, also with
+    TF32 switched on around the call (the flag is restored)."""
+    from pose2room_tpu_torch.ops.interpolate import three_nn
+
+    g = torch.Generator().manual_seed(1)
+    unknown = torch.rand(8, 1024, 3, generator=g) * 8 - 4
+    known = torch.rand(8, 256, 3, generator=g) * 8 - 4
+    known[:, 100:110] = known[:, 10:20]
+    want_d, want_i = three_nn(unknown, known)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        got_d, got_i = three_nn(unknown.to(cuda_device), known.to(cuda_device))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    assert torch.equal(got_i.cpu(), want_i)
+    torch.testing.assert_close(got_d.cpu(), want_d, atol=1e-5, rtol=1e-5)

@@ -295,6 +295,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'pose2room_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "for s in ('torch_generate_samples', 'torch_split_samples', 'torch_render_sample', "
+        "'torch_render_results'): importlib.import_module(s)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pose2room_tpu'))\n"
         "assert len(names) >= 20, names\n"

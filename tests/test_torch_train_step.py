@@ -410,6 +410,9 @@ def test_port_and_chip_smoke_import_no_jax_and_no_h5py():
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, 'pose2room_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "sys.path.insert(0, 'scripts')\n"
+        "for s in ('torch_generate_samples', 'torch_split_samples', 'torch_render_sample', "
+        "'torch_render_results'): importlib.import_module(s)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pose2room_tpu', 'h5py'))\n"
         "assert 'pose2room_tpu_torch.train.engine' in names, names\n"
