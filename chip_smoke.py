@@ -253,7 +253,33 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    10 kB.  Host seconds of datagen, the train epoch, the test run and the
    renders, and the phase's wall time, beside the card's name and power
    limit.
-13. Prints the ``kernels`` JSON line (nine entries), the nvidia-smi line,
+13. Tensor-parallel phase (``device.model_parallel: 2``), ranks as in 11,
+   gloo, all on cuda:0, deterministic algorithms, p2rnet_train.yaml at full
+   width, f32, against phase 11's one-process runs: (a) world 2 at tp 2
+   (one model group, 4 clips a rank, the group's 8 on each): 6 + 6 + 1
+   launches a step a rank; each rank holds half of each of the 22 planned
+   weights and of their AdamW moments, its bytes of parameters and moments
+   exactly one process's less half the planned ones; step 1 held as 11(b)
+   (losses within 1e-4 relative, the gathered gradients in 11(b)'s per-leaf
+   bands, running statistics within 1e-4); the replicated tensors
+   (parameters, running statistics, moments) bit-equal on both ranks after
+   two steps.  (b) The same two steps in float64 on the ranks' CPUs against
+   phase 11's float64 steps at 8, in 11(b)'s float64 bands.  (c) World 4 at
+   tp 2 (data 2 x model 2, 2 clips a rank), one step held as (a); ranks 0 /
+   2 and 1 / 3 hold the same shards and moments bit for bit, the replicated
+   tensors bit-equal on all four.  (d) Under world 2 at tp 2: the train
+   runner (1 epoch; launches as in 11; both ranks' gathered states
+   bit-equal; model_final.pth loads strict into one process, with its AdamW
+   state, and equals the gathered state), the sparse_eval test runner (1
+   scene a rank, the group's 2) against this process at batch 2 (AP and
+   losses within 1e-6), the demo on demo/inputs (rank 0's dumps byte-equal
+   to this process's; ``generate`` of the clip within the serving phase's
+   band, seeds and proposals equal), a bf16 demo (6 ``stgcn_epilogue_bf16``
+   + 1 FPS launches a rank; ``generate`` within the bf16 serving phase's
+   band of this process's).  The B=8 step a rank at world 2 and 4 beside
+   one process's (CUDA events, median of 5), the collectives' host time a
+   step (profiler).
+14. Prints the ``kernels`` JSON line (nine entries), the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -287,7 +313,21 @@ from pose2room_tpu_torch.eval import multi_modal
 from pose2room_tpu_torch.models.graph import SPARSE_JOINT_ORDER, build_spatial_graph
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
 from pose2room_tpu_torch.ops import sampling, stgcn_fused, stgcn_sparse, stgcn_train
-from pose2room_tpu_torch.parallel import init_distributed, process_count, process_index, shutdown, wrap_model
+from pose2room_tpu_torch.parallel import (
+    init_distributed,
+    make_grid,
+    process_count,
+    process_index,
+    shutdown,
+    wrap_model,
+)
+from pose2room_tpu_torch.parallel.tensor import (
+    full_state_dict,
+    gather_state_dict,
+    shard_module_,
+    sharded_keys,
+    state_bytes,
+)
 from pose2room_tpu_torch.runners import common, demo
 from pose2room_tpu_torch.runners import test as test_runner
 from pose2room_tpu_torch.runners import train as train_runner
@@ -2447,18 +2487,26 @@ def collective_rows(prof, n_steps):
     return host_ms, dev_ms, sorted(rows, key=lambda r: -r[1])[:6]
 
 
-def ddp_steps(cfg, items, perm=None, timed=0, profile=False):
-    """DDP_STEPS train steps on this process's rows of the global batch of
-    eight (``perm``: the batch's rows in another order, for one process)
+def ddp_steps(cfg, items, perm=None, timed=0, profile=False, tp=1, n_steps=DDP_STEPS):
+    """``n_steps`` train steps on this process's rows of the global batch
+    of eight (``perm``: the batch's rows in another order, for one process)
     with each step's noise drawn for the whole batch: the launches of those
     steps, each step's global losses, the first step's gradients (reduced)
     and the state (parameters and running statistics) after each step; then
     ``timed`` more steps' times (CUDA events) and, with ``profile``, the
-    collectives' share of two profiled steps."""
+    collectives' share of two profiled steps.  With ``tp`` > 1 under a
+    (data, model) grid: the model group's rows (its ranks' strided rows in
+    rank order), this rank's shard of the planned weights, the gradients and
+    states gathered; besides, this rank's own tensors and AdamW moments, and
+    its bytes of parameters and moments."""
     rank, n = process_index(), process_count()
-    rows = list(perm if perm is not None else range(DDP_BATCH))[rank::n]
+    grid = make_grid(tp)
+    order = list(perm if perm is not None else range(DDP_BATCH))
+    rows = [i for r in (grid.model_ranks if grid is not None else (rank,)) for i in order[r::n]]
     model = P2RNet(P2RNetConfig.from_cfg(cfg), device="cuda", generator=torch.Generator().manual_seed(42))
     optimizer, _, clip_norm = make_optimizer(model, cfg.config["optimizer"])
+    if grid is not None:
+        shard_module_(model, optimizer)
     net = wrap_model(model)
     batch = batch_to_device(collate([items[i] for i in rows]), "cuda")
 
@@ -2468,21 +2516,26 @@ def ddp_steps(cfg, items, perm=None, timed=0, profile=False):
 
     out = {"losses": [], "state": []}
     kernels.reset_launch_counts()
-    for i in range(DDP_STEPS):
+    for i in range(n_steps):
         losses, end_points = step(i)
         out["losses"].append({k: float(v) for k, v in losses.items()})
         if i == 0:
             scale = max(out["losses"][0]["grad_norm"] / clip_norm, 1.0)  # undo the clipping
-            out["grads"] = {k: (p.grad * scale).cpu() for k, p in model.named_parameters()}
+            grads = {k: p.grad * scale for k, p in model.named_parameters()}
+            out["grads"] = host_copy(gather_state_dict(grads, sharded_keys(model)))
             out["picks"] = {k: end_points[k].cpu() for k in ("seed_inds", "aggregated_vote_inds")}
-        out["state"].append(host_copy(model.state_dict()))
+        out["state"].append(host_copy(full_state_dict(model)))
     torch.cuda.synchronize()
     out["launches"] = dict(kernels.LAUNCHES)
+    out["bytes"] = state_bytes(model, optimizer)
+    out["sharded"] = sharded_keys(model)
+    out["own"] = host_copy({**model.state_dict(), **{f"{k}/{m}": optimizer.state[p][m] for k, p in model.named_parameters()
+                                                      for m in ("exp_avg", "exp_avg_sq")}})
     times = []
     for i in range(timed):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        step(DDP_STEPS + i)
+        step(n_steps + i)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
@@ -2500,15 +2553,19 @@ def ddp_steps(cfg, items, perm=None, timed=0, profile=False):
     return out
 
 
-def float64_steps(cfg, items):
+def float64_steps(cfg, items, tp=1):
     """``ddp_steps``' steps on the CPU in float64 on this process's rows of
-    the global batch (through DDP in a group): each step's losses and state,
-    and the first step's gradients (reduced, before clipping) and discrete
+    the global batch (through DDP in a group, or under a (data, model) grid
+    with ``tp`` > 1, gathered as there): each step's losses and state, and
+    the first step's gradients (reduced, before clipping) and discrete
     choices (seeds, proposals), the referee of the f32 train band."""
     rank, n = process_index(), process_count()
-    rows = list(range(DDP_BATCH))[rank::n]
+    grid = make_grid(tp)
+    rows = [i for r in (grid.model_ranks if grid is not None else (rank,)) for i in range(DDP_BATCH)[r::n]]
     model = P2RNet(P2RNetConfig.from_cfg(cfg), device="cpu", generator=torch.Generator().manual_seed(42)).double()
     optimizer, _, clip_norm = make_optimizer(model, cfg.config["optimizer"])
+    if grid is not None:
+        shard_module_(model, optimizer)
     net = wrap_model(model)
     batch = {k: v.double() if v.is_floating_point() else v
              for k, v in batch_to_device(collate([items[i] for i in rows]), "cpu").items()}
@@ -2519,20 +2576,22 @@ def float64_steps(cfg, items):
         out["losses"].append({k: float(v) for k, v in losses.items()})
         if i == 0:
             scale = max(out["losses"][0]["grad_norm"] / clip_norm, 1.0)  # undo the clipping
-            out["grads"] = {k: p.grad * scale for k, p in model.named_parameters()}
+            grads = {k: p.grad * scale for k, p in model.named_parameters()}
+            out["grads"] = host_copy(gather_state_dict(grads, sharded_keys(model)))
             out["picks"] = {k: end_points[k] for k in ("seed_inds", "aggregated_vote_inds")}
-        out["state"].append(host_copy(model.state_dict()))
+        out["state"].append(host_copy(full_state_dict(model)))
     return out
 
 
 def ddp_train_run(cfg, datasets):
     """The train runner under the group: launches, losses, run dir, the
-    final state and what this rank's working directory holds."""
+    final state (gathered under a grid) and what this rank's working
+    directory holds."""
     kernels.reset_launch_counts()
     model, history = train_runner.run(cfg, datasets=datasets)
     torch.cuda.synchronize()
     return {"launches": dict(kernels.LAUNCHES), "history": history, "save_path": cfg.save_path,
-            "state": host_copy(model.state_dict()),
+            "state": host_copy(full_state_dict(model)),
             "run_dir": sorted(os.listdir(cfg.save_path)) if cfg.is_main_process else None,
             "cwd": sorted(os.listdir("."))}
 
@@ -2545,6 +2604,33 @@ def ddp_test_run(cfg, dataset):
     torch.cuda.synchronize()
     return {"launches": dict(kernels.LAUNCHES), "metrics": metrics, "save_path": cfg.save_path,
             "mean_losses": cfg.test_summary["mean_losses"], "batch_seconds": cfg.test_summary["batch_seconds"]}
+
+
+def demo_config(workdir, dtype="float32", tp=1):
+    """p2rnet_test.yaml at full width on random weights from seed 42, in
+    ``dtype``, at tensor-parallel degree ``tp``, serving the repository's
+    demo/ clips."""
+    config = read_to_dict(TEST_YAML)
+    config.update(finetune=False, seed=42, demo_path=os.path.join(REPO, "demo"))
+    config["model"]["compute_dtype"] = dtype
+    config["device"]["model_parallel"] = tp
+    config["log"]["path"] = os.path.join(workdir, "out")
+    return config
+
+
+def ddp_demo_run(cfg):
+    """The demo runner under the group: launches, (clip, confident boxes)
+    of each request, where the dumps went; then ``generate`` of the demo
+    clip on the model ``common.setup`` builds (sharded under a grid)."""
+    kernels.reset_launch_counts()
+    results = demo.run(cfg)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    model = common.setup(cfg, torch.device("cuda", torch.cuda.current_device()))[0]
+    x = torch.from_numpy(load_demo_clip(DEMO_CLIP, num_frames=768)[None]).cuda()
+    return {"launches": launches, "results": [(os.path.basename(path), n) for path, _, n, _ in results],
+            "vis_path": cfg.config["log"]["vis_path"],
+            "end_points": host_copy(model.generate(x, folded=model.fold_eval()))}
 
 
 def ddp_worker(spec_path):
@@ -2563,22 +2649,26 @@ def ddp_worker(spec_path):
         os.chdir(workdir)  # the train runner's board writes to ./runs
         out = {"backend": backend, "card": torch.cuda.current_device()}
         batch = DDP_BATCH // process_count()
+        tp = spec.get("tp", 1)
         if spec.get("steps"):
             cfg = CONFIG(ddp_config(spec["workdir"], "steps", batch), mode="train")
             try:
                 mount_external_config(cfg)
                 items = ddp_clips()
-                out["steps"] = ddp_steps(cfg, items, timed=DDP_TIMED, profile=True)
+                out["steps"] = ddp_steps(cfg, items, timed=DDP_TIMED, profile=spec.get("profile", True), tp=tp,
+                                         n_steps=spec.get("n_steps", DDP_STEPS))
                 if spec.get("steps64"):
                     # torchrun gives each of several ranks one thread
                     torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // process_count()))
                     t0 = time.perf_counter()
-                    out["steps64"] = float64_steps(cfg, items)
+                    out["steps64"] = float64_steps(cfg, items, tp=tp)
                     out["steps64"]["seconds"] = time.perf_counter() - t0
             finally:
                 cfg.close()
         if spec.get("train_run"):
-            cfg = CONFIG(ddp_config(spec["workdir"], "train_run", batch), mode="train")
+            config = ddp_config(spec["workdir"], "train_run", batch)
+            config["device"]["model_parallel"] = tp
+            cfg = CONFIG(config, mode="train")
             try:
                 out["train_run"] = ddp_train_run(cfg, scene_datasets(seed=3, n_train=16, n_val=8))
             finally:
@@ -2586,9 +2676,16 @@ def ddp_worker(spec_path):
         if spec.get("test_run"):
             config = test_config(os.path.join(spec["workdir"], "test_run"), remove_far_box=False)
             config.update(finetune=True, weight=[spec["test_weights"]])
+            config["device"]["model_parallel"] = tp
             cfg = CONFIG(config, mode="test")
             try:
                 out["test_run"] = ddp_test_run(cfg, scene_datasets(seed=5, n_train=0, n_val=8)["val"])
+            finally:
+                cfg.close()
+        for dtype in spec.get("demo", []):
+            cfg = CONFIG(demo_config(os.path.join(spec["workdir"], f"demo_{dtype}"), dtype, tp), mode="demo")
+            try:
+                out[f"demo_{dtype}"] = ddp_demo_run(cfg)
             finally:
                 cfg.close()
         torch.save(out, os.path.join(spec["workdir"], f"rank{rank}.pt"))
@@ -2812,7 +2909,249 @@ def ddp_phase(workdir, smi):
               f"unprofiled {med(got['step_ms']):.3f} ms step; {dev_ms:.3f} ms of device time")
         for key, ms, count in rows:
             print(f"  {ms:9.3f} ms  x{count:<5.1f} {key}")
-    return {"single_ms": med(single["step_ms"]), "a_ms": med(a["step_ms"]), "b_ms": med(b[0]["step_ms"])}
+    # the one-process runs the tensor-parallel phase holds its ranks against
+    return {"single": single, "perm": perm, "single64": single64, "seconds64": seconds64, "ref_err": ref_err,
+            "weights": weights}
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel phase (13 in the docstring): a (data, model) grid of ranks
+# ---------------------------------------------------------------------------
+
+TP = 2
+
+
+def replicated_equal(owns, ranks, sharded):
+    """(all equal, the keys that differ): the tensors of ``owns`` (each
+    rank's own state and moments) outside ``sharded``, across ``ranks``."""
+    keys = [k for k in owns[ranks[0]] if k.split("/")[0] not in sharded]
+    differ = [k for k in keys for r in ranks[1:] if not torch.equal(owns[r][k], owns[ranks[0]][k])]
+    return not differ, differ
+
+
+def hold_tp_steps(name, got, refs, n_steps):
+    """Checks (a) / (c) on one world's ranks: launches, bytes, step-1
+    losses and gathered gradients against one process at 8 (phase 11(b)'s
+    per-leaf bands), running statistics after step 1.  Returns the
+    gradients' largest gap and the number of leaves beyond 1e-3."""
+    single, grads64, ref_err = refs["single"], refs["single64"]["grads"], refs["ref_err"]
+    per_step = {"stgcn_train_fwd": 6 * n_steps, "stgcn_train_bwd": 6 * n_steps, "fps": n_steps}
+    sharded = got[0]["sharded"]
+    planned = sum(single["state"][0][k].numel() for k in sharded)
+    want_bytes = single["bytes"] - 3 * 4 * planned // TP
+    for r, g in enumerate(got):
+        check(g["launches"] == per_step, f"{name} rank {r} launches {g['launches']} != {per_step}")
+        check(g["sharded"] == sharded and len(sharded) == 22, f"{name} rank {r} shards {len(g['sharded'])} weights")
+        check(g["bytes"] == want_bytes, f"{name} rank {r} holds {g['bytes']} B of parameters and moments, "
+              f"not {want_bytes}")
+        for k in sharded:
+            full = single["state"][0][k].shape
+            check(tuple(g["own"][k].shape) == (full[0] // TP, *full[1:]), f"{name} rank {r} {k} shard shape")
+    loss_gap = {k: abs(got[0]["losses"][0][k] - v) / max(abs(v), 1e-7) for k, v in single["losses"][0].items()}
+    for k, v in loss_gap.items():
+        check(v <= 1e-4, f"{name} step-1 loss {k} differs by {v} relative")
+    gaps = {k: relative_gap(got[0]["grads"][k], v) for k, v in single["grads"].items()}
+    errs = {k: relative_gap(got[0]["grads"][k], v) for k, v in grads64.items()}
+    for k, v in gaps.items():
+        check(v <= 1e-3 or errs[k] <= 3 * ref_err[k],
+              f"{name} step-1 gradient {k}: {v} of max|g| from one process's, {errs[k]} from float64 against one "
+              f"process's {ref_err[k]}")
+    by_referee = sorted((errs[k] / ref_err[k], k) for k, v in gaps.items() if v > 1e-3)
+    for k in single["state"][0]:
+        if k.endswith(("running_mean", "running_var")):
+            check(torch.allclose(got[0]["state"][0][k], single["state"][0][k], atol=1e-4, rtol=1e-4),
+                  f"{name} running statistic {k} after step 1")
+    print(f"{name}: per rank {got[0]['bytes']} B of parameters and AdamW moments against one process's "
+          f"{single['bytes']} (22 weights, {planned} parameters, half on each rank); step 1 against one process at "
+          f"{DDP_BATCH}: losses max rel gap {max(loss_gap.values()):.2e}, gradients max gap {max(gaps.values()):.2e} "
+          f"of max|g| ({len(gaps) - len(by_referee)} of {len(gaps)} within 1e-3; the largest ratios of their error "
+          f"against float64 to one process's: {', '.join(f'{q:.2f} {k}' for q, k in by_referee[-5:]) or 'none'}); "
+          f"running statistics within 1e-4; launches per rank {got[0]['launches']}")
+    return max(gaps.values()), len(by_referee)
+
+
+def same_files(a, b):
+    """(the relative paths of the files under ``a``, those that differ from
+    ``b``'s byte for byte or are missing there)."""
+    files = sorted(os.path.relpath(f, a) for f in glob.glob(os.path.join(a, "**", "*"), recursive=True)
+                   if os.path.isfile(f))
+    differ = []
+    for f in files:
+        other = os.path.join(b, f)
+        if not os.path.isfile(other):
+            differ.append(f)
+            continue
+        with open(os.path.join(a, f), "rb") as fa, open(other, "rb") as fb:
+            if fa.read() != fb.read():
+                differ.append(f)
+    return files, differ
+
+
+def tp_phase(workdir, smi, refs):
+    """``device.model_parallel`` on one card: (a) world 2 at tp 2 (one model
+    group of two gloo ranks on cuda:0, 4 clips a rank, the group's 8) against
+    the one-process steps at 8 of phase 11; (b) the same steps in float64 on
+    the ranks' CPUs against phase 11's float64 steps; (c) world 4 at tp 2
+    (data 2 x model 2), one step; (d) under world 2: the train runner (its
+    model_final.pth loads strict into one process), the sparse_eval test
+    runner against one process at batch 2 (the group's), the demo against
+    one process's dumps, and a bf16 demo against one process's bf16
+    ``generate``."""
+    single, single64 = refs["single"], refs["single64"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        config = test_config(os.path.join(workdir, "tp_single_test"), remove_far_box=False)
+        config.update(finetune=True, weight=[refs["weights"]])
+        config["test"]["batch_size"] = TP
+        test_cfg = CONFIG(config, mode="test")
+        try:
+            single_metrics = test_runner.run(test_cfg, dataset=scene_datasets(seed=5, n_train=0, n_val=8)["val"])
+            single_losses = test_cfg.test_summary["mean_losses"]
+        finally:
+            test_cfg.close()
+        single_demo = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = CONFIG(demo_config(os.path.join(workdir, f"tp_single_demo_{dtype}"), dtype), mode="demo")
+            try:
+                single_demo[dtype] = ddp_demo_run(cfg)
+            finally:
+                cfg.close()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+
+    # (a), (b), (d): world 2, one model group
+    spec = {"tp": TP, "steps": True, "steps64": True, "train_run": True, "test_run": True,
+            "test_weights": refs["weights"], "demo": ["float32", "bfloat16"]}
+    ranks, groups, seconds = launch_ranks(2, spec, os.path.join(workdir, "tp_world2"))
+    print(f"(a, b, d) world 2 at tp {TP} ({seconds:.1f} s with start-up): {'; '.join(groups)}")
+    check([r["backend"] for r in ranks] == ["gloo", "gloo"] and [r["card"] for r in ranks] == [0, 0],
+          f"world 2 on one card: backends {[r['backend'] for r in ranks]}, cards {[r['card'] for r in ranks]}")
+    a = [r["steps"] for r in ranks]
+    grad_gap, beyond = hold_tp_steps("(a) world 2, tp 2", a, refs, DDP_STEPS)
+    for i in range(DDP_STEPS):
+        same, gap = tree_gap(a[0]["state"][i], a[1]["state"][i])
+        check(same, f"(a) the two ranks' gathered states after step {i + 1} differ by up to {gap}")
+    same, differ = replicated_equal([g["own"] for g in a], [0, 1], a[0]["sharded"])
+    check(same, f"(a) replicated tensors differ between the ranks: {differ[:5]}")
+    print(f"(a) after {DDP_STEPS} steps the {sum(1 for k in a[0]['own'] if k.split('/')[0] not in a[0]['sharded'])} "
+          f"replicated tensors (parameters, running statistics, AdamW moments) bit-equal on both ranks")
+
+    w64 = [r["steps64"] for r in ranks]
+    grad64_gap = max(relative_gap(w64[0]["grads"][k], v) for k, v in single64["grads"].items())
+    check(grad64_gap <= 1e-8, f"(b) float64 step-1 gradients {grad64_gap} of max|g| from one process's")
+    loss64_gap = max(abs(w64[0]["losses"][i][k] - v) / max(abs(v), 1.0)
+                     for i in range(DDP_STEPS) for k, v in single64["losses"][i].items())
+    check(loss64_gap <= 1e-6, f"(b) float64 losses differ by {loss64_gap} relative")
+    state64_gap = []
+    for i in range(DDP_STEPS):
+        same, gap = tree_gap(w64[0]["state"][i], w64[1]["state"][i])
+        check(same, f"(b) float64: the two ranks' states after step {i + 1} differ by up to {gap}")
+        for k, v in single64["state"][i].items():
+            if v.is_floating_point():
+                gap = relative_gap(w64[0]["state"][i][k], v)
+                check(gap <= 1e-5, f"(b) float64 {k} after step {i + 1}: {gap} of its max from one process's")
+                state64_gap.append(gap)
+    print(f"(b) the same {DDP_STEPS} steps in float64 on the CPU, world 2 at tp 2 ({w64[0]['seconds']:.1f} s) vs one "
+          f"process at 8 ({refs['seconds64']:.1f} s): step-1 gradients max gap {grad64_gap:.2e} of max|g|, losses "
+          f"{loss64_gap:.2e} relative, parameters and running statistics after each step {max(state64_gap):.2e} of "
+          f"their max; both ranks' gathered states bit-equal")
+
+    # (c) world 4: data 2 x model 2
+    four, groups, seconds4 = launch_ranks(4, {"tp": TP, "steps": True, "n_steps": 1, "profile": False},
+                                          os.path.join(workdir, "tp_world4"))
+    print(f"(c) world 4 at tp {TP} ({seconds4:.1f} s with start-up): {'; '.join(groups)}")
+    c = [r["steps"] for r in four]
+    hold_tp_steps("(c) world 4, tp 2 (data 2 x model 2)", c, refs, 1)
+    sharded = c[0]["sharded"]
+    owns = [g["own"] for g in c]
+    for m in range(TP):  # the two data groups hold the same shards
+        differ = [k for k in owns[m] if k.split("/")[0] in sharded and not torch.equal(owns[m][k], owns[m + TP][k])]
+        check(not differ, f"(c) shard {m} differs between ranks {m} and {m + TP}: {differ[:5]}")
+    same, differ = replicated_equal(owns, [0, 1, 2, 3], sharded)
+    check(same, f"(c) replicated tensors differ across the four ranks: {differ[:5]}")
+    print("(c) after the step, ranks 0 / 2 and 1 / 3 hold the same shards bit for bit, with their moments; the "
+          "replicated tensors bit-equal on all four ranks")
+
+    # (d) the runners under world 2
+    runs = [r["train_run"] for r in ranks]
+    expect = {"stgcn_train_fwd": 6 * 2, "stgcn_train_bwd": 6 * 2, "stgcn_epilogue": 6 * 1, "fps": 2 + 1}
+    for r, run in enumerate(runs):
+        check(run["launches"] == expect, f"(d) train run rank {r} launches {run['launches']} != {expect}")
+        for phase in ("train", "val"):
+            check(all(np.isfinite(v) for v in run["history"][0][phase].values()), f"(d) rank {r} {phase} losses")
+    same, gap = tree_gap(runs[0]["state"], runs[1]["state"])
+    check(same, f"(d) after the train runner's epoch the two ranks' gathered states differ by up to {gap}")
+    check(runs[0]["run_dir"] == ["log.txt", "model_best.pth", "model_final.pth", "visualization"],
+          f"(d) run dir holds {runs[0]['run_dir']}")
+    final = load_ckpt(runs[0]["save_path"], "final")
+    one = P2RNet(P2RNetConfig(), device="cpu")  # the full width of p2rnet_train.yaml
+    one.load_state_dict(final["net"], strict=True)
+    optimizer, _, _ = make_optimizer(one, read_to_dict(TRAIN_YAML)["optimizer"])
+    optimizer.load_state_dict(final["optimizer"])
+    same, gap = tree_gap(final["net"], runs[0]["state"])
+    check(same, f"(d) model_final.pth differs from the ranks' gathered state by up to {gap}")
+    print(f"(d) train runner, world 2 at tp 2 (4 clips a rank, the group's 8), 1 epoch: launches per rank "
+          f"{runs[0]['launches']}; both ranks' gathered states bit-equal; model_final.pth ({len(final['net'])} "
+          f"tensors, AdamW state) loads strict into one process and equals the gathered state; mean train total "
+          f"{runs[0]['history'][0]['train']['total']:.5f}")
+
+    tests = [r["test_run"] for r in ranks]
+    expect = {"stgcn_sparse": 6 * 4, "stgcn_epilogue": 6 * 4, "fps": 4}
+    for r, run in enumerate(tests):
+        check(run["launches"] == expect, f"(d) test run rank {r} launches {run['launches']} != {expect}")
+        for t, want in single_metrics.items():
+            check(list(run["metrics"][t]) == list(want), f"(d) rank {r} AP@{t}: other keys")
+            gap = max(abs(run["metrics"][t][k] - v) for k, v in want.items())
+            check(gap <= 1e-6, f"(d) rank {r} AP@{t} differs from one process's by {gap}")
+        gap = max(abs(run["mean_losses"][k] - v) / max(abs(v), 1.0) for k, v in single_losses.items())
+        check(gap <= 1e-6, f"(d) rank {r} merged mean losses differ by {gap}")
+    batch_ms = [t * 1e3 for t in tests[0]["batch_seconds"]]
+    print(f"(d) test runner, world 2 at tp 2 (1 scene a rank, the group's 2; sparse_eval, metre-sized boxes): "
+          f"AP@0.25 mAP {tests[0]['metrics'][0.25]['mAP']:.6f} AR {tests[0]['metrics'][0.25]['AR']:.6f}, equal to "
+          f"one process's at batch 2 within 1e-6, merged mean losses too; launches per rank {tests[0]['launches']}; "
+          f"rank 0 per-batch time {', '.join(f'{t:.3f}' for t in batch_ms)} ms")
+
+    demos = [r["demo_float32"] for r in ranks]
+    want = single_demo["float32"]
+    for r, d in enumerate(demos):
+        check(d["launches"] == {"stgcn_epilogue": 6, "fps": 1}, f"(d) demo rank {r} launches {d['launches']}")
+        check(d["results"] == want["results"], f"(d) demo rank {r} served {d['results']}, one process {want['results']}")
+    check(demos[0]["vis_path"] == demos[1]["vis_path"], "(d) the demo ranks used different run dirs")
+    files, differ = same_files(want["vis_path"], demos[0]["vis_path"])
+    theirs, _ = same_files(demos[0]["vis_path"], want["vis_path"])
+    check(files and files == theirs and not differ, f"(d) demo dumps differ from one process's: {differ or theirs}")
+    # the half-width GEMMs of the column-parallel layers may take other
+    # cuBLAS kernels than one process's, which sum in another order: the
+    # outputs are held to the serving phase's card-vs-CPU band
+    diffs = generate_gap(demos[0]["end_points"], want["end_points"], "(d) demo at tp 2 vs one process")
+    boxes = sum(n for _, n in want["results"])
+    print(f"(d) demo, world 2 at tp 2, on demo/inputs ({len(want['results'])} clip, {boxes} confident boxes at the "
+          f"config's threshold): launches per rank {demos[0]['launches']}; rank 0's {len(files)} dump files equal one "
+          f"process's byte for byte; generate of the clip against one process's: seeds and "
+          f"proposals equal, max |diff| " + json.dumps({k: f"{v:.2e}" for k, v in diffs.items()}))
+
+    bf = [r["demo_bfloat16"] for r in ranks]
+    for r, d in enumerate(bf):
+        check(d["launches"] == {"stgcn_epilogue_bf16": 6, "fps": 1}, f"(d) bf16 demo rank {r} launches {d['launches']}")
+    agree, gaps = bf16_generate_gap(bf[0]["end_points"], single_demo["bfloat16"]["end_points"],
+                                    "(d) bf16 demo at tp 2 vs one process")
+    print(f"(d) bf16 demo, world 2 at tp 2: launches per rank {bf[0]['launches']}; generate against one process's "
+          f"bf16 generate: proposals agree {agree:.4f}; max |diff| / max: " + json.dumps(gaps))
+
+    med = lambda t: float(np.median(t))  # noqa: E731
+    c_ms = ", ".join(f"{med(g['step_ms']):.3f}" for g in c)
+    host_ms, dev_ms, rows = a[0]["collectives"]
+    print(f"[{smi}] B=8 train step (CUDA events, median of {DDP_TIMED}, deterministic algorithms): one process "
+          f"{med(single['step_ms']):.3f} ms; (a) world 2 at tp 2, the group's 8 on each rank: rank 0 "
+          f"{med(a[0]['step_ms']):.3f} ms, rank 1 {med(a[1]['step_ms']):.3f} ms; (c) world 4 at tp 2, the group's 4: "
+          f"{c_ms} ms")
+    print(f"[{smi}] (a) rank 0, profiler over 2 steps ({a[0]['profiled_ms']:.3f} ms a step under the profiler): "
+          f"collectives {host_ms:.3f} ms a step of host time, {host_ms / med(a[0]['step_ms']):.3f} of the unprofiled "
+          f"{med(a[0]['step_ms']):.3f} ms step; {dev_ms:.3f} ms of device time")
+    for key, ms, count in rows:
+        print(f"  {ms:9.3f} ms  x{count:<5.1f} {key}")
+    return {"bytes": a[0]["bytes"], "single_bytes": single["bytes"], "grad_gap": grad_gap, "beyond": beyond}
 
 
 # data pipeline phase: recordings to pictures (12 in the docstring)
@@ -3174,6 +3513,7 @@ def pipeline_phase(workdir, smi, device):
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
+    t_start = time.perf_counter()
     set_precision_policy()
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -3226,8 +3566,12 @@ def main():
         bf16_train_launches = bf16_train_phase(workdir, smi)
         print(f"bf16 train phase {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        ddp_phase(workdir, smi)
+        refs = ddp_phase(workdir, smi)
         print(f"data-parallel phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        print("tensor-parallel phase:")
+        tp_phase(workdir, smi, refs)
+        print(f"tensor-parallel phase {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         print("data pipeline phase:")
         pipeline_phase(workdir, smi, "cuda")
@@ -3263,6 +3607,7 @@ def main():
          "replaces": "pose2room_tpu/ops/stgcn_train.py:227",
          "launches": bf16_train_launches["stgcn_train_bwd_bf16"], **rows[("stgcn_train_bwd_bf16", 8)]},
     ]}
+    print(f"chip_smoke.py {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps(line))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,8 @@ process group the train-mode moments are global, as in the JAX package's
 sharded step: each rank's (E[x], E[x^2]) are averaged over the ranks (they
 hold batches of one size) through a differentiable all-reduce, whose
 backward sums the moments' gradients over the ranks (SyncBatchNorm's
-scheme); so every rank's running statistics take the same values.
+scheme); so every rank's running statistics take the same values.  Under a
+tensor-parallel grid the ranks are those of the data group.
 
 A compute ``dtype`` (None: float32, or ``torch.bfloat16``) follows flax's
 ``nn.Dense(dtype=bf16)`` (``dense``): parameters stay f32, the input and
@@ -34,7 +35,8 @@ from torch import nn
 
 from pose2room_tpu_torch.ops.stgcn_fused import LANE, N_VEC_ROWS, block_diag_taps, pad_merged, widen
 from pose2room_tpu_torch.ops.stgcn_train import BN_EPS, FusedTrainLayer
-from pose2room_tpu_torch.parallel.collectives import all_reduce_sum, in_group, process_count
+from pose2room_tpu_torch.parallel.collectives import all_reduce_sum, data_count, in_group
+from pose2room_tpu_torch.parallel.tensor import bias_block, copy_in, full_weight, gather_out, is_sharded
 
 
 def lecun_normal_(tensor, fan_in, generator):
@@ -67,6 +69,25 @@ def dense(x, kernel, bias=None, dtype=None):
     return y if bias is None else y + bias.to(dtype)
 
 
+def column_parallel_dense(x, kernel, bias=None, dtype=None):
+    """``dense`` on a tensor-parallel rank whose ``kernel`` (in, out / tp)
+    is its block of the output columns (parallel/tensor.py): the rank's
+    block, with its block of the bias, from the whole input, as one process
+    computes those columns, then gathered over the model group."""
+    return gather_out(dense(copy_in(x), kernel, bias_block(bias), dtype))
+
+
+def linear(x, lin, dtype=None):
+    """``nn.Linear`` ``lin`` applied as flax ``nn.Dense(dtype)``: the layer
+    itself in f32, ``dense`` with a compute dtype, column-parallel when its
+    weight is a tensor-parallel shard."""
+    if not is_sharded(lin):
+        return lin(x) if dtype is None else dense(x, lin.weight.t(), lin.bias, dtype)
+    if dtype is None:
+        return gather_out(nn.functional.linear(copy_in(x), lin.weight, bias_block(lin.bias)))
+    return column_parallel_dense(x, lin.weight.t(), lin.bias, dtype)
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over the last axis with flax semantics and reference
     parameter names.  ``momentum`` is the flax keep-rate."""
@@ -97,7 +118,7 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.dim() - 1))
             mean, meansq = x.mean(axes), (x * x).mean(axes)
             if in_group():
-                mean, meansq = (all_reduce_sum(torch.stack([mean, meansq])) / process_count()).unbind(0)
+                mean, meansq = (all_reduce_sum(torch.stack([mean, meansq])) / data_count()).unbind(0)
             var = torch.clamp(meansq - mean * mean, min=0.0)
             self.update_running_stats(mean, var)
         else:
@@ -117,7 +138,7 @@ class SingleConv(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        x = self.conv(x) if self.dtype is None else dense(x, self.conv.weight.t(), self.conv.bias, self.dtype)
+        x = linear(x, self.conv, self.dtype)
         if self.batchnorm is not None:
             x = self.batchnorm(x)
         return torch.relu(x) if self.relu else x
@@ -232,7 +253,7 @@ class STGCNBlock(nn.Module):
         (the module path, JAX layers.py:241); the bias term stays f32.
         """
         K, C, V = self.K, self.out_channels, self.num_joints
-        Wk = self.gcn.conv.weight.t().reshape(self.in_channels, K, C)
+        Wk = full_weight(self.gcn.conv).t().reshape(self.in_channels, K, C)
         if dtype is None:
             M = torch.einsum("ikc,kvw->viwc", Wk, A)
         else:
@@ -296,7 +317,7 @@ class STGCNBlock(nn.Module):
         order = np.asarray(order, dtype=np.int64)
         Vp = len(order)
         Wp = Vp * C
-        Wk = self.gcn.conv.weight.t().reshape(self.in_channels, K, C)  # (i, k, o)
+        Wk = full_weight(self.gcn.conv).t().reshape(self.in_channels, K, C)  # (i, k, o)
         Ap = A.new_zeros(K, Vp, Vp)
         Ap[:, :V, :V] = A
         perm = torch.as_tensor(order, device=A.device)

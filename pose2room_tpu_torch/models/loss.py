@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from pose2room_tpu_torch.ops.nn_distance import huber_loss, nn_distance
-from pose2room_tpu_torch.parallel.collectives import process_count
+from pose2room_tpu_torch.parallel.collectives import data_count
 
 FAR_THRESHOLD = 0.6
 NEAR_THRESHOLD = 0.3
@@ -123,7 +123,8 @@ def detection_loss(end_points, gt, origin_joint_id=0, reduce=None):
     gradient; the rest are logging statistics).
 
     ``reduce``: None for the batch at hand, or a function that sums a tensor
-    over the ranks of a data-parallel step (``parallel.all_reduce_sum_``):
+    over the ranks of a data-parallel step (``parallel.all_reduce_sum_``,
+    over the data group under a tensor-parallel grid):
     the normalisers then go through it in one call, and the proposal count
     is every rank's (each holds the same number), so each term is this
     rank's share of the global one and the global loss is their sum."""
@@ -136,7 +137,7 @@ def detection_loss(end_points, gt, origin_joint_id=0, reduce=None):
     if reduce is not None:
         # one collective; the sums are counts, exact in every dtype they take
         sums = [r.to(t.dtype) for r, t in zip(reduce(torch.stack(sums)).unbind(0), sums)]
-        n_prop *= process_count()
+        n_prop *= data_count()
     vote_den, mask_sum, label_sum, box_sum = sums
     vote_loss = vote_num / (vote_den + 1e-6)
     objectness_loss = objectness_num / (mask_sum + 1e-6)

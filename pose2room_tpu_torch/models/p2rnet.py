@@ -32,6 +32,7 @@ from pose2room_tpu_torch.models.layers import BatchNorm
 from pose2room_tpu_torch.models.proposal import MDN_KEYS, ProposalNet
 from pose2room_tpu_torch.models.stgcn import STGCN
 from pose2room_tpu_torch.models.vote import CenterVote, l2_normalize
+from pose2room_tpu_torch.parallel.collectives import draw_rows
 
 
 # model.compute_dtype -> the modules' compute dtype (None: float32 throughout)
@@ -152,15 +153,14 @@ class P2RNet(nn.Module):
         sample each: {"center", "size", "heading"} -> (B, P, G, 1, D), drawn
         on the host from the CPU ``generator`` (so the card and the CPU see
         the same numbers) and moved to the model's device.  ``shard``
-        (index, count): the noise of a batch ``count`` times this one is
-        drawn and rows index, index + count, ... kept, so a data-parallel
-        rank holds its rows of the global batch's noise."""
+        (index, count): the noise of the global batch is drawn and this
+        batch's rows kept (``parallel.draw_rows``), so a data-parallel rank
+        or a model group holds its rows of the global batch's noise."""
         c = self.config
         dims = {"center": 3, "size": 3, "heading": 2}
-        index, count = shard
         return {
-            k: torch.randn((batch_size * count, c.num_proposals, c.num_gaussian, 1, dims[k]),
-                           generator=generator)[index::count].to(self.device)
+            k: draw_rows(lambda n: torch.randn((n, c.num_proposals, c.num_gaussian, 1, dims[k]),
+                                               generator=generator), batch_size, shard).to(self.device)
             for k in MDN_KEYS
         }
 
@@ -183,9 +183,9 @@ class P2RNet(nn.Module):
 
         ``eps``: the MDN noise (``mdn_eps`` layout); drawn from ``generator``
         (a CPU torch.Generator, also used for ``seed_sampling: random``)
-        when None.  ``shard`` (index, count): this batch is rows index,
-        index + count, ... of a global batch ``count`` times its size (a
-        data-parallel rank's), and the draws are that batch's rows.
+        when None.  ``shard`` (index, count): this batch's rows of the
+        global batch (``parallel.draw_rows``: a data-parallel rank's or a
+        model group's), and the draws are that batch's rows.
         BatchNorm is live in ``.train()`` mode and uses the running
         statistics in ``.eval()`` mode.  Returns the end_points dict.
         """

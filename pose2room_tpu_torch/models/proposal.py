@@ -30,7 +30,7 @@ features do.
 import torch
 from torch import nn
 
-from pose2room_tpu_torch.models.layers import MLP1x1, dense, lecun_normal_
+from pose2room_tpu_torch.models.layers import MLP1x1, lecun_normal_, linear
 from pose2room_tpu_torch.models.mdn import MDNHead, center_mu_init, heading_mu_init, size_mu_init
 from pose2room_tpu_torch.models.stgcn import arc_length_seed_inds
 from pose2room_tpu_torch.ops.stgcn_fused import widen
@@ -57,10 +57,8 @@ class _VoteAggregation(nn.Module):
 
     def forward(self, x):
         """The shared MLP and the max-pool over the ball (dim 2), in f32."""
-        if self.dtype is None:
-            return self.mlp_module(x).amax(dim=2)
         for lin in self.mlp_module[::2]:
-            x = torch.relu(dense(x, lin.weight.t(), lin.bias, self.dtype))
+            x = torch.relu(linear(x, lin, self.dtype))
         return widen(x.amax(dim=2))
 
 

@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from pose2room_tpu_torch.models.graph import SPARSE_JOINT_ORDER, build_spatial_graph
-from pose2room_tpu_torch.models.layers import MLP1x1, STGCNBlock, dense, lecun_normal_
+from pose2room_tpu_torch.models.layers import MLP1x1, STGCNBlock, column_parallel_dense, dense, lecun_normal_, linear
 from pose2room_tpu_torch.ops.sampling import gather_points
 from pose2room_tpu_torch.ops.stgcn_fused import LANE, fused_epilogue, fused_stgcn_layer, widen
 from pose2room_tpu_torch.ops.stgcn_sparse import (
@@ -43,6 +43,8 @@ from pose2room_tpu_torch.ops.stgcn_sparse import (
     sparse_tile_lists,
     tile_columns,
 )
+from pose2room_tpu_torch.parallel.collectives import draw_rows
+from pose2room_tpu_torch.parallel.tensor import is_sharded
 
 
 def blocked_cumsum(x, base=16):
@@ -141,7 +143,8 @@ class STGCN(nn.Module):
         nn.init.zeros_(self.conv_joint.bias)
 
     def _conv_joint_joint_major(self):
-        """conv_joint as a (V*C, 256) kernel over joint-major (v*C + c) rows.
+        """conv_joint as a (V*C, 256) kernel over joint-major (v*C + c) rows
+        (this rank's block of the 256 columns under tensor parallelism).
         The reference layout flattens channel-major (c*V + v)."""
         V, C = self.num_joints, self.in_channels
         w = self.conv_joint.weight
@@ -156,6 +159,12 @@ class STGCN(nn.Module):
         order = self.sparse_order.astype(np.int64)[:, None]
         rows = np.where(order < self.num_joints, order * C + np.arange(C)[None], self.num_joints * C)
         return kernel[torch.as_tensor(rows.reshape(-1), device=kernel.device)].contiguous()
+
+    def _conv_joint_dense(self, x, kernel, bias):
+        """conv_joint on the merged layout with a kernel of the fold:
+        column-parallel when its weight is a tensor-parallel shard."""
+        apply = column_parallel_dense if is_sharded(self.conv_joint) else dense
+        return apply(x, kernel, bias, self.dtype)
 
     @torch.no_grad()
     def fold_eval_operands(self):
@@ -187,9 +196,9 @@ class STGCN(nn.Module):
 
     def seed_indices(self, origin, generator=None, shard=(0, 1)):
         """(B, n_seeds) int32 frame indices.  ``shard`` (index, count): with
-        'random' sampling the scores of a batch ``count`` times this one are
-        drawn and rows index, index + count, ... kept (a data-parallel
-        rank's rows of the global batch)."""
+        'random' sampling the scores of the global batch are drawn and this
+        batch's rows kept (``parallel.draw_rows``: a data-parallel rank's
+        or a model group's rows)."""
         B, T, _ = origin.shape
         if self.n_seeds >= T:
             inds = torch.round(torch.linspace(0, T - 1, self.n_seeds, device=origin.device))
@@ -200,8 +209,7 @@ class STGCN(nn.Module):
             # drawn on the generator's device (the host's by default), so a
             # host generator's seed gives the same frames on any device
             gen_device = generator.device if generator is not None else "cpu"
-            index, count = shard
-            scores = torch.rand((B * count, T), generator=generator, device=gen_device)[index::count]
+            scores = draw_rows(lambda n: torch.rand((n, T), generator=generator, device=gen_device), B, shard)
             scores = scores.to(origin.device)
             picked = torch.argsort(scores, dim=1)[:, : self.n_seeds]
             return torch.sort(picked, dim=1).values.to(torch.int32)
@@ -232,7 +240,7 @@ class STGCN(nn.Module):
             hm = h.reshape(B, T, W0)  # already in the compute dtype (sk_feat + pos)
             for blk, imp in zip(self.st_gcn_networks, self.edge_importance):
                 hm = blk.apply_fused_train(hm, self.A * imp, T)
-            frame_feat = dense(hm[..., :W0], self._conv_joint_joint_major(), self.conv_joint.bias, self.dtype)
+            frame_feat = self._conv_joint_dense(hm[..., :W0], self._conv_joint_joint_major(), self.conv_joint.bias)
         elif not self.training and self.sparse_eval:
             # joint-permuted padded layout from the entry: pad to Vp joints,
             # gather the order; the permutation leaves through conv_joint's rows
@@ -244,7 +252,7 @@ class STGCN(nn.Module):
             for blk, (tiles, vecs, KB) in zip(self.st_gcn_networks, folded["blocks"]):
                 t1 = sparse_graph_matmul_bn_relu(hm, tiles, vecs, col_off, vlist)
                 hm = fused_epilogue(t1, hm if blk.residual else None, vecs, KB, residual=blk.residual)
-            frame_feat = dense(hm, *folded["conv_joint"], self.dtype)  # (B,T,256)
+            frame_feat = self._conv_joint_dense(hm, *folded["conv_joint"])  # (B,T,256)
         elif not self.training and self.fused_eval:
             # no entry pad: block 0 has no residual, so it contracts the
             # unpadded merged input against M's first W0 rows
@@ -252,14 +260,13 @@ class STGCN(nn.Module):
             hm = h.reshape(B, T, W0)
             for blk, (M, vecs, KB) in zip(self.st_gcn_networks, folded["blocks"]):
                 hm = fused_stgcn_layer(hm, M, vecs, KB, residual=blk.residual)
-            frame_feat = dense(hm[..., :W0], *folded["conv_joint"], self.dtype)  # (B,T,256)
+            frame_feat = self._conv_joint_dense(hm[..., :W0], *folded["conv_joint"])  # (B,T,256)
         else:
             for blk, imp in zip(self.st_gcn_networks, self.edge_importance):
                 h = blk(h, self.A * imp)
             # reference flattening: channel-major (c*V + v)
             flat = h.permute(0, 1, 3, 2).reshape(B, T, W0)
-            frame_feat = (self.conv_joint(flat) if self.dtype is None
-                          else dense(flat, self.conv_joint.weight.t(), self.conv_joint.bias, self.dtype))
+            frame_feat = linear(flat, self.conv_joint, self.dtype)
         frame_feat = widen(frame_feat)
 
         seed_skeleton = input_joints[..., :3][torch.arange(B, device=input_joints.device)[:, None],

@@ -55,7 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from pose2room_tpu_torch import kernels
-from pose2room_tpu_torch.parallel.collectives import all_reduce_sum_, in_group, process_count
+from pose2room_tpu_torch.parallel.collectives import all_reduce_sum_, data_count, in_group
 from pose2room_tpu_torch.ops.stgcn_fused import (
     LANE,
     block_diag_taps,
@@ -86,8 +86,8 @@ def _chan_sum(col_vec, C):
 
 
 def _global(*vecs):
-    """The vectors summed over the ranks, in one all-reduce (themselves
-    outside a process group)."""
+    """The vectors summed over the ranks that hold other rows (the data
+    group), in one all-reduce (themselves outside a process group)."""
     if not in_group():
         return vecs
     return all_reduce_sum_(torch.stack(vecs)).unbind(0)
@@ -300,7 +300,7 @@ def _layer_forward(x, M, bias_col, g1, b1, taps, cb, g2, b2, *, residual, V, C, 
     B, Tx, W = x.shape
     Wp = M.shape[1]
     N = B * Tx
-    cnt = N * V * process_count()
+    cnt = N * V * data_count()
     y = (torch.matmul(widen(x), widen(M[:W])) + bias_col).to(x.dtype)  # (B, T, Wp)
     yf = widen(y)
     mean1, var1 = _stats_from_cols(*_global(yf.sum((0, 1)), (yf * yf).sum((0, 1))), cnt, C)
@@ -356,7 +356,7 @@ class FusedTrainLayer(torch.autograd.Function):
         B, Tx, W = x.shape
         Wp = M.shape[1]
         N = B * Tx
-        cnt = N * V * process_count()
+        cnt = N * V * data_count()
         dt = x.dtype
         dout = widen(dout)
 

@@ -9,12 +9,55 @@ the gradients across ranks).  Outside an initialised process group each is
 the one-process identity: ``[obj]``, a no-op, ``process_index() == 0`` and
 ``process_count() == 1``.  Inside a group of one they still run, so a world
 of one exercises the same collectives.
+
+Under a tensor-parallel grid (``parallel.mesh.make_grid``, ``device.
+model_parallel`` > 1) the ranks of one model group hold the same rows, so
+these three run over this rank's DATA group (the ranks that hold different
+rows; ``data_count`` of them) and ``fold_rank`` folds the data index; with
+no grid the data group is the world and each is as it was.
 """
 
 import os
 
 import torch
 import torch.distributed as dist
+
+# the installed (data, model) grid of a tensor-parallel run (parallel.mesh.Grid), or None
+_GRID = None
+
+
+def set_grid(grid):
+    """Install ``grid`` (None: no grid, the data group is the world)."""
+    global _GRID
+    _GRID = grid
+
+
+def current_grid():
+    """The installed tensor-parallel grid, or None."""
+    return _GRID
+
+
+def model_parallel():
+    """The tensor-parallel degree: the size of a model group (1 without a grid)."""
+    return _GRID.tp if _GRID is not None else 1
+
+
+def data_group():
+    """The process group of this rank's column of the grid (None, the
+    world's default group, without a grid)."""
+    return _GRID.data_group if _GRID is not None else None
+
+
+def data_index():
+    """This rank's row of the grid: the index of its model group among the
+    groups that hold different rows (the rank itself without a grid)."""
+    return process_index() // model_parallel()
+
+
+def data_count():
+    """The number of model groups: ranks that hold different rows of a
+    global batch (the world size without a grid)."""
+    return process_count() // model_parallel()
 
 
 def in_group():
@@ -39,13 +82,18 @@ def process_count():
     return dist.get_world_size() if in_group() else 1
 
 
-def allgather_object(obj):
-    """One picklable object per process, as a list in rank order on every
-    process (``[obj]`` outside a group or in a world of one)."""
-    if process_count() == 1:
+def allgather_object(obj, group=None):
+    """One picklable object per process of ``group`` (default: this rank's
+    data group, the world without a grid), as a list in rank order on every
+    process (``[obj]`` outside a group or in a group of one)."""
+    if not in_group():
         return [obj]
-    out = [None] * process_count()
-    dist.all_gather_object(out, obj)
+    group = group if group is not None else data_group()
+    n = dist.get_world_size(group)
+    if n == 1:
+        return [obj]
+    out = [None] * n
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 
@@ -59,16 +107,16 @@ def broadcast_object(obj, src=0):
 
 
 def all_reduce_sum_(t):
-    """Sum ``t`` over the ranks, in place; returns ``t`` (unchanged outside
-    a group).  No gradient flows through it."""
+    """Sum ``t`` over the ranks of the data group, in place; returns ``t``
+    (unchanged outside a group).  No gradient flows through it."""
     if in_group():
-        dist.all_reduce(t, op=dist.ReduceOp.SUM)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=data_group())
     return t
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum across ranks whose backward sums the output gradients across
-    ranks: each rank's input reaches every rank's output."""
+    """Sum across the data group whose backward sums the output gradients
+    across it: each rank's input reaches every rank's output."""
 
     @staticmethod
     def forward(ctx, t):
@@ -80,9 +128,9 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 def all_reduce_sum(t):
-    """The sum of ``t`` over the ranks as a new tensor, differentiable: the
-    gradient of each rank's input is the sum of every rank's output
-    gradient.  ``t`` itself outside a group."""
+    """The sum of ``t`` over the data group as a new tensor,
+    differentiable: the gradient of each rank's input is the sum of every
+    rank's output gradient.  ``t`` itself outside a group."""
     return _AllReduceSum.apply(t) if in_group() else t
 
 
@@ -92,8 +140,31 @@ def barrier():
 
 
 def fold_rank(seed):
-    """A generator seed per process from a run's seed: ``seed`` itself on
-    rank 0 (so one process draws as before), disjoint streams on the others
-    (for seeds below 2**32), as the JAX package folds ``process_index`` into
-    its keys."""
-    return int(seed) + (process_index() << 32)
+    """A generator seed per model group from a run's seed: ``seed`` itself
+    on rank 0 (so one process draws as before), disjoint streams on the
+    others (for seeds below 2**32), as the JAX package folds
+    ``process_index`` into its keys.  The ranks of a model group compute on
+    the same rows, so they share the data index and draw alike."""
+    return int(seed) + (data_index() << 32)
+
+
+def batch_shard():
+    """(index, count) of this rank's rows of a global batch, for
+    ``draw_rows``: (rank, world) with rows rank::world; under a grid the
+    model group's ranks as a tuple, whose rows it holds in that order."""
+    if _GRID is None:
+        return process_index(), process_count()
+    return _GRID.model_ranks, process_count()
+
+
+def draw_rows(draw, batch_size, shard=(0, 1)):
+    """This batch's rows of a draw for the global batch: ``draw(n)`` draws
+    n rows; ``shard`` (index, count) says this ``batch_size``-row batch is
+    rows index, index + count, ... of a global batch ``count`` times one
+    rank's, or, with a tuple of indices (a model group's ranks, see
+    ``batch_shard``), the rows of each in turn."""
+    index, count = shard
+    if isinstance(index, int):
+        return draw(batch_size * count)[index::count]
+    full = draw(batch_size // len(index) * count)
+    return torch.cat([full[i::count] for i in index])

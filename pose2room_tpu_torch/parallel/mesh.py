@@ -23,15 +23,84 @@ the world size.  ``broadcast_buffers`` is off: the BatchNorm statistics are
 global (the train chain's column sums and the module path's moments are
 summed across ranks), so every rank updates its running statistics to the
 same values and no rank's copy needs to overwrite the others'.
+
+``make_grid`` is the counterpart of JAX ``make_mesh(model_parallel=tp)``
+(mesh.py:22-38): world rank r sits at (r // tp, r % tp) of
+``np.arange(W).reshape(W // tp, tp)``, JAX's device grid.  A model group
+is a row, tp ranks that hold one copy of the model between them (each the
+``parallel.tensor`` shard of its column) and compute on the same rows; a
+data group is a column, the ranks that hold the same shard.  Every rank
+creates every group, rows first, in the same order.  ``make_grid(1)``
+installs no grid, so the data-parallel path stays as it is.
 """
 
+import dataclasses
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
-from pose2room_tpu_torch.parallel.collectives import in_group
+from pose2room_tpu_torch.parallel.collectives import current_grid, in_group, process_count, process_index, set_grid
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """A (data, model) grid of world ranks and this rank's two groups."""
+
+    layout: np.ndarray  # (W // tp, tp) world ranks
+    rank: int
+    model_group: object  # this rank's row
+    data_group: object  # this rank's column
+
+    @property
+    def tp(self):
+        return self.layout.shape[1]
+
+    @property
+    def model_index(self):
+        """This rank's column: the shard it holds."""
+        return self.rank % self.tp
+
+    @property
+    def model_ranks(self):
+        """The world ranks of this rank's model group, in order."""
+        return tuple(int(r) for r in self.layout[self.rank // self.tp])
+
+
+def model_parallel_of(config):
+    """``device.model_parallel`` of a config (1 when unset)."""
+    return int((config.get("device", {}) or {}).get("model_parallel", 1) or 1)
+
+
+def grid_layout(world, tp):
+    """The world ranks as a (world // tp, tp) grid, JAX make_mesh's device
+    layout; ValueError when tp does not divide the world."""
+    if tp < 1 or world % tp:
+        raise ValueError(f"device.model_parallel {tp} must divide the {world} processes "
+                         f"(JAX make_mesh asserts n % model_parallel == 0; here {world} % {tp} != 0)")
+    return np.arange(world).reshape(world // tp, tp)
+
+
+def make_grid(tp):
+    """Install the (data, model) grid of degree ``tp`` over the process
+    group and return it; with ``tp`` 1, none (and None).  ValueError when
+    tp does not divide the processes, one process with tp > 1 included:
+    there is no fallback to tp = 1.  Idempotent for the same tp."""
+    layout = grid_layout(process_count(), tp)
+    if tp == 1:
+        set_grid(None)
+        return None
+    grid = current_grid()
+    if grid is not None and grid.tp == tp:
+        return grid
+    rank = process_index()
+    rows = [dist.new_group([int(r) for r in row]) for row in layout]
+    cols = [dist.new_group([int(r) for r in col]) for col in layout.T]
+    grid = Grid(layout=layout, rank=rank, model_group=rows[rank // tp], data_group=cols[rank % tp])
+    set_grid(grid)
+    return grid
 
 
 def pick_backend(cpu, n_cards, local_world_size):
@@ -71,7 +140,8 @@ def init_distributed(device=None):
 
 
 def shutdown():
-    """Leave the process group (a no-op outside one)."""
+    """Leave the process group and its grid (a no-op outside one)."""
+    set_grid(None)
     if in_group():
         dist.destroy_process_group()
 
@@ -88,8 +158,10 @@ def wrap_model(model):
     model itself outside one.  Every parameter takes part, those of a
     ``train.freeze`` module too: they get no update, but their gradients
     count in the global norm and its clipping (as the JAX chain clips before
-    its multi_transform), so they must be the global ones."""
-    if not in_group():
+    its multi_transform), so they must be the global ones.  Under a
+    tensor-parallel grid the model itself: ``parallel.tensor.
+    reduce_gradients`` sums its gradients after the backward."""
+    if not in_group() or current_grid() is not None:
         return model
     device = next(model.parameters()).device
     ddp = DistributedDataParallel(model, device_ids=[device.index] if device.type == "cuda" else None,

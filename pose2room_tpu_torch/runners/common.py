@@ -5,7 +5,11 @@ Port of pose2room_tpu/runners/common.py (reference net_utils/utils.py:
 205-294).  All three runners (demo, test, train) go through ``setup``, so
 ``method``, ``resume`` and ``finetune`` act the same in each, as in the JAX
 package.  In a data-parallel run every rank builds the same model from the
-same seed and loads the same checkpoints onto its own card.
+same seed and loads the same checkpoints onto its own card.  Under a
+tensor-parallel grid (``device.model_parallel``, ``parallel.make_grid``)
+each rank then keeps its shard of the planned weights and of their AdamW
+moments (``parallel.tensor.shard_module_``), after the whole checkpoints
+are loaded, as JAX runners/common.py:89-95 shards after them.
 """
 
 import numpy as np
@@ -13,7 +17,8 @@ import torch
 
 from pose2room_tpu_torch.config.loader import mount_external_config
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
-from pose2room_tpu_torch.parallel.collectives import process_index
+from pose2room_tpu_torch.parallel.collectives import current_grid, process_index
+from pose2room_tpu_torch.parallel.tensor import shard_module_
 from pose2room_tpu_torch.train.checkpoint import CheckpointIO
 from pose2room_tpu_torch.train.state import make_optimizer, train_options
 
@@ -52,7 +57,8 @@ def setup(cfg, device=None):
 
     Seeds numpy's global stream with ``seed + rank`` (JAX
     runners/common.py:41); in a data-parallel run the caller has joined the
-    group before building ``cfg`` (the CONFIG raises otherwise)."""
+    group before building ``cfg`` (the CONFIG raises otherwise), and under
+    ``device.model_parallel`` made the grid (``parallel.make_grid``)."""
     np.random.seed(int(cfg.config.get("seed", 42)) + process_index())
     model = build_model(cfg, device)
     freeze, phase_specs = train_options(cfg.config)
@@ -69,4 +75,7 @@ def setup(cfg, device=None):
         for path in cfg.config.get("weight", []) or []:
             cfg.log_string(f"Loading weights from {path}")
             checkpoint.load_weights(path, model)
+    if current_grid() is not None:
+        plan = shard_module_(model, optimizer)
+        cfg.log_string(f"tensor parallel over {current_grid().tp} ranks: {len(plan)} weights sharded")
     return model, optimizer, base_lrs, clip_norm, checkpoint, start_epoch, min_loss

@@ -5,7 +5,9 @@ request's predictions are dumped as .npz / .json / .ply (utils/vis.py) in the
 reference formats.  The model comes from ``runners.common.setup``: the
 config's ``method``, then ``resume`` or ``finetune`` as in training.  The
 model folds its graph operands once per weight load and every request
-reuses them.
+reuses them.  In a process group (data or tensor parallel) every rank
+serves every clip, the ranks of a model group together, and rank 0 alone
+writes the dumps.
 """
 
 import glob
@@ -18,8 +20,8 @@ import torch
 from pose2room_tpu_torch.data.dataset import load_demo_clip
 from pose2room_tpu_torch.device import resolve_device
 from pose2room_tpu_torch.eval.parse import assembly_pred_map_cls, parse_predictions
+from pose2room_tpu_torch.parallel.mesh import make_grid, model_parallel_of
 from pose2room_tpu_torch.runners.common import setup
-from pose2room_tpu_torch.train.state import check_unported_keys
 from pose2room_tpu_torch.utils.vis import dump_predictions, write_ply_boxes, write_ply_points
 
 
@@ -30,7 +32,7 @@ def run(cfg, device=None):
     request is load, generate, parse, NMS and dumps, timed on the host clock
     (the parse copies its results to the host, which waits for the card).
     """
-    check_unported_keys(cfg.config)
+    make_grid(model_parallel_of(cfg.config))
     demo_path = cfg.config.get("demo_path", "demo")
     inputs = sorted(glob.glob(os.path.join(demo_path, "inputs", "*.npy")))
     if not inputs:
@@ -60,15 +62,16 @@ def run(cfg, device=None):
 
         name = os.path.splitext(os.path.basename(path))[0]
         dump_dir = os.path.join(cfg.config["log"]["vis_path"], f"demo_{name}")
-        dump_predictions(dump_dir, end_points, eval_dict, parsed, dump_threshold=dump_threshold)
-        npz = os.path.join(dump_dir, "000000_pred_confident_nms_bbox.npz")
-        if os.path.isfile(npz):
-            with np.load(npz) as data:
-                write_ply_boxes(data["obbs"], os.path.join(dump_dir, "pred_boxes.ply"))
-        write_ply_points(
-            joints_np[0, :: max(1, joints_np.shape[1] // 64)].reshape(-1, 3),
-            os.path.join(dump_dir, "skeleton_points.ply"),
-        )
+        if cfg.is_main_process:
+            dump_predictions(dump_dir, end_points, eval_dict, parsed, dump_threshold=dump_threshold)
+            npz = os.path.join(dump_dir, "000000_pred_confident_nms_bbox.npz")
+            if os.path.isfile(npz):
+                with np.load(npz) as data:
+                    write_ply_boxes(data["obbs"], os.path.join(dump_dir, "pred_boxes.ply"))
+            write_ply_points(
+                joints_np[0, :: max(1, joints_np.shape[1] // 64)].reshape(-1, 3),
+                os.path.join(dump_dir, "skeleton_points.ply"),
+            )
         n_boxes = int(np.logical_and(
             parsed["obj_prob"][0] > dump_threshold, eval_dict["pred_mask"][0] == 1
         ).sum())

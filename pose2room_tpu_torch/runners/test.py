@@ -22,7 +22,11 @@ them), then the loss recorder's sums and the AP calculators' scans are
 merged across processes before the metrics (JAX runners/test.py:226-231);
 the seeds of the run's generators take the rank (``parallel.fold_rank``),
 as JAX folds ``process_index`` into its key; rank 0 alone logs, writes and
-dumps (its shard's batches).
+dumps (its shard's batches).  Tensor parallel (``device.model_parallel``):
+each model group evaluates its ranks' batches gathered in rank order
+(``parallel.gather_batch``), the generators take the group's data index,
+and the merges run over the data group, so each group's scans and losses
+count once.
 """
 
 import os
@@ -46,9 +50,10 @@ from pose2room_tpu_torch.eval.parse import (
 )
 from pose2room_tpu_torch.models.loss import detection_loss
 from pose2room_tpu_torch.parallel.collectives import fold_rank, process_count, process_index
+from pose2room_tpu_torch.parallel.mesh import make_grid, model_parallel_of
+from pose2room_tpu_torch.parallel.tensor import gather_batch
 from pose2room_tpu_torch.runners.common import setup
 from pose2room_tpu_torch.runners.train import split_datasets
-from pose2room_tpu_torch.train.state import check_unported_keys
 from pose2room_tpu_torch.train.step import batch_to_device
 from pose2room_tpu_torch.utils.logger import LossRecorder
 from pose2room_tpu_torch.utils.vis import dump_predictions
@@ -127,7 +132,7 @@ def run(cfg, device=None, dataset=None):
     multi-mode sample count (1 without ``multi_mode``), and the host
     seconds spent voxelizing boxes and computing the final metrics.
     """
-    check_unported_keys(cfg.config)
+    make_grid(model_parallel_of(cfg.config))
     test_cfg = cfg.config.get("test", {}) or {}
     multi_mode = bool(test_cfg.get("multi_mode", False))
     eval_mesh_ap = bool(test_cfg.get("eval_mesh_ap", False))
@@ -200,6 +205,7 @@ def run(cfg, device=None, dataset=None):
     try:
         with torch.no_grad():
             for it, batch in enumerate(loader):
+                batch = gather_batch(batch)
                 tensors = batch_to_device(batch, device)
                 noise = None
                 if multi_mode:

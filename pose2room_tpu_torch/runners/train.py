@@ -12,7 +12,11 @@ batch of one process, as in the reference's per-GPU recipe and the JAX
 package's hosts), with global BatchNorm statistics and loss normalisers and
 summed gradients (``parallel.wrap_model``); rank 0 writes the files.
 
-The keys of ``train.state.check_unported_keys`` are not ported and raise.
+Tensor parallel (``device.model_parallel: tp``, tp dividing the processes,
+else ValueError): the ranks form a (data, model) grid (``parallel.
+make_grid``); each model group trains on its ranks' shards gathered, each
+rank holds its shard of the planned weights and of their AdamW moments,
+and the checkpoints are the ones one process writes.
 """
 
 import os
@@ -21,10 +25,9 @@ from pose2room_tpu_torch.data.dataset import P2RNetDataset
 from pose2room_tpu_torch.data.loader import DataLoader
 from pose2room_tpu_torch.device import resolve_device
 from pose2room_tpu_torch.parallel.collectives import process_count, process_index
-from pose2room_tpu_torch.parallel.mesh import wrap_model
+from pose2room_tpu_torch.parallel.mesh import make_grid, model_parallel_of, wrap_model
 from pose2room_tpu_torch.runners.common import setup
 from pose2room_tpu_torch.train.engine import train as train_loop
-from pose2room_tpu_torch.train.state import check_unported_keys
 
 
 def split_datasets(cfg, modes=("train", "val")):
@@ -58,7 +61,7 @@ def run(cfg, device=None, datasets=None):
     The checkpoints are ``<cfg.save_path>/model_{best,last_<e>,final}.pth``.
     """
     config = cfg.config
-    check_unported_keys(config)
+    make_grid(model_parallel_of(config))
     device = resolve_device(device)
     seed = int(config.get("seed", 42))
     cfg.log_string("Setting up model.")

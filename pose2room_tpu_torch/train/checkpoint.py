@@ -7,7 +7,9 @@ net_utils/utils.py:21-203):
   ``torch.save``: {"net": the model's state_dict in the reference layout
   (BatchNorm running statistics included), "optimizer": the optimizer's
   state_dict (AdamW's per-parameter ``step``, ``exp_avg``, ``exp_avg_sq``
-  and the param groups), "epoch", "min_loss"};
+  and the param groups), "epoch", "min_loss"}; under a tensor-parallel
+  grid with the shards and their moments gathered, so the file is the one
+  a single process writes (same keys, same shapes);
 * ``find_resume_checkpoint`` scans the sibling run dirs of this one newest
   first for a ``model_last*`` checkpoint, and ``load_into_state`` restores
   all of it (``resume: True``);
@@ -25,6 +27,7 @@ import re
 import torch
 
 from pose2room_tpu_torch.convert import load_partial_state_dict
+from pose2room_tpu_torch.parallel.tensor import full_optimizer_state_dict, full_state_dict
 
 _LAST = re.compile(r"model_last(?:_(\d+))?(?:\.pth)?$")
 
@@ -49,15 +52,20 @@ class CheckpointIO:
     def path(self, suffix):
         return os.path.join(self.run_dir, f"model_{suffix}.pth")
 
-    def save(self, suffix, model, optimizer, epoch, min_loss):
+    def save(self, suffix, model, optimizer, epoch, min_loss, write=True):
+        """Write the checkpoint (``write``: on this rank; under a
+        tensor-parallel grid every rank of the model group calls this, as
+        the gathers are collectives)."""
         path = self.path(suffix)
-        torch.save({
-            "net": model.state_dict(),
-            "optimizer": optimizer.state_dict(),
+        payload = {
+            "net": full_state_dict(model),
+            "optimizer": full_optimizer_state_dict(model, optimizer),
             "epoch": int(epoch),
             "min_loss": float(min_loss),
-        }, path)
-        self.log(f"Saved checkpoint {path}")
+        }
+        if write:
+            torch.save(payload, path)
+            self.log(f"Saved checkpoint {path}")
         return path
 
     def find_resume_checkpoint(self):

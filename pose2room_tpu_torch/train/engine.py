@@ -32,6 +32,12 @@ the port cannot reproduce anyway.  The steps log global losses; each
 phase's recorder is merged across processes all the same (idempotent), and
 only rank 0 writes the board, the profile and the checkpoints, with a
 barrier after each save.
+
+Tensor parallel (``device.model_parallel``): each rank loads its strided
+shard as above, and the model group gathers its ranks' batches in rank
+order (``parallel.gather_batch``) and takes their rows of the noise
+(``parallel.batch_shard``); every rank takes part in a save, which gathers
+the shards, and rank 0 writes what one process writes.
 """
 
 import contextlib
@@ -40,8 +46,9 @@ import time
 
 import torch
 
-from pose2room_tpu_torch.parallel.collectives import barrier, process_count, process_index
+from pose2room_tpu_torch.parallel.collectives import barrier, batch_shard
 from pose2room_tpu_torch.parallel.mesh import unwrap
+from pose2room_tpu_torch.parallel.tensor import gather_batch
 from pose2room_tpu_torch.train.state import apply_lr_schedule, bnm_momentum, lr_factor, optimizer_steps
 from pose2room_tpu_torch.train.step import batch_to_device, eval_step, train_step
 from pose2room_tpu_torch.utils.logger import LogBoard, LossRecorder
@@ -86,7 +93,7 @@ def run_epoch(phase, epoch, loader, step_fn, device, seed, log_fn, print_step=10
         # a named span in the trace; no work on the step's path otherwise
         span = annotate(f"{phase}_step") if profile_window is not None else contextlib.nullcontext()
         with span:
-            losses = step_fn(batch_to_device(batch, device, h2d_dtype), step_generator(seed, epoch, it))
+            losses = step_fn(batch_to_device(gather_batch(batch), device, h2d_dtype), step_generator(seed, epoch, it))
         if phase == "train":
             step_no += 1
         if profile_window is not None:
@@ -121,12 +128,11 @@ def train(cfg, model, optimizer, base_lrs, clip_norm, train_loader, val_loader, 
     net = unwrap(model)
     device = net.device
     main = cfg.is_main_process
-    shard = (process_index(), process_count())
+    shard = batch_shard()
     board = LogBoard(enabled=main)
 
     def save(*args):
-        if main:
-            checkpoint.save(*args)
+        checkpoint.save(*args, write=main)  # every rank: it gathers the tensor-parallel shards
         barrier()
 
     profile_steps = int(log_cfg.get("profile_steps", 0) or 0)

@@ -49,15 +49,6 @@ def bnm_momentum(bns_cfg, epoch):
     return 1.0 - torch_m
 
 
-def check_unported_keys(config):
-    """Raise for each config key that the JAX package acts on and this port
-    does not, when it is set: every runner calls this, so a run never goes
-    on without an option it was given."""
-    device_cfg = config.get("device", {}) or {}
-    if int(device_cfg.get("model_parallel", 1) or 1) > 1:
-        raise NotImplementedError("device.model_parallel (tensor-parallel mesh) is not ported")
-
-
 def train_options(config):
     """(freeze, phase_specs) of a config: the ``train.freeze`` module names
     and {module: model.<module>.optim_spec} (JAX runners/common.py:62-67)."""

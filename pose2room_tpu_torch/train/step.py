@@ -13,14 +13,21 @@ each rank's loss is its share of the global loss; DDP's hook SUMS the
 ranks' gradients (not their mean), which makes the gradient that reaches
 the global norm, the clipping and AdamW the global loss's gradient on every
 rank.  The returned losses are the global values, summed over the ranks.
+
+Tensor parallel (under ``parallel.make_grid``): the batch is the model
+group's (``parallel.gather_batch``) and the sums above run over the data
+group; after the backward ``parallel.tensor.reduce_gradients`` sums the
+shards' gradients over the data group and the replicated ones over the
+world (divided by tp), and the global norm counts each shard once.
 """
 
 import numpy as np
 import torch
 
 from pose2room_tpu_torch.models.loss import detection_loss
-from pose2room_tpu_torch.parallel.collectives import all_reduce_sum_, in_group
+from pose2room_tpu_torch.parallel.collectives import all_reduce_sum_, current_grid, in_group
 from pose2room_tpu_torch.parallel.mesh import unwrap
+from pose2room_tpu_torch.parallel.tensor import grad_norm, reduce_gradients
 from pose2room_tpu_torch.train.state import clip_by_global_norm, global_norm
 
 GT_KEYS = (
@@ -55,8 +62,8 @@ def batch_to_device(batch, device, h2d_dtype=None):
 
 
 def _global_losses(losses):
-    """Each rank's shares summed over the ranks, in one all-reduce (the
-    losses themselves outside a process group)."""
+    """Each rank's shares summed over the data group, in one all-reduce
+    (the losses themselves outside a process group)."""
     losses = {k: v.detach() for k, v in losses.items()}
     if not in_group():
         return losses
@@ -69,8 +76,8 @@ def train_step(model, optimizer, batch, *, eps=None, generator=None, clip_norm=-
 
     ``model``: the P2RNet, or its ``parallel.wrap_model`` wrapper inside a
     process group.  ``eps`` / ``generator``: the MDN noise, or the CPU
-    generator it is drawn from; ``shard``: (process_index, process_count)
-    of a data-parallel step (see ``P2RNet.forward``).  Returns (losses,
+    generator it is drawn from; ``shard``: ``parallel.batch_shard()`` of a
+    data- or tensor-parallel step (see ``P2RNet.forward``).  Returns (losses,
     end_points): detached scalar tensors including ``grad_norm``, and the
     forward's outputs.  The gradients stay in each parameter's ``.grad``
     until the next step.  Every parameter gets its gradient, those of a
@@ -86,9 +93,11 @@ def train_step(model, optimizer, batch, *, eps=None, generator=None, clip_norm=-
     # otherwise accumulate across steps and grow the global norm
     net.zero_grad(set_to_none=True)
     losses["total"].backward()  # through DDP: every rank holds the summed gradients
+    if current_grid() is not None:
+        reduce_gradients(net)
     grads = [p.grad for p in net.parameters() if p.grad is not None]
     with torch.no_grad():
-        norm = global_norm(grads)
+        norm = global_norm(grads) if current_grid() is None else grad_norm(net)
     if clip_norm > 0:
         clip_by_global_norm(grads, clip_norm, norm)
     optimizer.step()

@@ -1062,6 +1062,47 @@ def test_ddp_world_two_gloo_on_one_card(cuda_device, tmp_path):
             torch.testing.assert_close(got[0]["state"][0][k], v, atol=1e-4, rtol=1e-4, msg=k)
 
 
+def test_tp_world_two_gloo_on_one_card(cuda_device, tmp_path):
+    """device.model_parallel 2 on two gloo ranks on cuda:0, one model group
+    computing the same 4 clips, against one process at 4 on the same clips
+    and noise: step-1 losses within 1e-4 relative; each gradient (shards
+    gathered) within 1e-3 of its max of the one process's, or no further
+    from a CPU float64 step's than three times the one process's worst
+    (test_ddp_world_two_gloo_on_one_card's band); running statistics after
+    step 1 within 1e-4; each rank holds half of each of the 22 planned
+    weights; the replicated tensors bit-equal on both ranks after two
+    steps; 6 + 6 + 1 launches a step a rank."""
+    from torch_ddp_worker import Ranks
+
+    case = _card_steps_case()
+    ranks = Ranks(2, {"tp_steps": dict(case, tp=2, paths=[True], device="cuda")}, tmp_path, device="cuda")
+    want = _one_process_steps(case, cuda_device)
+    grads64, picks64 = _float64_grads(case)
+    got = [r["tp_steps"][True] for r in ranks.results()]
+    for g in got:
+        assert g["launches"] == {"stgcn_train_fwd": 12, "stgcn_train_bwd": 12, "fps": 2}
+        halved = [k for k, shape in g["shapes"].items() if shape[0] * 2 == want["grads"][k].shape[0]]
+        assert len(halved) == 22 and all(g["moment_shapes"][k] == g["shapes"][k] for k in halved)
+    for k, v in got[0]["replicated"].items():
+        assert torch.equal(got[1]["replicated"][k], v), k
+
+    def rel(a, b):
+        return (a.double() - b.double()).abs().max().item() / max(b.double().abs().max().item(), 1e-30)
+
+    for k, v in want["losses"][0].items():
+        assert abs(got[0]["losses"][0][k] - v) <= 1e-4 * max(abs(v), 1e-3), k
+    for k, v in picks64.items():
+        assert torch.equal(want["picks"][k], v), k  # the referee takes the card's discrete choices
+    held = [k for k in want["grads"] if not k.endswith("tcn.2.bias")]  # analytically zero
+    worst = max(rel(want["grads"][k], grads64[k]) for k in held)
+    for k in held:
+        gap, err = rel(got[0]["grads"][k], want["grads"][k]), rel(got[0]["grads"][k], grads64[k])
+        assert gap <= 1e-3 or err <= 3 * worst, (k, gap, err, worst)
+    for k, v in want["state"][0].items():
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(got[0]["state"][0][k], v, atol=1e-4, rtol=1e-4, msg=k)
+
+
 def test_eval_nn_loss_card_matches_cpu(cuda_device):
     """eval_nn_loss on the card and on the CPU, same inputs: the assignments
     exactly equal, each term within 1e-4 relative."""

@@ -1,6 +1,6 @@
 """Serving path of the port: parse against the JAX package, the demo runner
-and CLI on the CPU, the config keys every runner checks (``method``,
-``device.model_parallel``) or takes, the device policy of the entry points,
+and CLI on the CPU, the config keys every runner checks (``method``, the
+divisibility of ``device.model_parallel``) or takes, the device policy of the entry points,
 and the rule that the port imports neither JAX nor the JAX package."""
 
 import glob
@@ -194,14 +194,15 @@ def test_demo_finetune_load_is_partial(tmp_path, monkeypatch):
 ])
 @pytest.mark.parametrize("runner", ["demo", "test", "train"])
 def test_unported_keys_raise_in_every_runner(tmp_path, monkeypatch, section, runner):
-    """device.model_parallel, which the JAX package acts on, raises in every
-    runner instead of being ignored.  train.h2d_dtype and log.profile_steps
+    """device.model_parallel 2 in one process raises the divisibility
+    ValueError in every runner (JAX make_mesh asserts n % model_parallel ==
+    0; there is no fallback to tp 1).  train.h2d_dtype and log.profile_steps
     are ported: the demo and test runners ignore them, as the JAX package's
     do, and the train runner takes them (its profile window traces train
     steps [3, 3 + n) under the run dir)."""
     monkeypatch.chdir(tmp_path)  # the TensorBoard board writes to ./runs
     if "device" in section:
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="model_parallel 2 must divide the 1 processes"):
             _run_runner(tmp_path, runner, **section)
         return
     cfg, result = _run_runner(tmp_path, runner, **section)

@@ -269,12 +269,14 @@ def test_test_runner_matches_jax(tmp_path, split, weights, jax_outputs, remove_f
 
 def test_runner_unported_options_raise(tmp_path, split):
     """``multi_mode`` and ``eval_mesh_ap`` are ported (test_torch_multimode.py,
-    test_torch_voxels.py); the tensor-parallel mode still raises."""
+    test_torch_voxels.py), and so is the tensor-parallel mode
+    (test_torch_tp.py): in one process its degree 2 does not divide the
+    processes and raises, as JAX make_mesh asserts."""
     config = small_test_config(str(tmp_path), split, THRESHOLDS)
     config["device"]["model_parallel"] = 2
     cfg = CONFIG(config, mode="test")
     try:
-        with pytest.raises(NotImplementedError, match="model_parallel"):
+        with pytest.raises(ValueError, match="model_parallel 2 must divide the 1 processes"):
             test_runner.run(cfg, device="cpu")
     finally:
         cfg.close()

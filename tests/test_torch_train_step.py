@@ -4,8 +4,9 @@
 * AdamW + epoch MultiStepLR (+ global-norm clipping) against optax on
   identical gradients; the train options the JAX package acts on
   (``freeze``, ``optim_spec``, ``bnscheduler``, ``h2d_dtype``,
-  ``profile_steps``) accepted and acting, ``device.model_parallel`` raising
-  (tests/test_torch_train_options.py holds them against the JAX package);
+  ``profile_steps``) accepted and acting, ``device.model_parallel`` 2
+  raising in one process (tests/test_torch_train_options.py holds them
+  against the JAX package, tests/test_torch_tp.py the tensor-parallel mode);
 * one whole train step at the SMALL sizes against JAX ``make_train_step``'s
   loss and ``value_and_grad``, with the MDN noise taken from the JAX
   package's own rng streams: loss terms, gradients, updated running stats,
@@ -45,6 +46,7 @@ from pose2room_tpu_torch.data.dataset import P2RNetDataset, SceneDataset
 from pose2room_tpu_torch.data.loader import DataLoader
 from pose2room_tpu_torch.models.loss import detection_loss
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
+from pose2room_tpu_torch.parallel import make_grid, model_parallel_of
 from pose2room_tpu_torch.runners import common
 from pose2room_tpu_torch.train import state
 from pose2room_tpu_torch.train.step import GT_KEYS, batch_to_device, train_step
@@ -156,18 +158,20 @@ BNS = {"bn_momentum_init": 0.5, "bn_decay_rate": 0.5, "bn_decay_step": 20, "bn_m
     {"log": {"profile_steps": 3}},
 ])
 def test_unported_train_options_raise(section, tmp_path):
-    """Of these train options, which the JAX package acts on, only
-    device.model_parallel still raises in the port; each other one is
-    accepted and acts: freeze leaves the module out of every param group,
+    """Of these train options, which the JAX package acts on,
+    device.model_parallel 2 raises in one process (the divisibility
+    ValueError: 2 does not divide 1 process; tests/test_torch_tp.py runs it
+    on two); each other one is accepted and acts: freeze leaves the module
+    out of every param group,
     optim_spec gives its module its own lr (scheduled from its own base),
     bnscheduler sets every BatchNorm's momentum, h2d_dtype rounds the
     targets through float16 on the way to the device, and profile_steps
     traces its window of train steps."""
     if "device" in section:
-        with pytest.raises(NotImplementedError):
-            state.check_unported_keys(section)
+        with pytest.raises(ValueError, match="model_parallel 2 must divide the 1 processes"):
+            make_grid(model_parallel_of(section))
         return
-    state.check_unported_keys(section)
+    assert make_grid(model_parallel_of(section)) is None
     model = P2RNet(P2RNetConfig(**SMALL), device="cpu")
     freeze, specs = state.train_options(section)
     optimizer, base_lrs, _ = state.make_optimizer(model, {"lr": 1e-3}, freeze, specs)

@@ -1,4 +1,5 @@
-"""Ranks of the port's data-parallel CPU tests (tests/test_torch_ddp.py,
+"""Ranks of the port's data- and tensor-parallel CPU tests
+(tests/test_torch_ddp.py, tests/test_torch_tp.py,
 tests/test_torch_test_runner.py).
 
 ``Ranks(nprocs, inputs, tmpdir, device)`` starts ``nprocs`` processes
@@ -158,8 +159,9 @@ def train_run(inputs):
         datasets = {k: SceneDataset(v, num_frames=inputs["num_frames"], augment=False)
                     for k, v in inputs["scenes"].items()}
         model, history = train_runner.run(cfg, device="cpu", datasets=datasets)
-        return {"history": history, "save_path": cfg.save_path, "state": model.state_dict(),
-                "cwd": sorted(os.listdir("."))}
+        out = {"history": history, "save_path": cfg.save_path, "state": model.state_dict(),
+               "cwd": sorted(os.listdir("."))}
+        return dict(out, model=model) if inputs.get("keep_model") else out
     finally:
         cfg.close()
 
@@ -199,6 +201,135 @@ def ap_merge(inputs):
             "ranks": allgather_object(process_index())}
 
 
+def tp_steps(inputs):
+    """Two train steps under a (data, model) grid of degree ``inputs["tp"]``
+    on this model group's rows of the global batch and noise (its ranks'
+    strided rows in rank order), on the card with deterministic algorithms
+    (``inputs["device"]`` "cuda") or on the CPU in float64, for each train
+    path of ``inputs["paths"]`` (True: the fused chain): each step's
+    losses, the first step's gradients (reduced and gathered, before
+    clipping), the gathered state after each step, the shapes this rank
+    holds of each parameter and AdamW moment, its replicated tensors, its
+    bytes of parameters and moments, and the kernels' launches."""
+    from pose2room_tpu_torch import kernels
+    from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
+    from pose2room_tpu_torch.parallel import batch_shard, make_grid
+    from pose2room_tpu_torch.parallel.tensor import (
+        full_state_dict,
+        gather_state_dict,
+        shard_module_,
+        sharded_keys,
+        state_bytes,
+    )
+    from pose2room_tpu_torch.train.state import make_optimizer
+    from pose2room_tpu_torch.train.step import batch_to_device, train_step
+
+    grid = make_grid(inputs["tp"])
+    device = inputs.get("device", "cpu")
+    float64 = device == "cpu"
+    if not float64:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    n = process_count()
+    B = len(inputs["batch"]["input_joints"])
+    rows = [i for r in grid.model_ranks for i in range(B)[r::n]]
+    batch = batch_to_device({k: v[rows] for k, v in inputs["batch"].items()}, device)
+    eps = {k: torch.from_numpy(v[rows].copy()).to(device) for k, v in inputs["eps"].items()}
+    if float64:
+        batch = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+        eps = {k: v.double() for k, v in eps.items()}
+    out = {}
+    try:
+        for fused in inputs["paths"]:
+            model = P2RNet(P2RNetConfig(**inputs["sizes"], fused_train=fused), device=device)
+            model.load_state_dict(inputs["state_dict"])
+            if float64:
+                model.double()
+            optimizer, _, clip_norm = make_optimizer(model, inputs["optimizer"])
+            shard_module_(model, optimizer)
+            res = {"losses": [], "state": []}
+            kernels.reset_launch_counts()
+            for i in range(2):
+                step_losses, _ = train_step(wrap_model(model), optimizer, batch, eps=eps, clip_norm=clip_norm,
+                                            shard=batch_shard())
+                res["losses"].append({k: float(v) for k, v in step_losses.items()})
+                if i == 0:
+                    # clipped in place by g / norm * clip_norm: undo it
+                    scale = max(res["losses"][0]["grad_norm"] / clip_norm, 1.0) if clip_norm > 0 else 1.0
+                    grads = {k: p.grad * scale for k, p in model.named_parameters()}
+                    res["grads"] = {k: v.cpu() for k, v in gather_state_dict(grads, sharded_keys(model)).items()}
+                res["state"].append({k: v.detach().cpu().clone() for k, v in full_state_dict(model).items()})
+            if not float64:
+                torch.cuda.synchronize()
+            res["launches"] = dict(kernels.LAUNCHES)
+            res["shapes"] = {k: tuple(p.shape) for k, p in model.named_parameters()}
+            res["moment_shapes"] = {k: tuple(optimizer.state[p]["exp_avg"].shape) for k, p in model.named_parameters()
+                                    if p in optimizer.state}
+            sharded = set(sharded_keys(model))
+            res["replicated"] = {k: v.detach().cpu().clone() for k, v in model.state_dict().items() if k not in sharded}
+            res["bytes"] = state_bytes(model, optimizer)
+            out[fused] = res
+    finally:
+        make_grid(1)
+        if not float64:
+            torch.use_deterministic_algorithms(False)
+    return out
+
+
+def quiet_board(**_):
+    """A ``LogBoard`` that writes nothing: on this host the board's import
+    of tensorboard loads TensorFlow (~17 s a process), and the tests that
+    take it need no board."""
+    from pose2room_tpu_torch.utils.logger import LogBoard
+
+    return LogBoard(enabled=False)
+
+
+def tp_train_run(inputs):
+    """``train_run`` under the config's ``device.model_parallel``, with the
+    gathered final state and the sharded keys (and no board)."""
+    from pose2room_tpu_torch.parallel import make_grid
+    from pose2room_tpu_torch.parallel.tensor import full_state_dict, sharded_keys
+    from pose2room_tpu_torch.train import engine
+
+    engine.LogBoard = quiet_board
+    out = {}
+    try:
+        out = train_run(dict(inputs, keep_model=True))
+        model = out.pop("model")
+        out.update(full_state=full_state_dict(model), sharded=sharded_keys(model))
+    finally:
+        make_grid(1)
+    return out
+
+
+def demo_run(inputs):
+    """The demo runner on ``inputs["demo_path"]``: its results and the number
+    of dump writes this rank made."""
+    from pose2room_tpu_torch.config.loader import CONFIG
+    from pose2room_tpu_torch.parallel import make_grid
+    from pose2room_tpu_torch.runners import demo
+
+    writes = []
+
+    def counted(fn):
+        def wrapped(*args, **kwargs):
+            writes.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for name in ("dump_predictions", "write_ply_boxes", "write_ply_points"):
+        setattr(demo, name, counted(getattr(demo, name)))
+    cfg = CONFIG(inputs["config"], mode="demo")
+    try:
+        results = demo.run(cfg, device="cpu")
+        return {"results": [(os.path.basename(p), n) for p, _, n, _ in results], "writes": writes,
+                "vis_path": cfg.config["log"]["vis_path"]}
+    finally:
+        cfg.close()
+        make_grid(1)
+
+
 SCENARIOS = {"train_steps": train_steps, "card_steps": card_steps, "train_run": train_run, "train_run_lr": train_run,
-             "test_run": test_run, "ap_merge": ap_merge}
+             "test_run": test_run, "ap_merge": ap_merge, "tp_steps": tp_steps, "tp_train_run": tp_train_run,
+             "tp_test_run": test_run, "demo_run": demo_run}
 
