@@ -154,6 +154,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    one proposal's pooled feature); batch-1 request
    latency and B=1 / B=32 ``generate`` beside the f32 chain's, in turns; a
    profile of the B=32 bf16 ``generate``.
+8b. Generate batch sweep: ``generate`` at B = 64 and 128 in f32 and bf16,
+   dense and sparse_eval, on 128 rotations of the demo clip: 6 + 1
+   launches a call (6 more of kernel 5 on the sparse chain) at any B; the
+   rows against the B=32 calls on the batch's quarters (f32: indices equal,
+   the serving band on each proposal whose ball picks the same votes, at
+   least 0.99 of them; bf16: the band of 8); each B's CUDA-event time,
+   clips/s and peak memory beside the card's name and power limit.
 9. bf16 test phase: the test runner with ``compute_dtype: bfloat16`` and
    ``sparse_eval`` on the 8 synthetic scenes: 6 ``stgcn_sparse_bf16`` + 6
    ``stgcn_epilogue_bf16`` + 1 FPS launches per batch, finite metrics; the
@@ -211,11 +218,12 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    one-process runs (this batch order and another), running statistics
    within 1e-4.  After step 1 f32 runs that round differently part (ROADMAP
    section 3), so the card's later state is printed, not held; the update
-   through DDP is held in float64 instead: the two ranks run the same two
-   steps on the CPU in float64 (gloo), against this process's float64
-   steps at 8: step-1 gradients within 1e-8 of their max, losses within
-   1e-6 relative, parameters and running statistics after each step within
-   1e-5 of their max, both ranks bit-equal.  Then the train runner under the two ranks (1
+   through DDP is held in float64 instead: the two ranks run the first
+   step on the CPU in float64 (gloo; one step, to keep the script's time),
+   against this process's float64 step at 8: step-1
+   gradients within 1e-8 of their max, losses within 1e-6 relative,
+   parameters and running statistics after the step within 1e-5 of their
+   max, both ranks bit-equal.  Then the train runner under the two ranks (1
    epoch of 16 train and 8 val scenes, 4 a rank): 6 + 6 + 1 launches a
    train step and 6 + 1 a val step a rank, both ranks' final states bit-equal
    (at the config's lr), one run dir holding rank 0's files only, no board
@@ -223,9 +231,25 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    under the two ranks on 8 scenes (4 a rank; metre-sized boxes,
    remove_far_box off): 6 + 6 + 1 launches a batch a rank, every merged
    AP / recall within 1e-6 of this process's run, the merged mean losses
-   too, one out_config.yaml.  The backend of each run, the B=8 step times
-   of this process, (a) and (b) (CUDA events, median of 5), and the
-   collectives' host and device time a step from the profiler.
+   too, one out_config.yaml.  (a) also runs the two steps in bf16
+   (``compute_dtype: bfloat16``): bit-equal to this process's bf16 steps,
+   12 + 12 + 2 launches of the bf16 legs.  (d) bf16 under the two ranks of
+   (b): both ranks' states bit-equal after each step; step 1 against this
+   process's bf16 steps at 8 by the run-to-run spread of it and two runs on
+   the batch in other orders (ROADMAP section 3's bf16 rule: each gradient
+   within three times it, in relative L2, +1e-3; seeds equal; the vote loss and the running
+   statistics before FPS held, the other losses where every proposal
+   agrees); the bf16 train runner (launches, both ranks' states bit-equal,
+   f32 checkpoints); two sparse_eval bf16 test runs with ``multi_mode``
+   and mesh AP (the metre-box weights with the size head's sigmas at 0.05,
+   so that multi-mode boxes stay metre-sized for the voxelization), each
+   batch's noise recorded as its rank drew it, against
+   this process fed the ranks' salt, sample count and noise with the
+   scenes in the merge's order: every metric and the logged mAP within
+   1e-6, the max mAP and TMD over the two runs' dumps within 1e-6.  The
+   backend of each run, the B=8 step times of this process, (a) and (b)
+   (CUDA events, median of 5), and the collectives' host and device time a
+   step from the profiler.
 12. Data pipeline phase, recordings to pictures, in its own directory: a
    scene graph made here (an 8x3x8 m room, a sofa, a fridge, a tv and a
    desk, an apple to grab, a door) through stage 1
@@ -241,8 +265,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    ``generate_splits``' rule.  Then one train runner epoch at
    p2rnet_train.yaml's width, batch 8 (6 + 6 + 1 launches a train step,
    6 + 1 a val step, finite losses, model_final.pth), ``eval_nn_loss`` on
-   a val batch on the card and the CPU (same weights, batch and MDN noise:
-   assignments equal, each term within 1e-4 relative), the sparse_eval test
+   a val batch on the card and the CPU (same weights, batch and MDN noise;
+   the card's FPS picks equal ``fps_ref``'s on its votes, and the CPU runs
+   with them: assignments equal, each term within 1e-4 relative; on the
+   same end points within 1e-6), the sparse_eval test
    runner finetuned from model_final.pth on the held-out samples at batch 1
    (6 + 6 + 1 launches a batch, dumps, per-class AP), ``three_nn`` at B=8,
    1024 x 256 with repeated known points (indices equal on the card and the
@@ -263,8 +289,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (losses within 1e-4 relative, the gathered gradients in 11(b)'s per-leaf
    bands, running statistics within 1e-4); the replicated tensors
    (parameters, running statistics, moments) bit-equal on both ranks after
-   two steps.  (b) The same two steps in float64 on the ranks' CPUs against
-   phase 11's float64 steps at 8, in 11(b)'s float64 bands.  (c) World 4 at
+   two steps.  (b) The first step in float64 on the ranks' CPUs against
+   phase 11's float64 step at 8, in 11(b)'s float64 bands.  (c) World 4 at
    tp 2 (data 2 x model 2, 2 clips a rank), one step held as (a); ranks 0 /
    2 and 1 / 3 hold the same shards and moments bit for bit, the replicated
    tensors bit-equal on all four.  (d) Under world 2 at tp 2: the train
@@ -276,9 +302,17 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    to this process's; ``generate`` of the clip within the serving phase's
    band, seeds and proposals equal), a bf16 demo (6 ``stgcn_epilogue_bf16``
    + 1 FPS launches a rank; ``generate`` within the bf16 serving phase's
-   band of this process's).  The B=8 step a rank at world 2 and 4 beside
-   one process's (CUDA events, median of 5), the collectives' host time a
-   step (profiler).
+   band of this process's).  (e) bf16: world 2's two steps (the gathered
+   states and the replicated tensors bit-equal on both ranks) and world
+   4's step (shards equal across the data groups, replicas on all four)
+   held against phase 11's bf16 steps as 11(d); the bf16 train runner at tp
+   2 (gathered states bit-equal, equal to model_final.pth); two bf16
+   multi-mode and mesh-AP test runs at tp 2 against this process at batch 2
+   fed the group's draws, as 11(d) but in the bf16 test phase's AP band
+   (mAP and AR within 0.1, the TMD within 1e-2 of it): the half-width GEMMs
+   round otherwise than one process's on the card.  The B=8 step a rank at world 2 and 4
+   beside one process's (CUDA events, median of 5), the collectives' host
+   time a step (profiler).
 14. Prints the ``kernels`` JSON line (nine entries), the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -288,10 +322,12 @@ It needs a CUDA card and the repository around it.
 
 import ctypes
 import dataclasses
+import gc
 import glob
 import json
 import os
 import re
+import resource
 import signal
 import socket
 import subprocess
@@ -1313,6 +1349,97 @@ def bf16_serving_phase(workdir, smi):
     return launches
 
 
+SWEEP_BATCHES = (32, 64, 128)
+
+
+def cat_end_points(parts):
+    """``generate`` outputs of consecutive batches as one batch's, on the host."""
+    return {k: ({j: torch.cat([p[k][j].cpu() for p in parts]) for j in v} if isinstance(v, dict)
+                else torch.cat([p[k].cpu() for p in parts])) for k, v in parts[0].items() if v is not None}
+
+
+def same_balls(a, b, radius=0.3, nsample=16):
+    """(B, P) mask of the proposals whose ball query (ProposalNet's, over
+    the votes around the proposal centers) picks the same votes in two
+    ``generate`` outputs with the same proposals."""
+    balls = [sampling.ball_query(radius, ep["aggregated_vote_xyz"].cuda(), ep["vote_xyz"].cuda(), nsample).cpu()
+             for ep in (a, b)]
+    return (balls[0] == balls[1]).all(-1)
+
+
+def generate_gap_on(a, b, rows, what):
+    """``generate_gap`` with each proposal output held on ``rows`` (a (B, P)
+    mask) only: a vote within rounding of a ball's edge (d^2 = r^2) moves one
+    proposal's pooled feature, as the bf16 band allows."""
+    a, b = dict(a), dict(b)
+    for k in ("center", "size", "heading", "objectness_scores", "sem_cls_scores"):
+        a[k], b[k] = a[k].cpu()[rows], b[k].cpu()[rows]
+    a["pi"], b["pi"] = ({k: ep["pi"][k].cpu()[rows] for k in ep["pi"]} for ep in (a, b))
+    return generate_gap(a, b, what)
+
+
+def batch_sweep_phase(workdir, smi):
+    """``generate`` at B = 64 and 128 (the batches the JAX bench swept up
+    to) in f32 and bf16, dense and sparse_eval, on 128 rotations of the demo
+    clip: each batch's rows against the B=32 calls on its quarters (in f32
+    indices exact and floats within the serving band, each proposal's
+    outputs where its ball picks the same votes, at least 0.99 of them; the
+    bf16 band of ``bf16_generate_gap`` in bf16), 6 + 1 launches a call (6 more of kernel
+    5 on the sparse chain) at any B; each B's CUDA-event time, clips/s and
+    peak memory, records beside the card's name and power limit."""
+    clip = load_demo_clip(DEMO_CLIP, num_frames=768)
+    x = torch.from_numpy(np.stack([rotated_clip(clip, a) for a in
+                                   np.random.RandomState(2).uniform(0, 2 * np.pi, max(SWEEP_BATCHES))])).cuda()
+    for dtype in ("float32", "bfloat16"):
+        for sparse in (False, True):
+            config = read_to_dict(TEST_YAML)
+            config.update(finetune=False, seed=42)
+            config["model"].update(compute_dtype=dtype, sparse_eval=sparse)
+            config["log"]["path"] = os.path.join(workdir, "sweep")
+            cfg = CONFIG(config, mode="demo")
+            try:
+                model = common.build_model(cfg, device="cuda")
+            finally:
+                cfg.close()
+            folded = model.fold_eval()
+            name = f"{'bf16' if dtype == 'bfloat16' else 'f32'} {'sparse_eval' if sparse else 'dense'}"
+            leg = "_bf16" if dtype == "bfloat16" else ""
+            expect = {f"stgcn_epilogue{leg}": 6, "fps": 1, **({f"stgcn_sparse{leg}": 6} if sparse else {})}
+            quarters = [cat_end_points([model.generate(x[i:i + 32], folded=folded)])
+                        for i in range(0, max(SWEEP_BATCHES), 32)]
+            held = []
+            for B in SWEEP_BATCHES[1:]:
+                kernels.reset_launch_counts()
+                out = model.generate(x[:B], folded=folded)
+                torch.cuda.synchronize()
+                check(dict(kernels.LAUNCHES) == expect, f"{name} B={B}: launches {dict(kernels.LAUNCHES)} != {expect}")
+                ref = cat_end_points(quarters[:B // 32])
+                if dtype == "float32":
+                    out = {k: (v.cpu() if torch.is_tensor(v) else v) for k, v in out.items()}
+                    rows = same_balls(out, ref)
+                    check(rows.double().mean().item() >= 0.99, f"{name} B={B}: {int((~rows).sum())} balls differ")
+                    gaps = generate_gap_on(out, ref, rows, f"{name} B={B} vs B=32 calls")
+                    held.append(f"B={B} max |diff| {max(gaps.values()):.2e} on the {int(rows.sum())} of "
+                                f"{rows.numel()} proposals whose balls agree")
+                else:
+                    agree, gaps = bf16_generate_gap(out, ref, f"{name} B={B} vs B=32 calls")
+                    held.append(f"B={B} proposals agree {agree:.4f}")
+                check(all(bool(torch.isfinite(out[k].float()).all()) for k in ("center", "size", "heading")),
+                      f"{name} B={B}: outputs not finite")
+                del out
+            timed = []
+            for B in SWEEP_BATCHES:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(lambda: model.generate(x[:B], folded=folded), iters=3, warmup=1)
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                timed.append(f"B={B} {ms:.3f} ms, {B * 1e3 / ms:.1f} clips/s, peak {peak:.2f} GiB")
+            print(f"[{smi}] {name} generate batch sweep (CUDA events, means of 3): {'; '.join(timed)}; rows against "
+                  f"the B=32 calls: {'; '.join(held)}; launches a call {expect}")
+            del model, folded, quarters
+            torch.cuda.empty_cache()
+
+
 def scene_datasets(seed, n_train, n_val):
     """In-memory synthetic scenes through the loader's item path (no h5py):
     {"train": augmented, "val": not}."""
@@ -2095,14 +2222,23 @@ def test_config(workdir, **test_knobs):
     return config
 
 
-def metre_box_weights(cfg, path):
+def metre_box_weights(cfg, path, size_sigma=None):
     """The config's model on random weights from seed 42, with the size
     head's mixture means set so that its boxes are ~1.5 m wide (AP is then
-    not trivially 0), saved to ``path`` for ``finetune``.  Returns path."""
+    not trivially 0), saved to ``path`` for ``finetune``.  Returns path.
+
+    ``size_sigma``: the size head's mixture sigmas too, so that multi-mode
+    boxes stay metre-sized.  At the initial sigma of 1, a multi-mode log
+    size sums ~50 unit normals (std ~7, over sqrt(n) when averaged over n
+    samples), and at a small n some boxes are kilometres wide: mesh AP's
+    voxelization then needs memory in proportion to the box's volume
+    (ROADMAP §3)."""
     model = P2RNet(P2RNetConfig.from_cfg(cfg), device="cpu", generator=torch.Generator().manual_seed(42))
-    mu = model.detection.gmm_size.mdn.mu
+    mdn = model.detection.gmm_size.mdn
     with torch.no_grad():
-        mu.fill_(2 * np.log(1.5) / mu.shape[0])
+        mdn.mu.fill_(2 * np.log(1.5) / mdn.mu.shape[0])
+        if size_sigma is not None:
+            mdn.log_sigma.fill_(float(np.log(size_sigma)))
     torch.save({"net": model.state_dict()}, path)
     return path
 
@@ -2444,6 +2580,9 @@ def bf16_test_phase(workdir, smi):
 # ---------------------------------------------------------------------------
 
 DDP_STEPS = 2
+# the float64 referee's steps on the CPU: one, to keep the script's time
+# (the first AdamW update through DDP and through the grid is held)
+FLOAT64_STEPS = 1
 DDP_TIMED = 5
 DDP_BATCH = 8
 # profiler rows of the collectives: the backends' host ops (gloo:*, nccl:*) and NCCL's kernels
@@ -2570,7 +2709,7 @@ def float64_steps(cfg, items, tp=1):
     batch = {k: v.double() if v.is_floating_point() else v
              for k, v in batch_to_device(collate([items[i] for i in rows]), "cpu").items()}
     out = {"losses": [], "state": []}
-    for i in range(DDP_STEPS):
+    for i in range(FLOAT64_STEPS):
         eps = {k: v[rows].double() for k, v in model.mdn_eps(DDP_BATCH, torch.Generator().manual_seed(100 + i)).items()}
         losses, end_points = train_step(net, optimizer, batch, eps=eps, clip_norm=clip_norm)
         out["losses"].append({k: float(v) for k, v in losses.items()})
@@ -2663,6 +2802,29 @@ def ddp_worker(spec_path):
                     t0 = time.perf_counter()
                     out["steps64"] = float64_steps(cfg, items, tp=tp)
                     out["steps64"]["seconds"] = time.perf_counter() - t0
+                    release_host_memory()
+            finally:
+                cfg.close()
+        if spec.get("bf16_steps"):
+            cfg = CONFIG(bf16_config(ddp_config(spec["workdir"], "bf16_steps", batch)), mode="train")
+            try:
+                mount_external_config(cfg)
+                out["bf16_steps"] = ddp_steps(cfg, ddp_clips(), tp=tp, n_steps=spec.get("n_steps", DDP_STEPS))
+            finally:
+                cfg.close()
+        if spec.get("bf16_train_run"):
+            config = bf16_config(ddp_config(spec["workdir"], "bf16_train_run", batch))
+            config["device"]["model_parallel"] = tp
+            cfg = CONFIG(config, mode="train")
+            try:
+                out["bf16_train_run"] = ddp_train_run(cfg, scene_datasets(seed=3, n_train=16, n_val=8))
+            finally:
+                cfg.close()
+        for i in range(spec.get("bf16_test_runs", 0)):
+            config = sharded_test_config(os.path.join(spec["workdir"], f"bf16_test_run{i}"), spec["test_weights"], tp)
+            cfg = CONFIG(config, mode="test")
+            try:
+                out[f"bf16_test_run{i}"] = recorded_test_run(cfg, scene_datasets(seed=5, n_train=0, n_val=8)["val"])
             finally:
                 cfg.close()
         if spec.get("train_run"):
@@ -2688,9 +2850,31 @@ def ddp_worker(spec_path):
                 out[f"demo_{dtype}"] = ddp_demo_run(cfg)
             finally:
                 cfg.close()
+        out["host_gib"] = host_gib()
         torch.save(out, os.path.join(spec["workdir"], f"rank{rank}.pt"))
     finally:
         shutdown()
+
+
+def host_gib():
+    """(resident, peak resident) GiB of this process; the resident size is
+    nan where /proc/self/statm cannot be read."""
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20  # KiB on Linux
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30, peak
+    except (OSError, ValueError, IndexError):
+        return float("nan"), peak
+
+
+def release_host_memory():
+    """Collect garbage and hand the freed host heap back to the system (glibc
+    keeps it otherwise): the ranks launched next need tens of GiB of the
+    machine's host memory between them (the float64 steps at full width).
+    Returns this process's (resident, peak) GiB after."""
+    gc.collect()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+    return host_gib()
 
 
 def launch_ranks(nproc, spec, workdir, timeout=600):
@@ -2724,6 +2908,149 @@ def launch_ranks(nproc, spec, workdir, timeout=600):
     return results, groups, seconds
 
 
+def bf16_config(config):
+    """``config`` with ``model.compute_dtype: bfloat16``."""
+    config.setdefault("model", {})["compute_dtype"] = "bfloat16"
+    return config
+
+
+def sharded_test_config(workdir, weights, tp=1):
+    """The sparse_eval test config of the sharded bf16 test runs: multi-mode
+    with its dumps, mesh AP on 0.25 m voxels, the metre-box weights, at
+    tensor-parallel degree ``tp``."""
+    config = bf16_config(test_config(workdir, remove_far_box=False, multi_mode=True, eval_mesh_ap=True,
+                                     mesh_voxel_size=0.25))
+    config.update(finetune=True, weight=[weights])
+    config["generation"].update(dump_results=True, dump_threshold=0.05)
+    config["device"]["model_parallel"] = tp
+    return config
+
+
+def recorded_test_run(cfg, dataset):
+    """``ddp_test_run`` with each batch's multi-mode noise recorded as this
+    rank drew it (``runners.test.multi_mode_noise``), the drawn salt and
+    sample count, and the run's mAP scores in its log (the max-mAP inputs)."""
+    draw, noise = test_runner.multi_mode_noise, []
+
+    def recorded(*args):
+        drawn = draw(*args)
+        noise.append({k: tuple(t.cpu() for t in v) for k, v in drawn.items()})
+        return drawn
+
+    test_runner.multi_mode_noise = recorded
+    try:
+        out = ddp_test_run(cfg, dataset)
+    finally:
+        test_runner.multi_mode_noise = draw
+    return dict(out, noise=noise, salt=cfg.config["test"]["drawn_run_salt"], n_samples=cfg.test_summary["n_samples"],
+                scores=multi_modal.scrape_map_scores(cfg.save_path) if cfg.is_main_process else None)
+
+
+def replay_test_runs(name, runs, workdir, weights, order, batch, noise_of, exact=True):
+    """One process over the sharded runs' scenes (``order``: in the order
+    the merge lays the scans out) at ``batch``, fed each run's salt, sample
+    count and noise (``noise_of(run, it)``): the salt and count equal on
+    every rank, every metric (AP, recall, mAP, AR and the mesh twins) and
+    the logged mAP within 1e-6, and the max mAP and TMD over the runs'
+    dumps within 1e-6.  ``runs[rank][i]``.  Not ``exact`` (tensor parallel,
+    whose half-width GEMMs round otherwise than one process's on the card):
+    mAP and AR and their mesh twins within 0.1 (the bf16 test
+    phase's band: a vote at a ball's edge can move one class's AP a whole
+    step), the TMD within 1e-2 of its value, every gap printed."""
+    scenes = scene_datasets(seed=5, n_train=0, n_val=8)["val"]
+    dataset = SceneDataset([scenes.samples[i] for i in order], num_frames=T, augment=False)
+    draws, noise = test_runner.multi_mode_draws, test_runner.multi_mode_noise
+    shard_dirs, one_dirs, gap, held = [], [], 0.0, 0.0
+    summary = ("mAP", "AR", "mAP_mesh", "AR_mesh")
+    try:
+        for i, run in enumerate(runs[0]):
+            check(all((r[i]["salt"], r[i]["n_samples"]) == (run["salt"], run["n_samples"]) for r in runs),
+                  f"{name} run {i}: the ranks drew other salts or sample counts")
+            config = sharded_test_config(os.path.join(workdir, f"{name}_one{i}"), weights)
+            config["test"]["batch_size"] = batch
+            test_runner.multi_mode_draws = lambda path, seed, run=run: (run["salt"], run["n_samples"])
+            test_runner.multi_mode_noise = lambda model, it, *_, i=i: {
+                k: tuple(t.cuda() for t in v) for k, v in noise_of(i, it).items()}
+            cfg = CONFIG(config, mode="test")
+            try:
+                want = test_runner.run(cfg, dataset=dataset)
+                scores = multi_modal.scrape_map_scores(cfg.save_path)
+            finally:
+                cfg.close()
+            for r in runs:
+                for t, metrics in want.items():
+                    check(list(r[i]["metrics"][t]) == list(metrics), f"{name} run {i} AP@{t}: other keys")
+                    gap = max(gap, max(abs(r[i]["metrics"][t][k] - v) for k, v in metrics.items()))
+                    held = max(held, max(abs(r[i]["metrics"][t][k] - metrics[k]) for k in summary))
+            gap = max(gap, max(abs(a - b) for a, b in zip(runs[0][i]["scores"], scores)))
+            check(gap <= 1e-6 if exact else held <= 0.1,
+                  f"{name} run {i}: metrics differ from one process's by {gap} (mAP / AR {held})")
+            shard_dirs.append(run["save_path"])
+            one_dirs.append(cfg.save_path)
+    finally:
+        test_runner.multi_mode_draws, test_runner.multi_mode_noise = draws, noise
+    (got_max, got_tmd), (want_max, want_tmd) = (multi_modal.multi_modal_metrics(shard_dirs),
+                                                multi_modal.multi_modal_metrics(one_dirs))
+    max_gap, tmd_gap = float(np.abs(np.asarray(got_max) - np.asarray(want_max)).max()), abs(got_tmd - want_tmd)
+    check(max_gap <= 1e-6 and tmd_gap <= 1e-6 if exact else max_gap <= 0.1 and tmd_gap <= 1e-2 * want_tmd,
+          f"{name}: max mAP {got_max} / TMD {got_tmd} against one process's {want_max} / {want_tmd}")
+    m = want[0.25]
+    print(f"{name}: {len(runs[0])} multi-mode sparse bf16 test runs with mesh AP (n_samples "
+          f"{[r['n_samples'] for r in runs[0]]}, the same on every rank) against one process fed the ranks' draws: "
+          f"largest metric gap {gap:.2e} (mAP / AR {held:.2e}), max mAP gap {max_gap:.2e}, TMD gap {tmd_gap:.2e} "
+          f"({'within 1e-6' if exact else 'in the bf16 AP band'}); last run AP@0.25 mAP {m['mAP']:.6f} mAP_mesh "
+          f"{m['mAP_mesh']:.6f}; max mAP {[round(float(v), 6) for v in got_max]}, TMD {got_tmd:.6f}; launches per "
+          f"rank {runs[0][0]['launches']}")
+
+
+def hold_bf16_steps(name, got, single, perms, n_steps, rows):
+    """A sharded bf16 step against one process's at 8 (``single``), by the
+    run-to-run spread of one process's steps on the batch in other orders
+    (``perms``; ROADMAP §3's bf16 rule, as the CPU tests hold the sharded
+    step against JAX's by its own single-device and sharded steps): the
+    largest distance among those runs and ``single``.  Launches; seed
+    indices equal; each gradient (relative L2) within three times that
+    spread (+1e-3); the vote loss and the running statistics before FPS
+    within three times it (+2e-2); the loss terms after FPS too where every
+    proposal agrees.  ``rows``: the rows of the batch rank 0 holds, in its
+    order.  Returns the proposals' agreement and the largest gradient
+    ratio."""
+    per_step = {"stgcn_train_fwd_bf16": 6 * n_steps, "stgcn_train_bwd_bf16": 6 * n_steps, "fps": n_steps}
+    for r, g in enumerate(got):
+        check(g["launches"] == per_step, f"{name} rank {r} launches {g['launches']} != {per_step}")
+    g = got[0]
+    runs = [single, *perms]
+    pairs = [(a, b) for i, a in enumerate(runs) for b in runs[i + 1:]]
+    check(torch.equal(g["picks"]["seed_inds"], single["picks"]["seed_inds"][rows]), f"{name}: seed_inds differ")
+    agree = (g["picks"]["aggregated_vote_inds"] == single["picks"]["aggregated_vote_inds"][rows]).double().mean().item()
+    worst = 0.0
+    for k, v in single["grads"].items():
+        if k.endswith("tcn.2.bias"):
+            check(not g["grads"][k].any(), f"{name}: conv bias gradient {k} not 0")
+            continue
+        gap = relative_l2(g["grads"][k], v)
+        spread = max(relative_l2(a["grads"][k], b["grads"][k]) for a, b in pairs)
+        check(gap <= 3 * spread + 1e-3, f"{name}: gradient {k} relative L2 {gap}, the run-to-run spread {spread}")
+        worst = max(worst, gap / (3 * spread + 1e-3))
+    held = [k for k in single["losses"][0] if agree == 1 or k in PRE_FPS_LOSSES]
+    for k in held:
+        v = single["losses"][0][k]
+        slack = 2e-2 * abs(v) + (1.0 / single["picks"]["aggregated_vote_inds"].numel()
+                                 if k in ("pos_ratio", "neg_ratio", "obj_acc") else 0.0)
+        band = 3 * max(abs(a["losses"][0][k] - b["losses"][0][k]) for a, b in pairs) + slack
+        check(abs(g["losses"][0][k] - v) <= band, f"{name}: loss {k} {g['losses'][0][k]} vs {v}, band {band}")
+    for k, v in single["state"][0].items():
+        if k.endswith(("running_mean", "running_var")) and k.startswith(PRE_FPS_STATS):
+            gap = relative_gap(g["state"][0][k], v)
+            spread = max(relative_gap(a["state"][0][k], b["state"][0][k]) for a, b in pairs)
+            check(gap <= 3 * spread + 2e-2, f"{name}: running statistic {k} {gap} of its max, spread {spread}")
+    print(f"{name}: step 1 against one process at {DDP_BATCH} (bf16): seeds equal, proposals agree {agree:.4f}; "
+          f"gradients within three times the spread of {len(runs)} one-process runs in other batch orders "
+          f"(largest share of its band {worst:.3f}); {', '.join(held)} and the running statistics before FPS held; "
+          f"launches per rank {g['launches']}")
+    return agree, worst
+
+
 def ddp_phase(workdir, smi):
     """(a) world 1 on NCCL against the same steps in this process, bit for
     bit; (b) world 2 on gloo, both ranks on the one card, 4 + 4 against the
@@ -2742,10 +3069,17 @@ def ddp_phase(workdir, smi):
             seconds64 = time.perf_counter() - t0
         finally:
             cfg.close()
+        cfg = CONFIG(bf16_config(ddp_config(workdir, "single_bf16", DDP_BATCH)), mode="train")
+        try:
+            mount_external_config(cfg)
+            single_bf16 = ddp_steps(cfg, items)
+            perm_bf16 = [ddp_steps(cfg, items, perm=p) for p in ([3, 6, 0, 5, 2, 7, 4, 1], [6, 1, 4, 7, 0, 3, 2, 5])]
+        finally:
+            cfg.close()
         test_cfg = CONFIG(test_config(os.path.join(workdir, "single_test"), remove_far_box=False), mode="test")
         try:
             mount_external_config(test_cfg)
-            weights = metre_box_weights(test_cfg, os.path.join(workdir, "ddp_test_weights.pth"))
+            weights = metre_box_weights(test_cfg, os.path.join(workdir, "ddp_test_weights.pth"), size_sigma=0.05)
             test_cfg.config.update(finetune=True, weight=[weights])
             test_dataset = scene_datasets(seed=5, n_train=0, n_val=8)["val"]
             single_metrics = test_runner.run(test_cfg, dataset=test_dataset)
@@ -2759,7 +3093,8 @@ def ddp_phase(workdir, smi):
     check(single["launches"] == per_step, f"single-process steps: launches {single['launches']} != {per_step}")
 
     # (a) world 1, NCCL: bit-equal to the same steps in this process
-    (one,), groups, seconds_a = launch_ranks(1, {"steps": True}, os.path.join(workdir, "world1"))
+    parent_gib = release_host_memory()
+    (one,), groups, seconds_a = launch_ranks(1, {"steps": True, "bf16_steps": True}, os.path.join(workdir, "world1"))
     print(f"(a) world 1 ({seconds_a:.1f} s with start-up): {'; '.join(groups)}")
     check(one["backend"] == "nccl", f"world 1 on one card ran on {one['backend']}, not nccl")
     a = one["steps"]
@@ -2774,10 +3109,27 @@ def ddp_phase(workdir, smi):
     print(f"(a) world 1 on NCCL vs one process, deterministic algorithms: losses, step-1 gradients, "
           f"parameters and running statistics after each of {DDP_STEPS} steps bit-equal; "
           f"launches {a['launches']}")
+    a16 = one["bf16_steps"]
+    per_step16 = {"stgcn_train_fwd_bf16": 6 * DDP_STEPS, "stgcn_train_bwd_bf16": 6 * DDP_STEPS, "fps": DDP_STEPS}
+    check(single_bf16["launches"] == a16["launches"] == per_step16,
+          f"(a) bf16 launches {a16['launches']} / one process {single_bf16['launches']} != {per_step16}")
+    for i in range(DDP_STEPS):
+        check(a16["losses"][i] == single_bf16["losses"][i], f"(a) bf16 step {i + 1} losses differ")
+        same, gap = tree_gap(a16["state"][i], single_bf16["state"][i])
+        check(same, f"(a) bf16 state after step {i + 1} differs from one process's by up to {gap}")
+    same, gap = tree_gap(a16["grads"], single_bf16["grads"])
+    check(same, f"(a) bf16 step-1 gradients differ from one process's by up to {gap}")
+    print(f"(a) bf16 (compute_dtype bfloat16) world 1 on NCCL vs one process: losses, step-1 gradients, parameters "
+          f"and running statistics after each of {DDP_STEPS} steps bit-equal; launches {a16['launches']}")
 
     # (b) + (c) world 2, gloo, both ranks on card 0
-    spec = {"steps": True, "steps64": True, "train_run": True, "test_run": True, "test_weights": weights}
+    spec = {"steps": True, "steps64": True, "train_run": True, "test_run": True, "test_weights": weights,
+            "bf16_steps": True, "bf16_train_run": True, "bf16_test_runs": 2}
+    release_host_memory()
     ranks, groups, seconds_b = launch_ranks(2, spec, os.path.join(workdir, "world2"))
+    print(f"host memory (GiB, resident / peak): this process {parent_gib[0]:.2f} / {parent_gib[1]:.2f} before the "
+          f"launches; world 2's ranks at their end " + ", ".join(f"{r['host_gib'][0]:.2f} / {r['host_gib'][1]:.2f}"
+                                                           for r in ranks))
     print(f"(b, c) world 2 ({seconds_b:.1f} s with start-up): {'; '.join(groups)}")
     check([r["backend"] for r in ranks] == ["gloo", "gloo"] and [r["card"] for r in ranks] == [0, 0],
           f"world 2 on one card: backends {[r['backend'] for r in ranks]}, cards {[r['card'] for r in ranks]}")
@@ -2836,22 +3188,23 @@ def ddp_phase(workdir, smi):
 
     # (b) the same steps in float64 on the CPU under the two ranks
     w64 = [r["steps64"] for r in ranks]
-    for i in range(DDP_STEPS):
+    for i in range(FLOAT64_STEPS):
         same, gap = tree_gap(w64[0]["state"][i], w64[1]["state"][i])
         check(same, f"(b) float64: the two ranks' states after step {i + 1} differ by up to {gap}")
     grad64_gap = max(relative_gap(w64[0]["grads"][k], v) for k, v in grads64.items())
     check(grad64_gap <= 1e-8, f"(b) float64 step-1 gradients {grad64_gap} of max|g| from one process's")
     loss64_gap = max(abs(w64[0]["losses"][i][k] - v) / max(abs(v), 1.0)
-                     for i in range(DDP_STEPS) for k, v in single64["losses"][i].items())
+                     for i in range(FLOAT64_STEPS) for k, v in single64["losses"][i].items())
     check(loss64_gap <= 1e-6, f"(b) float64 losses differ by {loss64_gap} relative")
     state64_gap = []
-    for i in range(DDP_STEPS):
+    for i in range(FLOAT64_STEPS):
         for k, v in single64["state"][i].items():
             if v.is_floating_point():
                 gap = relative_gap(w64[0]["state"][i][k], v)
                 check(gap <= 1e-5, f"(b) float64 {k} after step {i + 1}: {gap} of its max from one process's")
                 state64_gap.append(gap)
-    print(f"(b) the same {DDP_STEPS} steps in float64 on the CPU, 2 gloo ranks of 4 ({w64[0]['seconds']:.1f} s) vs "
+    print(f"(b) the same {FLOAT64_STEPS} step(s) in float64 on the CPU, 2 gloo ranks of 4 "
+          f"({w64[0]['seconds']:.1f} s) vs "
           f"one process at 8 ({seconds64:.1f} s): step-1 gradients max gap {grad64_gap:.2e} of max|g|, losses "
           f"{loss64_gap:.2e} relative, parameters and running statistics after each step {max(state64_gap):.2e} "
           f"of their max; both ranks' states bit-equal")
@@ -2897,6 +3250,35 @@ def ddp_phase(workdir, smi):
           f"within 1e-6, merged mean losses too; one out_config.yaml; launches per rank {tests[0]['launches']}; "
           f"rank 0 per-batch time {', '.join(f'{t:.3f}' for t in batch_ms)} ms")
 
+    # (d) bf16 under the two ranks: the steps, the train runner, the sharded multi-mode test runs
+    b16 = [r["bf16_steps"] for r in ranks]
+    for i in range(DDP_STEPS):
+        same, gap = tree_gap(b16[0]["state"][i], b16[1]["state"][i])
+        check(same, f"(d) bf16: the two ranks' states after step {i + 1} differ by up to {gap}")
+    hold_bf16_steps("(d) bf16 world 2 on gloo (4 + 4)", b16, single_bf16, perm_bf16, DDP_STEPS, list(range(0, 8, 2)))
+    runs16 = [r["bf16_train_run"] for r in ranks]
+    expect = {"stgcn_train_fwd_bf16": 6 * 2, "stgcn_train_bwd_bf16": 6 * 2, "stgcn_epilogue_bf16": 6 * 1, "fps": 2 + 1}
+    for r, run in enumerate(runs16):
+        check(run["launches"] == expect, f"(d) bf16 train run rank {r} launches {run['launches']} != {expect}")
+        for phase in ("train", "val"):
+            check(all(np.isfinite(v) for v in run["history"][0][phase].values()), f"(d) bf16 rank {r} {phase} losses")
+    check(runs16[0]["history"] == runs16[1]["history"], "(d) bf16: the ranks logged different mean losses")
+    same, gap = tree_gap(runs16[0]["state"], runs16[1]["state"])
+    check(same, f"(d) bf16: after the train runner's epoch the two ranks' states differ by up to {gap}")
+    final = load_ckpt(runs16[0]["save_path"], "final")["net"]
+    check(all(v.dtype != BF16 for v in final.values()), "(d) bf16 model_final.pth holds bf16 tensors")
+    print(f"(d) bf16 train runner, 2 ranks of 4, 1 epoch: launches per rank {runs16[0]['launches']}; both ranks' "
+          f"final states bit-equal, f32 in model_final.pth; mean train total "
+          f"{runs16[0]['history'][0]['train']['total']:.5f}, val total {runs16[0]['history'][0]['val']['total']:.5f}")
+    expect = {"stgcn_sparse_bf16": 6 * 4, "stgcn_epilogue_bf16": 6 * 4, "fps": 4}
+    test16 = [[r[f"bf16_test_run{i}"] for i in range(2)] for r in ranks]
+    for r, runs in enumerate(test16):
+        for run in runs:
+            check(run["launches"] == expect, f"(d) bf16 test run rank {r} launches {run['launches']} != {expect}")
+    # the merge lays the scans out rank by rank: rank 0's scenes 0, 2, 4, 6, then rank 1's
+    replay_test_runs("(d) bf16 sharded test runs, world 2", test16, workdir, weights, [0, 2, 4, 6, 1, 3, 5, 7], 1,
+                     lambda i, it: test16[it // 4][i]["noise"][it % 4])
+
     # step times, in this call
     med = lambda t: float(np.median(t))  # noqa: E731
     print(f"[{smi}] B=8 train step (CUDA events, median of {DDP_TIMED}, deterministic algorithms): one process "
@@ -2911,7 +3293,7 @@ def ddp_phase(workdir, smi):
             print(f"  {ms:9.3f} ms  x{count:<5.1f} {key}")
     # the one-process runs the tensor-parallel phase holds its ranks against
     return {"single": single, "perm": perm, "single64": single64, "seconds64": seconds64, "ref_err": ref_err,
-            "weights": weights}
+            "weights": weights, "single_bf16": single_bf16, "perm_bf16": perm_bf16}
 
 
 # ---------------------------------------------------------------------------
@@ -3022,8 +3404,13 @@ def tp_phase(workdir, smi, refs):
 
     # (a), (b), (d): world 2, one model group
     spec = {"tp": TP, "steps": True, "steps64": True, "train_run": True, "test_run": True,
-            "test_weights": refs["weights"], "demo": ["float32", "bfloat16"]}
+            "test_weights": refs["weights"], "demo": ["float32", "bfloat16"], "bf16_steps": True,
+            "bf16_train_run": True, "bf16_test_runs": 2}
+    parent_gib = release_host_memory()
     ranks, groups, seconds = launch_ranks(2, spec, os.path.join(workdir, "tp_world2"))
+    print(f"host memory (GiB, resident / peak): this process {parent_gib[0]:.2f} / {parent_gib[1]:.2f} before the "
+          f"launch; the ranks at their end " + ", ".join(f"{r['host_gib'][0]:.2f} / {r['host_gib'][1]:.2f}"
+                                                       for r in ranks))
     print(f"(a, b, d) world 2 at tp {TP} ({seconds:.1f} s with start-up): {'; '.join(groups)}")
     check([r["backend"] for r in ranks] == ["gloo", "gloo"] and [r["card"] for r in ranks] == [0, 0],
           f"world 2 on one card: backends {[r['backend'] for r in ranks]}, cards {[r['card'] for r in ranks]}")
@@ -3041,10 +3428,10 @@ def tp_phase(workdir, smi, refs):
     grad64_gap = max(relative_gap(w64[0]["grads"][k], v) for k, v in single64["grads"].items())
     check(grad64_gap <= 1e-8, f"(b) float64 step-1 gradients {grad64_gap} of max|g| from one process's")
     loss64_gap = max(abs(w64[0]["losses"][i][k] - v) / max(abs(v), 1.0)
-                     for i in range(DDP_STEPS) for k, v in single64["losses"][i].items())
+                     for i in range(FLOAT64_STEPS) for k, v in single64["losses"][i].items())
     check(loss64_gap <= 1e-6, f"(b) float64 losses differ by {loss64_gap} relative")
     state64_gap = []
-    for i in range(DDP_STEPS):
+    for i in range(FLOAT64_STEPS):
         same, gap = tree_gap(w64[0]["state"][i], w64[1]["state"][i])
         check(same, f"(b) float64: the two ranks' states after step {i + 1} differ by up to {gap}")
         for k, v in single64["state"][i].items():
@@ -3052,14 +3439,16 @@ def tp_phase(workdir, smi, refs):
                 gap = relative_gap(w64[0]["state"][i][k], v)
                 check(gap <= 1e-5, f"(b) float64 {k} after step {i + 1}: {gap} of its max from one process's")
                 state64_gap.append(gap)
-    print(f"(b) the same {DDP_STEPS} steps in float64 on the CPU, world 2 at tp 2 ({w64[0]['seconds']:.1f} s) vs one "
+    print(f"(b) the same {FLOAT64_STEPS} step(s) in float64 on the CPU, world 2 at tp 2 "
+          f"({w64[0]['seconds']:.1f} s) vs one "
           f"process at 8 ({refs['seconds64']:.1f} s): step-1 gradients max gap {grad64_gap:.2e} of max|g|, losses "
           f"{loss64_gap:.2e} relative, parameters and running statistics after each step {max(state64_gap):.2e} of "
           f"their max; both ranks' gathered states bit-equal")
 
     # (c) world 4: data 2 x model 2
-    four, groups, seconds4 = launch_ranks(4, {"tp": TP, "steps": True, "n_steps": 1, "profile": False},
-                                          os.path.join(workdir, "tp_world4"))
+    release_host_memory()
+    four, groups, seconds4 = launch_ranks(4, {"tp": TP, "steps": True, "n_steps": 1, "profile": False,
+                                              "bf16_steps": True}, os.path.join(workdir, "tp_world4"))
     print(f"(c) world 4 at tp {TP} ({seconds4:.1f} s with start-up): {'; '.join(groups)}")
     c = [r["steps"] for r in four]
     hold_tp_steps("(c) world 4, tp 2 (data 2 x model 2)", c, refs, 1)
@@ -3138,6 +3527,53 @@ def tp_phase(workdir, smi, refs):
                                     "(d) bf16 demo at tp 2 vs one process")
     print(f"(d) bf16 demo, world 2 at tp 2: launches per rank {bf[0]['launches']}; generate against one process's "
           f"bf16 generate: proposals agree {agree:.4f}; max |diff| / max: " + json.dumps(gaps))
+
+    # (e) bf16 at tp 2: world 2's steps, world 4's step, the train runner, the sharded test runs
+    e = [r["bf16_steps"] for r in ranks]
+    for i in range(DDP_STEPS):
+        same, gap = tree_gap(e[0]["state"][i], e[1]["state"][i])
+        check(same, f"(e) bf16: the two ranks' gathered states after step {i + 1} differ by up to {gap}")
+    same, differ = replicated_equal([g["own"] for g in e], [0, 1], e[0]["sharded"])
+    check(same and len(e[0]["sharded"]) == 22, f"(e) bf16: replicated tensors differ between the ranks: {differ[:5]}")
+    hold_bf16_steps("(e) bf16 world 2 at tp 2", e, refs["single_bf16"], refs["perm_bf16"], DDP_STEPS,
+                    [0, 2, 4, 6, 1, 3, 5, 7])
+    e4 = [r["bf16_steps"] for r in four]
+    owns = [g["own"] for g in e4]
+    for m in range(TP):
+        differ = [k for k in owns[m] if k.split("/")[0] in e4[0]["sharded"] and not torch.equal(owns[m][k],
+                                                                                              owns[m + TP][k])]
+        check(not differ, f"(e) bf16 world 4: shard {m} differs between ranks {m} and {m + TP}: {differ[:5]}")
+    same, differ = replicated_equal(owns, [0, 1, 2, 3], e4[0]["sharded"])
+    check(same, f"(e) bf16 world 4: replicated tensors differ across the four ranks: {differ[:5]}")
+    hold_bf16_steps("(e) bf16 world 4 at tp 2 (data 2 x model 2)", e4, refs["single_bf16"], refs["perm_bf16"], 1,
+                    [0, 4, 1, 5])
+    print("(e) bf16: after two steps at world 2 the replicated tensors (AdamW moments included) bit-equal on both "
+          "ranks; after world 4's step ranks 0 / 2 and 1 / 3 hold the same shards bit for bit, the replicated "
+          "tensors bit-equal on all four")
+    runs16 = [r["bf16_train_run"] for r in ranks]
+    expect = {"stgcn_train_fwd_bf16": 6 * 2, "stgcn_train_bwd_bf16": 6 * 2, "stgcn_epilogue_bf16": 6 * 1, "fps": 2 + 1}
+    for r, run in enumerate(runs16):
+        check(run["launches"] == expect, f"(e) bf16 train run rank {r} launches {run['launches']} != {expect}")
+        for phase in ("train", "val"):
+            check(all(np.isfinite(v) for v in run["history"][0][phase].values()), f"(e) bf16 rank {r} {phase} losses")
+    same, gap = tree_gap(runs16[0]["state"], runs16[1]["state"])
+    check(same and runs16[0]["history"] == runs16[1]["history"],
+          f"(e) bf16 train runner: the ranks' gathered states differ by up to {gap}, or their histories")
+    final = load_ckpt(runs16[0]["save_path"], "final")["net"]
+    same, gap = tree_gap(final, runs16[0]["state"])
+    check(same and all(v.dtype != BF16 for v in final.values()), f"(e) bf16 model_final.pth differs by {gap}")
+    print(f"(e) bf16 train runner, world 2 at tp 2, 1 epoch: launches per rank {runs16[0]['launches']}; gathered "
+          f"states bit-equal on both ranks and in model_final.pth (f32); mean train total "
+          f"{runs16[0]['history'][0]['train']['total']:.5f}")
+    expect = {"stgcn_sparse_bf16": 6 * 4, "stgcn_epilogue_bf16": 6 * 4, "fps": 4}
+    test16 = [[r[f"bf16_test_run{i}"] for i in range(2)] for r in ranks]
+    for i in range(2):
+        for r in range(2):
+            check(test16[r][i]["launches"] == expect, f"(e) bf16 test run rank {r} launches {test16[r][i]['launches']}")
+        check(all(torch.equal(x, y) for a, b in zip(test16[0][i]["noise"], test16[1][i]["noise"]) for k in a
+                  for x, y in zip(a[k], b[k])), f"(e) bf16 test run {i}: the group's ranks drew other noise")
+    replay_test_runs("(e) bf16 sharded test runs, world 2 at tp 2", test16, workdir, refs["weights"], list(range(8)),
+                     TP, lambda i, it: test16[0][i]["noise"][it], exact=False)
 
     med = lambda t: float(np.median(t))  # noqa: E731
     c_ms = ", ".join(f"{med(g['step_ms']):.3f}" for g in c)
@@ -3357,32 +3793,71 @@ def pipeline_train(root, samples, split, device, has_h5py):
 
 
 def pipeline_eval_nn_loss(run_dir, model_cfg, samples, names, device):
-    """eval_nn_loss on one val batch, on the card and on the CPU: the same
-    trained weights, batch and MDN noise; the assignments exactly equal,
-    each term within 1e-4 relative."""
+    """eval_nn_loss on one val batch of the trained weights, card against CPU.
+
+    The forward: the same weights, batch and MDN noise on both; the votes
+    within 1e-5, the card's FPS picks equal to ``fps_ref``'s on the card's own
+    votes, and the CPU forward run with the card's picks gives the same
+    assignments and each eval_nn_loss term within 1e-4 relative.  (The
+    trained votes meet FPS near ties that a last-bit difference in the votes
+    breaks the other way, so FPS on each device's own votes can part on many
+    picks: ROADMAP section 3.)  The loss alone: eval_nn_loss of the card's end
+    points on the card and on a CPU copy, the same assignments and each term
+    within 1e-6 relative."""
     from pose2room_tpu_torch.datagen.samples import stored_sample
+    from pose2room_tpu_torch.models import proposal
     from pose2room_tpu_torch.models.loss import eval_nn_assignment, eval_nn_loss
 
     state = torch.load(os.path.join(run_dir, "model_final.pth"), map_location="cpu", weights_only=True)["net"]
     dataset = SceneDataset([stored_sample(samples[n]) for n in names[:8]], num_frames=T)
     batch = collate([dataset[i] for i in range(len(dataset))])
-    results = []
-    for dev in (device, "cpu"):
+
+    def forward(dev):
         model = P2RNet(model_cfg, device=dev)
         model.load_state_dict(state)
         model.eval()
         inputs = batch_to_device(batch, dev)
         with torch.no_grad():
             eps = model.mdn_eps(len(dataset), torch.Generator().manual_seed(3))
-            end_points = model(inputs["input_joints"], eps=eps)
-            results.append((eval_nn_loss(end_points, inputs), eval_nn_assignment(end_points, inputs)[1].cpu()))
-    (got, got_a), (want, want_a) = results
+            return model(inputs["input_joints"], eps=eps), inputs
+
+    def loss_and_assignment(end_points, inputs):
+        with torch.no_grad():
+            return eval_nn_loss(end_points, inputs), eval_nn_assignment(end_points, inputs)[1].cpu()
+
+    def gaps(got, want):
+        return {k: abs(got[k].item() - v.item()) / max(abs(v.item()), 1e-6) for k, v in want.items()}
+
+    card_points, card_inputs = forward(device)
+    picks = card_points["aggregated_vote_inds"].cpu()
+    card_votes = card_points["vote_xyz"].cpu()
+    check(torch.equal(sampling.fps_ref(card_votes, picks.shape[1]).sort(dim=1).values, picks),
+          "eval_nn_loss: the card's FPS picks differ from fps_ref's on the card's own votes")
+    own_fps = proposal.furthest_point_sample
+    proposal.furthest_point_sample = lambda xyz, npoint: picks
+    try:
+        cpu_points, cpu_inputs = forward("cpu")
+    finally:
+        proposal.furthest_point_sample = own_fps
+    vote_gap = (card_votes - cpu_points["vote_xyz"]).abs().max().item()
+    check(vote_gap <= 1e-5, f"eval_nn_loss: card and CPU votes {vote_gap:.3e} apart")
+    parted = int((sampling.fps_ref(cpu_points["vote_xyz"], picks.shape[1]).sort(dim=1).values != picks).sum())
+
+    got, got_a = loss_and_assignment(card_points, card_inputs)
+    want, want_a = loss_and_assignment(cpu_points, cpu_inputs)
     check(torch.equal(got_a, want_a), "eval_nn_loss: card and CPU assign other GT boxes")
-    gaps = {k: abs(got[k].item() - v.item()) / max(abs(v.item()), 1e-6) for k, v in want.items()}
-    check(all(g <= 1e-4 for g in gaps.values()), f"eval_nn_loss card vs CPU relative gaps {gaps}")
+    forward_gaps = gaps(got, want)
+    check(all(g <= 1e-4 for g in forward_gaps.values()), f"eval_nn_loss card vs CPU relative gaps {forward_gaps}")
+    copied = {k: v.cpu() if torch.is_tensor(v) else v for k, v in card_points.items()}
+    same, same_a = loss_and_assignment(copied, cpu_inputs)
+    check(torch.equal(got_a, same_a), "eval_nn_loss on the same end points: card and CPU assign other GT boxes")
+    loss_gaps = gaps(got, same)
+    check(all(g <= 1e-6 for g in loss_gaps.values()), f"eval_nn_loss on the same end points: relative gaps {loss_gaps}")
     print(f"  eval_nn_loss on a val batch of {len(dataset)}: card "
           + json.dumps({k: round(v.item(), 6) for k, v in got.items()})
-          + f"; assignments equal, max relative gap to the CPU {max(gaps.values()):.2e}")
+          + f"; votes {vote_gap:.2e} apart, FPS on the CPU's own votes parts on {parted} of {picks.numel()} picks; "
+          f"with the card's picks: assignments equal, max relative gap to the CPU {max(forward_gaps.values()):.2e}; "
+          f"on the same end points {max(loss_gaps.values()):.2e}")
 
 
 def pipeline_test(root, samples, split, weights, device, has_h5py):
@@ -3559,6 +4034,9 @@ def main():
         t0 = time.perf_counter()
         bf16_launches = bf16_serving_phase(workdir, smi)
         print(f"bf16 serving phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        batch_sweep_phase(workdir, smi)
+        print(f"generate batch sweep phase {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         bf16_test_launches = bf16_test_phase(workdir, smi)
         print(f"bf16 test phase {time.perf_counter() - t0:.1f} s")

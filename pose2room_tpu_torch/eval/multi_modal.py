@@ -46,9 +46,12 @@ def _entropy(freq):
 
 
 def scrape_map_scores(run_dir):
-    """All ``eval mAP: <x>`` values from a run's log.txt (one per threshold)."""
+    r"""All ``eval mAP: <x>`` values from a run's log.txt (one per threshold).
+    The runner logs Python's repr, so an mAP below 1e-4 reads
+    ``9.137427e-05``: the whole number is taken (JAX eval/multi_modal.py's
+    ``\d+\.\d+`` takes 9.137427 of it)."""
     with open(os.path.join(run_dir, "log.txt")) as f:
-        return [float(s) for s in re.findall(r"eval mAP: (\d+\.\d+)", f.read())]
+        return [float(s) for s in re.findall(r"eval mAP: (\S+)", f.read())]
 
 
 def multi_modal_metrics(run_dirs):

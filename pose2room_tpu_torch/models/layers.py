@@ -73,8 +73,16 @@ def column_parallel_dense(x, kernel, bias=None, dtype=None):
     """``dense`` on a tensor-parallel rank whose ``kernel`` (in, out / tp)
     is its block of the output columns (parallel/tensor.py): the rank's
     block, with its block of the bias, from the whole input, as one process
-    computes those columns, then gathered over the model group."""
-    return gather_out(dense(copy_in(x), kernel, bias_block(bias), dtype))
+    computes those columns, then gathered over the model group.  With a
+    compute ``dtype`` the group sums the ranks' f32 products for the input
+    gradient before its one rounding to bf16, as one process's product
+    rounds once (and as JAX's lowered tensor-parallel layer sums them on the
+    CPU: an all-reduce promoted to f32)."""
+    if dtype is None:
+        return gather_out(dense(copy_in(x), kernel, bias_block(bias)))
+    y = torch.matmul(copy_in(x.to(dtype).float()), kernel.to(dtype).float()).to(dtype)
+    bias = bias_block(bias)
+    return gather_out(y if bias is None else y + bias.to(dtype))
 
 
 def linear(x, lin, dtype=None):

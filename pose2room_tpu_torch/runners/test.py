@@ -21,12 +21,15 @@ test set (its losses over its own batches, as JAX runners/test.py computes
 them), then the loss recorder's sums and the AP calculators' scans are
 merged across processes before the metrics (JAX runners/test.py:226-231);
 the seeds of the run's generators take the rank (``parallel.fold_rank``),
-as JAX folds ``process_index`` into its key; rank 0 alone logs, writes and
-dumps (its shard's batches).  Tensor parallel (``device.model_parallel``):
-each model group evaluates its ranks' batches gathered in rank order
+as JAX folds ``process_index`` into its key; rank 0 alone logs and writes,
+and every process dumps its own batches into rank 0's run dir, so a
+sharded run's dumps (``generation.dump_results``, the multi-modal TMD's
+input) cover the test set as one process's do (JAX's main process dumps
+its shard only).  Tensor parallel (``device.model_parallel``): each model
+group evaluates its ranks' batches gathered in rank order
 (``parallel.gather_batch``), the generators take the group's data index,
-and the merges run over the data group, so each group's scans and losses
-count once.
+the merges run over the data group, so each group's scans and losses count
+once, and the group's first rank dumps its batches.
 """
 
 import os
@@ -49,7 +52,7 @@ from pose2room_tpu_torch.eval.parse import (
     parse_predictions_device,
 )
 from pose2room_tpu_torch.models.loss import detection_loss
-from pose2room_tpu_torch.parallel.collectives import fold_rank, process_count, process_index
+from pose2room_tpu_torch.parallel.collectives import current_grid, fold_rank, process_count, process_index
 from pose2room_tpu_torch.parallel.mesh import make_grid, model_parallel_of
 from pose2room_tpu_torch.parallel.tensor import gather_batch
 from pose2room_tpu_torch.runners.common import setup
@@ -157,7 +160,7 @@ def run(cfg, device=None, dataset=None):
     thresholds = eval_cfg["ap_iou_thresholds"]
     calculators = {t: APCalculator(t, cfg.dataset_config.class2type) for t in thresholds}
     recorder = LossRecorder(batch_size)
-    dump = eval_cfg["dump_results"] and cfg.is_main_process
+    dump = eval_cfg["dump_results"] and (current_grid() is None or current_grid().model_index == 0)
     dump_threshold = cfg.config.get("generation", {}).get("dump_threshold", 0.5)
     generator = torch.Generator().manual_seed(fold_rank(seed))  # for seed_sampling: random
     n_samples, noise_gen = 1, None

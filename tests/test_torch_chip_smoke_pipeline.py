@@ -64,3 +64,29 @@ def test_render_clis(pipeline, has_h5py):
     chip_smoke.pipeline_render(root, dump_dir, name, has_h5py)
     assert os.path.getsize(os.path.join(root, "results.png")) > 10_000
     assert os.path.isfile(os.path.join(root, "sample.png")) == has_h5py
+
+
+def test_eval_nn_loss_check_pins_the_first_forwards_picks(pipeline, monkeypatch):
+    """pipeline_eval_nn_loss with both forwards on the CPU at a small width:
+    FPS runs once, in the first forward; the second forward takes its picks,
+    and the module's FPS is put back afterwards."""
+    import torch
+
+    from pose2room_tpu_torch.models import proposal
+    from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
+
+    root, samples, split = pipeline
+    calls = []
+
+    def counted_fps(xyz, npoint):
+        calls.append(npoint)
+        return chip_smoke.sampling.fps_ref(xyz, npoint)
+
+    monkeypatch.setattr(proposal, "furthest_point_sample", counted_fps)
+    cfg = P2RNetConfig(num_frames=chip_smoke.T, num_seeds=64, num_proposals=16, num_gaussian=8)
+    run_dir = os.path.join(root, "eval_nn_run")
+    os.makedirs(run_dir)
+    torch.save({"net": P2RNet(cfg, device="cpu").state_dict()}, os.path.join(run_dir, "model_final.pth"))
+    chip_smoke.pipeline_eval_nn_loss(run_dir, cfg, samples, split["val"][:2], "cpu")
+    assert calls == [16]
+    assert proposal.furthest_point_sample is counted_fps

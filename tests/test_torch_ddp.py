@@ -14,7 +14,19 @@
   that the test sees the math and not the f32 conditioning; the train
   runner (one epoch, augmentation off) against one process at twice the
   batch, with one run dir and rank 0's files only; the test runner's merged
-  AP and losses against one process.
+  AP and losses against one process;
+* two more ranks in bf16 (``compute_dtype: bfloat16``), started once the
+  first two have finished: two steps on both train paths, whose reduced
+  sums (each fused block's BN1 column sums, kernel 3's summed parts, the
+  BN2 backward's sums, kernel 4's summed parts, each BatchNorm's moments)
+  equal those of one process fed the same terms within f32 rounding of
+  each entry's sum of |terms|, and whose losses, gradients and running
+  statistics are held against JAX's sharded bf16 step by the spread of
+  JAX's own single-device and sharded steps and of the port's one process
+  in two batch orders; the
+  bf16 train runner against one process; sharded multi-mode and mesh-AP
+  test runs (f32 and bf16) against one process fed each scene's noise as
+  the rank drew it: mAP, mesh AP, the max-mAP inputs and the TMD.
 """
 
 import os
@@ -35,6 +47,7 @@ from pose2room_tpu.eval import ap as jax_ap
 from pose2room_tpu.eval.voxels import voxelize_box as jax_voxelize_box
 from pose2room_tpu.models.loss import detection_loss as jax_detection_loss
 from pose2room_tpu.models.mdn import MDNHead as JaxMDNHead
+from pose2room_tpu.parallel import make_mesh, replicate, shard_batch, shard_params
 from pose2room_tpu.utils.logger import LossRecorder as JaxLossRecorder
 from pose2room_tpu_torch import parallel
 from pose2room_tpu_torch.config.dataset_config import DatasetConfig
@@ -43,16 +56,18 @@ from pose2room_tpu_torch.convert import state_dict_from_flax
 from pose2room_tpu_torch.data import synth
 from pose2room_tpu_torch.data.dataset import SceneDataset
 from pose2room_tpu_torch.data.loader import DataLoader
+from pose2room_tpu_torch.eval import multi_modal
 from pose2room_tpu_torch.eval.ap import APCalculator
 from pose2room_tpu_torch.eval.voxels import voxelize_box
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
 from pose2room_tpu_torch.ops.boxes import get_3d_box
 from pose2room_tpu_torch.runners import test as test_runner
 from pose2room_tpu_torch.runners import train as train_runner
+from pose2room_tpu_torch.train import engine
 from pose2room_tpu_torch.train.state import make_optimizer
 from pose2room_tpu_torch.train.step import GT_KEYS, batch_to_device, train_step
 from pose2room_tpu_torch.utils.logger import LossRecorder
-from torch_ddp_worker import Ranks, free_port
+from torch_ddp_worker import BF16_RANK_THREADS, Ranks, bf16_steps, free_port, quiet_board
 from torch_port_util import SMALL, _perturb, jax_model, scene_batch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -302,6 +317,244 @@ def _jax_eps(model, variables, x, key):
             for name, dim, k in zip(("center", "size", "heading"), (3, 3, 2), keys)}
 
 
+# ---------------------------------------------------------------------------
+# bf16 under data and tensor parallel: the reduced sums, the spread rule
+# ---------------------------------------------------------------------------
+
+F32_U = 2.0 ** -24  # float32's unit roundoff
+BF16_LOSS_RTOL = 2e-2  # test_torch_bf16_train.py's bf16 loss band
+COUNT_LOSSES = ("pos_ratio", "neg_ratio", "obj_acc")
+
+
+def _chan(v, C):
+    """(..., Wp) per-column -> (..., C) per-channel, as the chain folds."""
+    return v.reshape(*v.shape[:-1], -1, C).sum(-2)
+
+
+def forced_sequence(logs, rows, data_count):
+    """What a one-process run is fed (``torch_ddp_worker.recorded_sums``'s
+    ``forced``) to sum the terms the ranks summed: each site's reduced sums
+    (a BatchNorm's divided by the data count, as the layer divides them)
+    and each fused block's dout, the rows of ``logs`` (one log per rank
+    that holds other rows) put back at ``rows`` (their rows of the batch)."""
+    entries = [[e for e in log if e[0] in ("chain", "bn", "dout")] for log in logs]
+    out = []
+    for items in zip(*entries):
+        kind, first, reduced = items[0]
+        if kind == "dout":
+            full = torch.empty((sum(map(len, rows)), *first.shape[1:]), dtype=first.dtype)
+            for (_, t, _), r in zip(items, rows):
+                full[r] = t
+            out.append(full)
+        else:
+            out.append(reduced / data_count if kind == "bn" else reduced)
+    return out
+
+
+def one_process_sites(log, C):
+    """(kind, sums, bound of their sum of |terms|, number of terms) of each
+    reduction site of a forced one-process log, in call order.  Kernel 3's
+    and 4's per-clip parts are the terms of theirs (both runs compute them
+    alike from the same rows); the BN2 backward's terms dz and dz*y2 are
+    bounded by |dout| and |dout*y2|, a BatchNorm's E|x| by sqrt(E[x^2])."""
+    sites, y2s, rows, prev = [], [], None, (None, None)
+    for j, (kind, a, _) in enumerate(log):
+        nxt = log[j + 1] if j + 1 < len(log) else (None, None, None)
+        if kind == "rows":
+            rows = a
+        elif kind == "bn":
+            sites.append(("bn", a, torch.stack([a[1].clamp(min=0).sqrt(), a[1]]), rows))
+        elif kind == "chain":
+            if nxt[0] == "terms" and "y" in nxt[1]:  # BN1's column sums of y
+                y = nxt[1]["y"].float()
+                sites.append(("BN1", a, torch.stack([y.abs().sum(0), (y * y).sum(0)]), y.shape[0]))
+            elif prev[0] == "terms" and "y" in prev[1]:  # kernel 3's summed parts
+                parts = prev[1]["parts"]
+                y2s.append(prev[1]["y2"].float())
+                sites.append(("kernel 3", a, parts.abs().sum(0), parts.shape[0]))
+            elif prev[0] == "dout":  # the BN2 backward's [sum dz, sum dz*y2] per channel
+                dout = prev[1].reshape(-1, prev[1].shape[-1])
+                mag = _chan(torch.stack([dout.abs().sum(0), (dout * y2s.pop()).abs().sum(0)]), C)
+                sites.append(("BN2 backward", a, mag, dout.shape[0] * (dout.shape[-1] // C)))
+            else:  # kernel 4's summed parts per channel
+                parts = prev[1]["parts"]
+                sites.append(("kernel 4", a, _chan(parts.abs().sum(0), C), parts.shape[0] * (parts.shape[-1] // C)))
+        prev = (kind, a)
+    return sites
+
+
+def reduced_sums_gaps(logs, one_log, group, data_count, C=64):
+    """Every rank's reduced sums against one process's sums of the same
+    terms (``one_log``, forced by ``forced_sequence``): the largest |gap| /
+    (2 n u sum|terms| + 4 u |sum|) by site kind, where n terms summed in any
+    order err by at most (n - 1) u sum|terms| (u = 2**-24).  Asserts the
+    ranks' results bit-equal, and rank 0's the f32 sum of the local sums of
+    the ranks ``group`` (its data group)."""
+    sites = one_process_sites(one_log, C)
+    ranks = [[e for e in log if e[0] in ("chain", "bn")] for log in logs]
+    assert all(len(r) == len(sites) for r in ranks), ([len(r) for r in ranks], len(sites))
+    worst = {}
+    for i, (kind, want, mag, n) in enumerate(sites):
+        reduced = ranks[0][i][2]
+        assert all(torch.equal(r[i][2], reduced) for r in ranks), (i, kind)
+        local = ranks[group[0]][i][1]
+        for g in group[1:]:
+            local = local + ranks[g][i][1]
+        assert torch.equal(reduced, local), (i, kind)
+        got = reduced / data_count if kind == "bn" else reduced
+        band = 2 * n * F32_U * mag + 4 * F32_U * want.abs()
+        worst[kind] = max(worst.get(kind, 0.0), ((got - want).abs() / band).max().item())
+    return worst
+
+
+def _relative_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def hold_bf16_step(got, one, other, single, sharded):
+    """ROADMAP §3's bf16 rule (a run's spread, not elementwise) on a
+    sharded bf16 step: ``got`` the ranks' step 1 (losses, gradients,
+    running statistics), ``one`` and ``other`` the port's one process on the
+    same batch in its order and in another, ``single`` and ``sharded`` JAX's
+    single-device and sharded steps ((losses, state_dict)).  The spread of
+    each gradient and running statistic (relative L2) is the larger of the
+    distance of JAX's two steps and that of the port's two one-process
+    runs (both sum the same terms in another order, as a sharded step
+    does).  Each is within three times its spread of the port's one
+    process, and of JAX's sharded step within three times the larger of
+    its spread and the port's one-process distance from JAX's single-device
+    step (the port's bf16 step is held against JAX's by
+    test_torch_bf16_train.py), +1e-3 each; the losses likewise, with the
+    bf16 loss band (2e-2 relative) at least and the proposal counts within
+    one proposal.  Returns the largest ratio of a distance to its band."""
+    (single_losses, single_sd), (sharded_losses, sharded_sd) = single, sharded
+    worst = 0.0
+    for k, want in sharded_losses.items():
+        spread = max(abs(single_losses[k] - want), abs(other["losses"][0][k] - one["losses"][0][k]))
+        slack = (1.0 / 32 if k in COUNT_LOSSES else 0.0) + BF16_LOSS_RTOL * abs(want)
+        own = abs(one["losses"][0][k] - single_losses[k])
+        for gap, band in ((abs(got["losses"][0][k] - one["losses"][0][k]), 3 * spread + slack),
+                          (abs(got["losses"][0][k] - want), 3 * max(spread, own) + slack)):
+            assert gap <= band, (k, got["losses"][0][k], one["losses"][0][k], want, single_losses[k])
+            worst = max(worst, gap / band)
+    stats = [k for k in got["state"][0] if k.endswith(("running_mean", "running_var"))]
+    triples = [(k, got["grads"][k], one["grads"][k], other["grads"][k]) for k in got["grads"]
+               if not k.endswith("tcn.2.bias")]
+    triples += [(k, got["state"][0][k], one["state"][0][k], other["state"][0][k]) for k in stats]
+    for k, g, o, o2 in triples:
+        spread = max(_relative_l2(single_sd[k], sharded_sd[k]), _relative_l2(o2, o))
+        own = _relative_l2(o, single_sd[k])
+        for gap, band in ((_relative_l2(g, o), 3 * spread + 1e-3),
+                          (_relative_l2(g, sharded_sd[k]), 3 * max(spread, own) + 1e-3)):
+            assert gap <= band, (k, gap, band, spread, own)
+            worst = max(worst, gap / band)
+    return worst
+
+
+def bf16_one_process(inputs, fused, forced=None, order=None):
+    """``torch_ddp_worker.bf16_steps`` in this process on the whole batch
+    (its rows in ``order`` when given), at the ranks' thread count (the
+    CPU's matmuls round by their thread count)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(BF16_RANK_THREADS)
+    try:
+        return bf16_steps(dict(inputs, paths=[fused], order=order), one_process=True,
+                          forced=None if forced is None else {fused: forced})[fused]
+    finally:
+        torch.set_num_threads(threads)
+
+
+def jax_bf16_step(payload, batch, key, fused, mesh=None, tp=False):
+    """JAX's bf16 step (jit) on a global batch: on one device, or on
+    ``mesh`` with the batch on its data axis and the state replicated (with
+    ``tp``: placed by ``shard_params``), as tests/test_parallel.py builds
+    its sharded steps.  Returns the losses and, as one state_dict, the
+    gradients and the new batch statistics."""
+    model = jax_model(SMALL, compute_dtype="bfloat16", fused_train=fused)
+    params, stats = payload["params"], payload["batch_stats"]
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    if mesh is not None:
+        place = (lambda t: shard_params(t, mesh)) if tp else (lambda t: replicate(t, mesh))
+        params, stats, jbatch = place(params), place(stats), shard_batch(batch, mesh)
+
+    @jax.jit
+    def loss_and_grad(params, jbatch):
+        def loss_fn(p):
+            out, mut = model.apply({"params": p, "batch_stats": stats}, jbatch["input_joints"], train=True,
+                                   rngs={"mdn": key}, mutable=["batch_stats"])
+            losses = jax_detection_loss(out, {k: jbatch[k] for k in GT_KEYS})
+            return losses["total"], (losses, mut)
+
+        return jax.value_and_grad(loss_fn, has_aux=True)(params)
+
+    (_, (losses, mut)), grads = loss_and_grad(params, jbatch)
+    f32 = lambda t: jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), t)  # noqa: E731
+    return {k: float(v) for k, v in losses.items()}, state_dict_from_flax(
+        {"params": f32(grads), "batch_stats": f32(mut["batch_stats"])})
+
+
+def mesh_test_config(root, weight, dtype="float32", multi_mode=True, model_parallel=1):
+    """``_test_config`` with mesh AP (0.25 m voxels), ``multi_mode`` and its
+    dumps, in ``dtype`` at tensor-parallel degree ``model_parallel``."""
+    config = _test_config(root, weight)
+    config["model"]["compute_dtype"] = dtype
+    config["device"]["model_parallel"] = model_parallel
+    config["test"].update(multi_mode=multi_mode, eval_mesh_ap=True, mesh_voxel_size=0.25)
+    config["generation"].update(dump_results=multi_mode, dump_threshold=0.05)
+    return config
+
+
+def hold_sharded_test_runs(runs, configs, root, scenes, batch_size, noise_of, monkeypatch):
+    """Sharded test runs (``torch_ddp_worker.test_runs``' results of every
+    rank, ``runs[rank][i]`` for ``configs[i]``) against one process over the
+    same scenes at ``batch_size``, fed each run's drawn salt and sample
+    count and each batch's noise ``noise_of(i, it)`` (as the ranks drew
+    it): the salt and the sample count equal on every rank; every metric
+    (per-class AP and recall, mAP, AR and their mesh twins) within 1e-6;
+    the mAP each run's log holds (the max-mAP inputs) within 1e-6; for the
+    multi-mode runs, the dumps of every batch, and the max mAP and TMD over
+    them within 1e-6."""
+    sets, wants = {}, []
+    for i, (config, run) in enumerate(zip(configs, runs[0])):
+        assert all((r[i]["salt"], r[i]["n_samples"]) == (run["salt"], run["n_samples"]) for r in runs)
+        multi_mode = config["test"]["multi_mode"]
+        assert (run["salt"] is not None) == multi_mode
+        one = yaml.safe_load(yaml.safe_dump(config))
+        one["log"]["path"] = str(root / f"one{i}")
+        one["test"]["batch_size"] = batch_size
+        one["device"]["model_parallel"] = 1
+        monkeypatch.setattr(test_runner, "multi_mode_draws",
+                            lambda path, seed, run=run: (run["salt"], run["n_samples"]))
+        monkeypatch.setattr(test_runner, "multi_mode_noise", lambda model, it, *_, i=i: noise_of(i, it))
+        cfg = CONFIG(one, mode="test")
+        threads = torch.get_num_threads()
+        torch.set_num_threads(BF16_RANK_THREADS)  # the ranks': the CPU's matmuls round by their thread count
+        try:
+            want = test_runner.run(cfg, device="cpu", dataset=SceneDataset(scenes, num_frames=SMALL["num_frames"]))
+        finally:
+            torch.set_num_threads(threads)
+            cfg.close()
+        wants.append(want[0.05])
+        for r in runs:
+            for t, metrics in want.items():
+                assert list(r[i]["metrics"][t]) == list(metrics)
+                for k, v in metrics.items():
+                    assert abs(r[i]["metrics"][t][k] - v) <= 1e-6, (i, t, k, r[i]["metrics"][t][k], v)
+        np.testing.assert_allclose(multi_modal.scrape_map_scores(run["save_path"]),
+                                   multi_modal.scrape_map_scores(cfg.save_path), atol=1e-6, rtol=0)
+        if multi_mode:
+            dumped = sorted(os.listdir(os.path.join(run["save_path"], "visualization")))
+            assert len(dumped) == len(scenes) // batch_size == len(os.listdir(cfg.config["log"]["vis_path"]))
+            sets.setdefault(config["model"]["compute_dtype"], []).append((run["save_path"], cfg.save_path))
+    assert max(w["mAP"] for w in wants) > 0 and max(w["mAP_mesh"] for w in wants) > 0, wants
+    for pairs in sets.values():  # the runs of one model
+        (got_max, got_tmd), (want_max, want_tmd) = (multi_modal.multi_modal_metrics([p[0] for p in pairs]),
+                                                    multi_modal.multi_modal_metrics([p[1] for p in pairs]))
+        np.testing.assert_allclose(got_max, want_max, atol=1e-6, rtol=0)
+        assert len(pairs) > 1 and abs(got_tmd - want_tmd) <= 1e-6 and want_tmd > 1, (got_tmd, want_tmd)
+
+
 @pytest.fixture(scope="module")
 def ddp(tmp_path_factory):
     """Starts two ranks on every scenario, then computes JAX's step while
@@ -334,7 +587,42 @@ def ddp(tmp_path_factory):
     }
     ranks = Ranks(2, inputs, root / "ranks")
     try:
-        yield {"inputs": inputs, "jax_step": _jax_step(payload, batch, key)}, ranks
+        yield {"inputs": inputs, "jax_step": _jax_step(payload, batch, key), "payload": payload, "key": key,
+               "scenes": scenes, "weight_path": weight_path, "root": root}, ranks
+    finally:
+        ranks.close()
+
+
+@pytest.fixture(scope="module")
+def ddp_bf16(ddp):
+    """The bf16 scenarios on two new ranks, started once ``ddp``'s have
+    finished (two sessions, each well inside the ranks' time limit on a
+    loaded host, and JAX's bf16 steps out of the first one's way): the bf16
+    steps of ``ddp``'s batch, the bf16 train runner, the sharded test runs;
+    JAX's single-device and sharded bf16 steps are computed while they run.
+    Yields (the case, the ranks)."""
+    case, first = ddp
+    first.results()
+    root, payload, key, scenes = case["root"], case["payload"], case["key"], case["scenes"]
+    steps = case["inputs"]["train_steps"]
+    bf16_run = _train_config(str(root / "ddp_bf16_train"), batch=2)
+    bf16_run["model"] = {**(bf16_run.get("model") or {}), "compute_dtype": "bfloat16"}
+    test_runs = [mesh_test_config(str(root / f"ddp_test_{k}"), case["weight_path"], dtype, multi_mode)
+                 for k, (dtype, multi_mode) in enumerate([("float32", True)] * 2 + [("bfloat16", True)] * 2
+                                                         + [("float32", False)])]
+    inputs = {
+        "bf16_steps": dict(steps, paths=[True, False]),
+        "bf16_train_run": {"config": bf16_run, "num_frames": SMALL["num_frames"],
+                           "scenes": {"train": scenes[:8], "val": scenes[8:12]}},
+        "test_runs": {"configs": test_runs, "num_frames": SMALL["num_frames"], "scenes": scenes[12:16]},
+    }
+    ranks = Ranks(2, inputs, root / "bf16_ranks", threads=BF16_RANK_THREADS)
+    try:
+        mesh = make_mesh(jax.devices()[:2])
+        jax_bf16 = {(kind, fused): jax_bf16_step(payload, steps["batch"], key, fused,
+                                                 mesh if kind == "sharded" else None)
+                    for fused in (True, False) for kind in ("single", "sharded")}
+        yield {"inputs": inputs, "jax_bf16": jax_bf16}, ranks
     finally:
         ranks.close()
 
@@ -487,6 +775,117 @@ def test_ddp_train_steps_match_one_process(ddp, fused):
             assert (got[0]["state"][k] - v).abs().max() <= 4 * OPTIMIZER["lr"], k  # two steps of <= lr each
             continue
         assert _rel(got[0]["state"][k], v) <= 1e-5, (k, _rel(got[0]["state"][k], v))
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused_chain", "module_path"])
+def test_ddp_bf16_reduced_sums_match_one_process(ddp_bf16, fused):
+    """Two ranks' bf16 step 1 (2 + 2 of the global 4): every sum reduced
+    across the ranks (each fused block's BN1 column sums, kernel 3's
+    summed parts, the BN2 backward's channel sums and kernel 4's summed
+    parts, four a block; each module-path BatchNorm's moments) is the f32
+    sum of the ranks' own, bit-equal on both, and within f32 rounding of
+    each entry's sum of |terms| of one process's sums over the same terms:
+    the one process is fed the ranks' reduced sums and the gradients
+    reaching each fused block, so that past the first statistics it rounds
+    its bf16 activations as the ranks do (otherwise a last-bit difference
+    in a statistic flips bf16 roundings and the terms part)."""
+    case, ranks = ddp_bf16
+    logs = [r["bf16_steps"][fused]["sums"] for r in ranks.results()]
+    one = bf16_one_process(case["inputs"]["bf16_steps"], fused, forced_sequence(logs, [[0, 2], [1, 3]], 2))
+    worst = reduced_sums_gaps(logs, one["sums"], group=[0, 1], data_count=2)
+    assert set(worst) == ({"bn", "BN1", "kernel 3", "BN2 backward", "kernel 4"} if fused else {"bn"})
+    assert max(worst.values()) <= 1, worst
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused_chain", "module_path"])
+def test_ddp_bf16_step_matches_jax_sharded(ddp_bf16, fused):
+    """Two ranks' bf16 step against JAX's bf16 step with the state
+    replicated and the batch on a 2-device data axis (tests/test_parallel.py's
+    sharded step) and against the port's one process, by
+    ``hold_bf16_step``'s spread rule (the port's one process in another
+    batch order its second spread); the seeds equal one process's (FPS's
+    proposals may not: a bf16 rounding that moves a vote can move a pick,
+    ROADMAP §3), both ranks' states bit-equal after two steps (the fused
+    chain's conv-bias gradient the analytic 0, every gradient f32)."""
+    case, ranks = ddp_bf16
+    got = [r["bf16_steps"][fused] for r in ranks.results()]
+    one = bf16_one_process(case["inputs"]["bf16_steps"], fused)
+    picks = {k: torch.stack([got[0]["picks"][k], got[1]["picks"][k]], 1).flatten(0, 1) for k in one["picks"]}
+    assert torch.equal(picks["seed_inds"], one["picks"]["seed_inds"])
+    print("proposals picked as one process picks them:",
+          (picks["aggregated_vote_inds"] == one["picks"]["aggregated_vote_inds"]).double().mean().item())
+    for step in range(2):
+        for k, v in got[0]["state"][step].items():
+            assert torch.equal(got[1]["state"][step][k], v), (step, k)
+    assert got[0]["losses"][0]["pos_ratio"] > 0
+    for k, g in got[0]["grads"].items():
+        assert g.dtype == torch.float32 and (not (fused and k.endswith("tcn.2.bias")) or not g.any()), k
+    other = bf16_one_process(case["inputs"]["bf16_steps"], fused, order=[3, 1, 0, 2])
+    hold_bf16_step(got[0], one, other, case["jax_bf16"][("single", fused)], case["jax_bf16"][("sharded", fused)])
+
+
+def test_ddp_bf16_train_runner_matches_one_process(ddp_bf16, tmp_path, monkeypatch):
+    """The bf16 train runner under two ranks at batch 2 (lr 0, as
+    test_ddp_train_runner_matches_one_process) against one process at batch
+    4: the ranks' histories and states equal bit for bit, parameters equal
+    one process's (f32, as model_final.pth holds them).  What FPS's picks do
+    not feed is held in JAX's bands for a sharded bf16 step against one
+    device (tests/test_parallel.py): the mean vote loss of the train steps
+    and every val loss (one step, on running statistics) within 0.15
+    relative, the running statistics of the backbone and the vote head
+    within 5e-2.  The train steps' box terms are not held: at random init
+    a batch holds one positive proposal or none, and a bf16 rounding that
+    moves one FPS pick (ROADMAP §3) moves them by half (here the ranks' mean
+    train total is 53.4, one process's 94.8)."""
+    case, ranks = ddp_bf16
+    inputs = case["inputs"]["bf16_train_run"]
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(engine, "LogBoard", quiet_board)
+    config = _train_config(str(tmp_path), batch=4)
+    config["model"] = inputs["config"]["model"]
+    cfg = CONFIG(config, mode="train")
+    try:
+        datasets = {k: SceneDataset(v, num_frames=SMALL["num_frames"], augment=False)
+                    for k, v in inputs["scenes"].items()}
+        model, history = train_runner.run(cfg, device="cpu", datasets=datasets)
+    finally:
+        cfg.close()
+    got = [r["bf16_train_run"] for r in ranks.results()]
+    assert got[0]["history"] == got[1]["history"] and len(history) == len(got[0]["history"]) == 1
+    for k, v in got[0]["state"].items():
+        assert torch.equal(got[1]["state"][k], v), k
+    held = [("train", "vote_loss")] + [("val", k) for k in history[0]["val"] if k not in COUNT_LOSSES]
+    for phase, k in held:
+        v = history[0][phase][k]
+        assert abs(got[0]["history"][0][phase][k] - v) <= 0.15 * max(abs(v), 1e-3), (phase, k)
+    ckpt = torch.load(os.path.join(got[0]["save_path"], "model_final.pth"), weights_only=True)["net"]
+    for k, v in model.state_dict().items():
+        assert torch.equal(ckpt[k], got[0]["state"][k]), k
+        if k.endswith(("running_mean", "running_var")):
+            if k.startswith(("backbone.", "centervoting.")):
+                np.testing.assert_allclose(got[0]["state"][k].numpy(), v.numpy(), atol=5e-2, rtol=5e-2, err_msg=k)
+        elif v.is_floating_point():
+            assert v.dtype == torch.float32 and torch.equal(got[0]["state"][k], v), k
+
+
+def test_ddp_multi_mode_and_mesh_ap_match_one_process(ddp_bf16, tmp_path, monkeypatch):
+    """Sharded sparse_eval test runs under two ranks (one scene a rank a
+    batch): two multi-mode runs with mesh AP in f32 and two in bf16, and a
+    mesh-AP run without multi-mode, against one process at batch 1 fed each
+    scene's noise as its rank drew it (``hold_sharded_test_runs``), in the
+    order the merge lays the scans out."""
+    case, ranks = ddp_bf16
+    inputs = case["inputs"]["test_runs"]
+    runs = [r["test_runs"] for r in ranks.results()]
+    # the merge lays the scans out rank by rank (JAX's order): rank 0's
+    # scenes 0 and 2, then rank 1's 1 and 3.  The one process steps them in
+    # that order, since AP breaks ties of confidence by it (ROADMAP §3)
+    scenes = [inputs["scenes"][i] for i in (0, 2, 1, 3)]
+
+    def noise_of(i, it):  # the one process's batch it is rank it // 2's batch it % 2
+        return runs[it // 2][i]["noise"][it % 2]
+
+    hold_sharded_test_runs(runs, inputs["configs"], tmp_path, scenes, 1, noise_of, monkeypatch)
 
 
 def test_cli_under_torchrun_on_cpu(tmp_path):

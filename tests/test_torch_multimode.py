@@ -246,6 +246,20 @@ def test_multi_modal_metrics_match_jax_on_fake_runs(tmp_path):
         np.testing.assert_allclose(g["corners"], w["corners"], atol=1e-12, rtol=0)
 
 
+def test_scrape_map_scores_reads_the_logged_repr(tmp_path):
+    """The runners log ``eval mAP: {v}`` with Python's repr, which writes an
+    mAP below 1e-4 in exponent form: the port reads the whole number; JAX
+    ``scrape_map_scores`` (``\\d+\\.\\d+``) reads 9.137427e-05 as 9.137427, so
+    its max mAP over runs takes it (ROADMAP §3).  Other values agree; the
+    mesh twins are not read."""
+    values = [9.137427e-05, 0.25, 0.0]
+    with open(tmp_path / "log.txt", "w") as f:
+        for v in values:
+            f.write(f"eval mAP: {v}\neval mAP_mesh: {v / 2}\n")
+    assert multi_modal.scrape_map_scores(str(tmp_path)) == values
+    assert jax_multi_modal.scrape_map_scores(str(tmp_path)) == [9.137427, 0.25, 0.0]
+
+
 def test_torch_run_multimodal_script_on_cpu(tmp_path, monkeypatch):
     """scripts/torch_run_multimodal.py with ``--skip-train --device cpu`` at
     the SMALL sizes (its shipped configs shrunk, remove_far_box off) on a

@@ -59,29 +59,37 @@ def truncate_f32(a):
     return np.where(np.abs(f.astype(np.float64)) > np.abs(a), np.nextafter(f, np.float32(0)), f)
 
 
+def truncate_f32_torch(a):
+    """``truncate_f32`` of a float64 tensor."""
+    f = a.float()
+    return torch.where(f.double().abs() > a.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
 def emulated_acc(x, tiles, col_off, vlist, cap, fold):
     """x @ M (N, Wp) as the kernel's bf16 leg sums it.  x, tiles: f32
-    arrays holding bf16 values (their products are exact)."""
+    arrays holding bf16 values (their products are exact).  Every chunk
+    steps through its tiles at once (torch float64 on the host's threads);
+    a chunk past its end is left out, as its zero operands add exactly 0."""
     N, Wp = x.shape
     chunks = sparse_chunks(col_off, cap)
-    longest = max(j1 - j0 for _, j0, j1 in chunks)
-    acc = np.zeros((len(chunks), N, 128), np.float32)
-    for p in range(longest):  # zero operands past a chunk's end add exactly 0
-        a = np.zeros((len(chunks), N, 128))
-        b = np.zeros((len(chunks), 128, 128))
-        for i, (_, j0, j1) in enumerate(chunks):
-            if j0 + p < j1:
-                v = int(vlist[j0 + p])
-                a[i], b[i] = x[:, v * 128:(v + 1) * 128], tiles[j0 + p]
+    j0 = torch.tensor([c[1] for c in chunks])
+    j1 = torch.tensor([c[2] for c in chunks])
+    xg = torch.from_numpy(x).double().reshape(N, Wp // 128, 128).transpose(0, 1)  # (column tile, N, 128)
+    tt = torch.from_numpy(tiles).double()
+    vl = torch.from_numpy(np.asarray(vlist, np.int64))
+    acc = torch.zeros((len(chunks), N, 128), dtype=torch.float32)
+    for p in range(int((j1 - j0).max())):
+        live = torch.nonzero(j0 + p < j1).flatten()
+        a, b = xg[vl[j0[live] + p]], tt[j0[live] + p]
         for k0 in range(0, 128, 16 * fold):
-            part = np.zeros(acc.shape)
+            part = torch.zeros((len(live), N, 128), dtype=torch.float64)
             for f in range(fold):  # one fresh accumulator, the tensor cores' adds
                 k = slice(k0 + 16 * f, k0 + 16 * (f + 1))
-                part = truncate_f32(part + np.matmul(a[..., k], b[:, k])).astype(np.float64)
-            acc = (acc + part.astype(np.float32)).astype(np.float32)  # the IEEE fold
+                part = truncate_f32_torch(part + torch.matmul(a[..., k], b[:, k])).double()
+            acc[live] = acc[live] + part.float()  # the IEEE fold
     out = np.zeros((N, Wp), np.float32)
     seen = set()
-    for (w, _, _), part in zip(chunks, acc):  # each column's chunks in chunk order
+    for (w, _, _), part in zip(chunks, acc.numpy()):  # each column's chunks in chunk order
         cols = slice(w * 128, (w + 1) * 128)
         out[:, cols] = part if w not in seen else (out[:, cols] + part).astype(np.float32)
         seen.add(w)

@@ -14,14 +14,24 @@
   ranks; the train runner resuming a one-process checkpoint under tp = 2
   against one process resuming it (lr 0, ROADMAP §3), its final checkpoint
   loaded strict into one process; the sparse_eval test runner's merged AP
-  and losses and the demo's dumps against one process.  The train runs
-  here write no TensorBoard board (``torch_ddp_worker.quiet_board``): on
+  and losses and the demo's dumps against one process;
+* two more ranks in bf16, started once the first two have finished: two
+  steps on both train paths, whose reduced
+  sums equal one process's sums of the same terms within f32 rounding and
+  whose losses, gradients and running statistics are held against JAX's
+  tensor-parallel bf16 step by the spread of JAX's own single-device and
+  tensor-parallel steps (test_torch_ddp.py's ``reduced_sums_gaps`` and
+  ``hold_bf16_step``), the replicated tensors bit-equal on both ranks; the
+  bf16 train runner against one process; sharded multi-mode and mesh-AP
+  test runs (f32 and bf16) against one process fed the group's draws.  The
+  train runs here write no TensorBoard board (``torch_ddp_worker.quiet_board``): on
   this host its import loads TensorFlow, ~17 s a process.
 """
 
 import glob
 import os
 
+import flax.linen as nn
 import numpy as np
 import pytest
 import torch
@@ -45,6 +55,7 @@ from pose2room_tpu_torch.train import engine
 from pose2room_tpu_torch.train.state import make_optimizer
 from pose2room_tpu_torch.train.step import GT_KEYS, batch_to_device, train_step
 from test_torch_ddp import (
+    COUNT_LOSSES,
     OPTIMIZER,
     _flax_payload,
     _jax_eps,
@@ -54,8 +65,15 @@ from test_torch_ddp import (
     _single_steps,
     _test_config,
     _train_config,
+    bf16_one_process,
+    forced_sequence,
+    hold_bf16_step,
+    hold_sharded_test_runs,
+    jax_bf16_step,
+    mesh_test_config,
+    reduced_sums_gaps,
 )
-from torch_ddp_worker import Ranks, quiet_board
+from torch_ddp_worker import BF16_RANK_THREADS, RANK_THREADS, Ranks, quiet_board
 from torch_port_util import SMALL, jax_model, scene_batch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -198,6 +216,16 @@ def _jax_tp_step(payload, batch, key, tp=2):
         {"params": grads, "batch_stats": payload["batch_stats"]})
 
 
+def _dense_case():
+    """A bf16 column-parallel layer's operands at tp 2: x (64, 512) f32, w
+    (256, 512), bias and the output gradient, from a seed."""
+    rng = np.random.RandomState(9)
+    return {"tp": 2, "x": torch.from_numpy(rng.randn(64, 512).astype(np.float32)),
+            "w": torch.from_numpy((rng.randn(256, 512) / 16).astype(np.float32)),
+            "b": torch.from_numpy((rng.randn(256) * 0.1).astype(np.float32)),
+            "dy": torch.from_numpy(rng.randn(64, 256).astype(np.float32))}
+
+
 @pytest.fixture(scope="module")
 def tp_ranks(tmp_path_factory, flax_variables):
     """Starts two ranks at tp = 2 on every scenario, then computes JAX's
@@ -235,8 +263,45 @@ def tp_ranks(tmp_path_factory, flax_variables):
     ranks = Ranks(2, inputs, root / "ranks")
     try:
         yield {"inputs": inputs, "root": root, "weight_path": weight_path, "resume_config": resume_config(4, 1),
-               "resume_checkpoint": resume_checkpoint,
+               "resume_checkpoint": resume_checkpoint, "scenes": scenes, "key": key, "payload": payload,
                "jax_step": _jax_tp_step(payload, batch, key), "jax_single": _jax_step(payload, batch, key)}, ranks
+    finally:
+        ranks.close()
+
+
+@pytest.fixture(scope="module")
+def tp_bf16(tp_ranks):
+    """The bf16 scenarios at tp = 2 on two new ranks, started once
+    ``tp_ranks``' have finished (as test_torch_ddp.py's ``ddp_bf16``): the
+    bf16 steps of ``tp_ranks``' batch, the bf16 train runner, the sharded
+    test runs and a column-parallel bf16 layer; JAX's single-device and
+    tensor-parallel bf16 steps are computed while they run.  Yields (the
+    case, the ranks)."""
+    case, first = tp_ranks
+    first.results()
+    root, payload, key, scenes = case["root"], case["payload"], case["key"], case["scenes"]
+    steps = case["inputs"]["tp_steps"]
+    bf16_run = _train_config(str(root / "tp_bf16_train"), batch=2)
+    bf16_run["model"] = {**(bf16_run.get("model") or {}), "compute_dtype": "bfloat16"}
+    bf16_run["device"]["model_parallel"] = 2
+    test_runs = [mesh_test_config(str(root / f"tp_test_{k}"), case["weight_path"], dtype, multi_mode,
+                                  model_parallel=2)
+                 for k, (dtype, multi_mode) in enumerate([("float32", True)] * 2 + [("bfloat16", True)] * 2
+                                                         + [("bfloat16", False)])]
+    inputs = {
+        "tp_bf16_steps": steps,
+        "tp_bf16_train_run": {"config": bf16_run, "num_frames": SMALL["num_frames"],
+                              "scenes": {"train": scenes[:4], "val": scenes[4:8]}},
+        "tp_test_runs": {"configs": test_runs, "num_frames": SMALL["num_frames"], "scenes": scenes[8:12]},
+        "tp_dense_grad": _dense_case(),
+    }
+    ranks = Ranks(2, inputs, root / "bf16_ranks", threads=BF16_RANK_THREADS)
+    try:
+        mesh = make_mesh(model_parallel=2)
+        jax_bf16 = {(kind, fused): jax_bf16_step(payload, steps["batch"], key, fused, mesh if kind == "tp" else None,
+                                                 tp=kind == "tp")
+                    for fused in (True, False) for kind in ("single", "tp")}
+        yield {"inputs": inputs, "weight_path": case["weight_path"], "jax_bf16": jax_bf16}, ranks
     finally:
         ranks.close()
 
@@ -399,7 +464,7 @@ def test_tp_demo_matches_one_process(tp_ranks, tmp_path):
     case, ranks = tp_ranks
     cfg = CONFIG(_demo_config(str(tmp_path), case["weight_path"]), mode="demo")
     threads = torch.get_num_threads()
-    torch.set_num_threads(4)  # the ranks': the CPU's matmuls round by their thread count
+    torch.set_num_threads(RANK_THREADS)  # the ranks': the CPU's matmuls round by their thread count
     try:
         want = demo_runner.run(cfg, device="cpu")
         want_dir = cfg.config["log"]["vis_path"]
@@ -417,3 +482,145 @@ def test_tp_demo_matches_one_process(tp_ranks, tmp_path):
     for f in files:
         with open(os.path.join(want_dir, f), "rb") as a, open(os.path.join(got[0]["vis_path"], f), "rb") as b:
             assert a.read() == b.read(), f
+
+
+# ---------------------------------------------------------------------------
+# bf16 and the sharded test runs at tp = 2
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused_chain", "module_path"])
+def test_tp_bf16_reduced_sums_match_one_process(tp_bf16, fused):
+    """The bf16 step 1 at tp = 2 (one model group, so each rank's data
+    group is itself): every sum the step reduces is the rank's own,
+    bit-equal on both ranks, and within f32 rounding of each entry's sum of
+    |terms| of one process's sums over the same terms (test_torch_ddp.py's
+    ``test_ddp_bf16_reduced_sums_match_one_process``); the group holds rows
+    0, 2, 1, 3 of the batch."""
+    case, ranks = tp_bf16
+    logs = [r["tp_bf16_steps"][fused]["sums"] for r in ranks.results()]
+    one = bf16_one_process(case["inputs"]["tp_bf16_steps"], fused, forced_sequence(logs[:1], [[0, 2, 1, 3]], 1))
+    worst = reduced_sums_gaps(logs, one["sums"], group=[0], data_count=1)
+    assert set(worst) == ({"bn", "BN1", "kernel 3", "BN2 backward", "kernel 4"} if fused else {"bn"})
+    assert max(worst.values()) <= 1, worst
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused_chain", "module_path"])
+def test_tp_bf16_step_matches_jax_tensor_parallel(tp_bf16, fused):
+    """The bf16 step at tp = 2 against JAX's bf16 step under
+    ``shard_params`` on a (data 4, model 2) mesh and against the port's one
+    process, by test_torch_ddp.py's ``hold_bf16_step`` (the band three times
+    the distance of JAX's single-device and tensor-parallel steps); the seeds
+    equal one process's (the proposals may not, as in test_torch_ddp.py);
+    after two steps each rank holds half
+    of each planned weight and of its moments, the gathered states are
+    bit-equal on both ranks and so is every replicated tensor, AdamW
+    moments included.  The bf16 input gradients of the column-parallel
+    layers are summed over the model group in f32 and rounded to bf16 once,
+    as JAX's lowered tensor-parallel step sums them (ROADMAP §3)."""
+    case, ranks = tp_bf16
+    got = [r["tp_bf16_steps"][fused] for r in ranks.results()]
+    one = bf16_one_process(case["inputs"]["tp_bf16_steps"], fused)
+    assert torch.equal(got[0]["picks"]["seed_inds"], one["picks"]["seed_inds"][[0, 2, 1, 3]])
+    print("proposals picked as one process picks them:",
+          (got[0]["picks"]["aggregated_vote_inds"] == one["picks"]["aggregated_vote_inds"][[0, 2, 1, 3]])
+          .double().mean().item())
+    assert got[0]["sharded"] == got[1]["sharded"] == PLANNED
+    full = got[0]["state"][0]
+    for step in range(2):
+        for k, v in got[0]["state"][step].items():
+            assert torch.equal(got[1]["state"][step][k], v), (step, k)
+    for k in got[0]["own"]:
+        name = k.split("/")[0]
+        if name in PLANNED:
+            assert got[0]["own"][k].shape[0] == full[name].shape[0] // 2, k
+        else:
+            assert torch.equal(got[1]["own"][k], got[0]["own"][k]), k
+    other = bf16_one_process(case["inputs"]["tp_bf16_steps"], fused, order=[3, 1, 0, 2])
+    hold_bf16_step(got[0], one, other, case["jax_bf16"][("single", fused)], case["jax_bf16"][("tp", fused)])
+
+
+def test_tp_bf16_train_runner_matches_one_process(tp_bf16, tmp_path, monkeypatch):
+    """The bf16 train runner at tp = 2 (batch 2 a rank, the group's 4; lr 0)
+    against one process at batch 4, held as test_torch_ddp.py's
+    ``test_ddp_bf16_train_runner_matches_one_process`` holds the data-parallel
+    run: the ranks' gathered states and histories equal, parameters equal
+    one process's, the vote loss, the val losses and the running statistics
+    before FPS in JAX's sharded bf16 bands."""
+    case, ranks = tp_bf16
+    inputs = case["inputs"]["tp_bf16_train_run"]
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(engine, "LogBoard", quiet_board)
+    config = _train_config(str(tmp_path), batch=4)
+    config["model"] = inputs["config"]["model"]
+    cfg = CONFIG(config, mode="train")
+    try:
+        datasets = {k: SceneDataset(v, num_frames=SMALL["num_frames"], augment=False)
+                    for k, v in inputs["scenes"].items()}
+        model, history = train_runner.run(cfg, device="cpu", datasets=datasets)
+    finally:
+        cfg.close()
+    got = [r["tp_bf16_train_run"] for r in ranks.results()]
+    assert got[0]["history"] == got[1]["history"] and got[0]["sharded"] == PLANNED
+    for k, v in got[0]["full_state"].items():
+        assert torch.equal(got[1]["full_state"][k], v), k
+    held = [("train", "vote_loss")] + [("val", k) for k in history[0]["val"] if k not in COUNT_LOSSES]
+    for phase, k in held:
+        v = history[0][phase][k]
+        assert abs(got[0]["history"][0][phase][k] - v) <= 0.15 * max(abs(v), 1e-3), (phase, k)
+    for k, v in model.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            if k.startswith(("backbone.", "centervoting.")):
+                np.testing.assert_allclose(got[0]["full_state"][k].numpy(), v.numpy(), atol=5e-2, rtol=5e-2,
+                                           err_msg=k)
+        elif v.is_floating_point():
+            assert torch.equal(got[0]["full_state"][k], v), k
+
+
+def test_tp_multi_mode_and_mesh_ap_match_one_process(tp_bf16, tmp_path, monkeypatch):
+    """Sharded sparse_eval test runs at tp = 2 (one scene a rank, the
+    group's 2 a batch): two multi-mode runs with mesh AP in f32 and two in
+    bf16, and a bf16 mesh-AP run without multi-mode; both ranks of the group
+    draw the same noise, and one process at batch 2 fed it matches
+    (test_torch_ddp.py's ``hold_sharded_test_runs``)."""
+    case, ranks = tp_bf16
+    inputs = case["inputs"]["tp_test_runs"]
+    runs = [r["tp_test_runs"] for r in ranks.results()]
+    for i, run in enumerate(runs[0]):
+        for a, b in zip(run["noise"], runs[1][i]["noise"]):
+            assert all(torch.equal(x, y) for k in a for x, y in zip(a[k], b[k])), i
+    hold_sharded_test_runs(runs, inputs["configs"], tmp_path, inputs["scenes"], 2,
+                           lambda i, it: runs[0][i]["noise"][it], monkeypatch)
+
+
+def test_tp_bf16_dense_gradient_sums_in_f32(tp_bf16):
+    """The bf16 input gradient of a column-parallel layer at tp 2 is the two
+    ranks' f32 products summed in f32 and rounded to bf16 once, bit for bit
+    on both ranks, as one process's product rounds once; rounding each
+    rank's product first would move 0.37 of its entries.  JAX's bf16
+    ``nn.Dense`` with its kernel on the model axis of a (1, 2) mesh sums
+    them so too (its lowered HLO on the CPU: the f32 dot's all-reduce,
+    promoted from bf16): its outputs and input gradient within one bf16 ulp
+    (their f32 products may sum in another order first; ROADMAP §3)."""
+    case, ranks = tp_bf16
+    inputs = case["inputs"]["tp_dense_grad"]
+    got = [r["tp_dense_grad"] for r in ranks.results()]
+    want = (got[0]["own"] + got[1]["own"]).to(torch.bfloat16).float()
+    rounded_first = (got[0]["own"].to(torch.bfloat16).float() + got[1]["own"].to(torch.bfloat16).float())
+    for g in got:
+        assert torch.equal(g["dx"], want) and torch.equal(g["y"], got[0]["y"])
+    assert (rounded_first.to(torch.bfloat16).float() != want).float().mean() > 0.1
+
+    mesh = make_mesh(jax.devices()[:2], model_parallel=2)
+    layer = nn.Dense(256, dtype=jnp.bfloat16)
+    params = shard_params({"params": {"kernel": inputs["w"].t().numpy(), "bias": inputs["b"].numpy()}}, mesh,
+                          min_size=1)
+    x = jnp.asarray(inputs["x"].numpy())
+
+    @jax.jit
+    def run(params, x):
+        y, vjp = jax.vjp(lambda x: layer.apply(params, x), x)
+        return y, vjp(jnp.asarray(inputs["dy"].numpy(), jnp.bfloat16))[0]
+
+    for ours, ref in zip((got[0]["y"].float().numpy(), got[0]["dx"].numpy()),
+                         (np.asarray(a, np.float32) for a in run(params, x))):
+        assert np.all(np.abs(ours - ref) <= 2.0 ** -7 * np.maximum(np.abs(ref), np.abs(ours)))

@@ -2,18 +2,20 @@
 (tests/test_torch_ddp.py, tests/test_torch_tp.py,
 tests/test_torch_test_runner.py).
 
-``Ranks(nprocs, inputs, tmpdir, device)`` starts ``nprocs`` processes
+``Ranks(nprocs, inputs, tmpdir, device, threads=)`` starts ``nprocs`` processes
 (torch.multiprocessing, spawn) and returns at once.  Each sets the
 environment torchrun would give it, joins a group through
 ``parallel.init_distributed(device)`` (gloo on the CPU; on one card NCCL
 for one rank, gloo for several), runs each scenario ``name`` of
 ``inputs`` ({name: its inputs}) in turn from its own working directory
-``<tmpdir>/rank<r>``, and saves {name: result} to ``<tmpdir>/rank<r>.pt``;
+``<tmpdir>/rank<r>``, and saves {name: result} (and "seconds": {name: its
+wall seconds}) to ``<tmpdir>/rank<r>.pt``;
 ``Ranks.results()`` waits for them and returns those dicts in rank order.
 The ranks import the port only (no JAX), and a rank that fails, or ranks
 that outlast ``timeout`` seconds, fail ``results()``.
 """
 
+import contextlib
 import os
 import socket
 import time
@@ -31,33 +33,47 @@ from pose2room_tpu_torch.parallel import (
 )
 
 
+# each rank's torch threads: one, so that ranks on a loaded host do not wait
+# at OpenMP barriers; the bf16 sessions' two, the count their seeded cases
+# are held at (a bf16 rounding, and so an FPS pick, follows the CPU's
+# matmuls, which round by their thread count; at one thread the half-width
+# GEMMs of the column-parallel layers round otherwise than one process's
+# whole one).  A one-process run compared with ranks runs at their count.
+RANK_THREADS = 1
+BF16_RANK_THREADS = 2
+
+
 def free_port():
     with socket.socket() as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
 
 
-def _rank_main(rank, nprocs, port, inputs, tmpdir, device):
+def _rank_main(rank, nprocs, port, inputs, tmpdir, device, threads):
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(nprocs), LOCAL_RANK=str(rank),
                       LOCAL_WORLD_SIZE=str(nprocs), MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    torch.set_num_threads(4)
+    torch.set_num_threads(threads)
     workdir = os.path.join(tmpdir, f"rank{rank}")
     os.makedirs(workdir, exist_ok=True)
     os.chdir(workdir)  # the train runner's board writes to ./runs
     init_distributed(device)
     try:
-        out = {name: SCENARIOS[name](args) for name, args in inputs.items()}
-        torch.save(out, os.path.join(tmpdir, f"rank{rank}.pt"))
+        out, seconds = {}, {}
+        for name, args in inputs.items():
+            t0 = time.perf_counter()
+            out[name] = SCENARIOS[name](args)
+            seconds[name] = time.perf_counter() - t0
+        torch.save(dict(out, seconds=seconds), os.path.join(tmpdir, f"rank{rank}.pt"))
     finally:
         shutdown()
 
 
 class Ranks:
-    def __init__(self, nprocs, inputs, tmpdir, device="cpu", timeout=600):
+    def __init__(self, nprocs, inputs, tmpdir, device="cpu", timeout=600, threads=RANK_THREADS):
         self.nprocs, self.tmpdir = nprocs, str(tmpdir)
         os.makedirs(self.tmpdir, exist_ok=True)
         self._deadline = time.monotonic() + timeout
-        self._context = mp.start_processes(_rank_main, args=(nprocs, free_port(), inputs, self.tmpdir, device),
+        self._context = mp.start_processes(_rank_main, args=(nprocs, free_port(), inputs, self.tmpdir, device, threads),
                                            nprocs=nprocs, join=False, start_method="spawn")
         self._results = None
 
@@ -167,8 +183,8 @@ def train_run(inputs):
 
 
 def test_run(inputs):
-    """The test runner on in-memory scenes: metrics, merged mean losses and
-    the run dir."""
+    """The test runner on in-memory scenes: metrics, merged mean losses, the
+    run dir and the multi-mode draws (run salt, sample count)."""
     from pose2room_tpu_torch.config.loader import CONFIG
     from pose2room_tpu_torch.data.dataset import SceneDataset
     from pose2room_tpu_torch.runners import test as test_runner
@@ -178,9 +194,35 @@ def test_run(inputs):
         dataset = SceneDataset(inputs["scenes"], num_frames=inputs["num_frames"], augment=False)
         metrics = test_runner.run(cfg, device="cpu", dataset=dataset)
         return {"metrics": metrics, "mean_losses": cfg.test_summary["mean_losses"],
-                "save_path": cfg.save_path}
+                "save_path": cfg.save_path, "n_samples": cfg.test_summary["n_samples"],
+                "salt": cfg.config["test"].get("drawn_run_salt")}
     finally:
         cfg.close()
+
+
+def test_runs(inputs):
+    """``test_run`` once for each config of ``inputs["configs"]`` on the same
+    scenes, each batch's multi-mode noise recorded as this rank drew it
+    (``runners.test.multi_mode_noise``): a list of ``test_run``'s results,
+    each with its noise by batch."""
+    from pose2room_tpu_torch.runners import test as test_runner
+
+    draw = test_runner.multi_mode_noise
+    out = []
+    for config in inputs["configs"]:
+        noise = []
+
+        def recorded(*args):
+            drawn = draw(*args)
+            noise.append({k: tuple(t.cpu().clone() for t in v) for k, v in drawn.items()})
+            return drawn
+
+        test_runner.multi_mode_noise = recorded
+        try:
+            out.append(dict(test_run(dict(inputs, config=config)), noise=noise))
+        finally:
+            test_runner.multi_mode_noise = draw
+    return out
 
 
 def ap_merge(inputs):
@@ -275,6 +317,179 @@ def tp_steps(inputs):
     return out
 
 
+class _Forced(torch.autograd.Function):
+    """``value`` forward, the gradient of ``t`` passed through backward (a
+    one-process all-reduce whose result is replaced)."""
+
+    @staticmethod
+    def forward(ctx, t, value):
+        return value.to(t.device).clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+@contextlib.contextmanager
+def recorded_sums(log, one_process=False, forced=None):
+    """Record what the train step reduces across the data group, in call
+    order, as (kind, this rank's tensor, the reduced one): each fused
+    block's packed sums ("chain", ``stgcn_train._global``: BN1's column
+    sums, kernel 3's summed parts, the BN2 backward's channel sums, kernel
+    4's summed parts), each module-path BatchNorm's (E[x], E[x^2]) ("bn",
+    ``layers.all_reduce_sum``, after a ("rows", its row count) entry) and
+    the gradient reaching each fused block's backward ("dout").
+    ``one_process``: in a process of its own the same sites are recorded,
+    with the local sums as the reduced ones, and so are the magnitudes of
+    the terms ("terms": kernel 3's y, y2 and per-clip parts, kernel 4's
+    per-clip parts).  ``forced``: then each site's result and each dout is
+    replaced by the next of these (another run's reduced sums, divided as
+    the layers divide them, and its douts in this run's row order), so that
+    every site sums the terms that run summed."""
+    from pose2room_tpu_torch.models import layers
+    from pose2room_tpu_torch.ops import stgcn_train
+
+    layer = stgcn_train.FusedTrainLayer
+    saved = (stgcn_train._global, layers.all_reduce_sum, layers.in_group, layers.BatchNorm.forward,
+             stgcn_train.tconv_stats_fwd, stgcn_train.tconv_bwd, layer.backward)
+    forced = iter(forced) if forced is not None else None
+
+    def host(t):
+        return t.detach().cpu().clone()
+
+    def chain(*vecs):
+        out = saved[0](*vecs)
+        log.append(("chain", host(torch.stack(vecs)), host(torch.stack(out))))
+        return tuple(next(forced).to(vecs[0].device).unbind(0)) if forced is not None else out
+
+    def bn(t):
+        out = t if one_process else saved[1](t)
+        log.append(("bn", host(t), host(out)))
+        return _Forced.apply(t, next(forced)) if forced is not None else out
+
+    def bn_forward(self, x):
+        if self.training:
+            log.append(("rows", x.numel() // x.shape[-1], None))
+        return saved[3](self, x)
+
+    def fwd(y, vecs, KB, *, T):
+        y2, parts = saved[4](y, vecs, KB, T=T)
+        if one_process:
+            log.append(("terms", {"y": host(y), "y2": host(y2), "parts": host(parts)}, None))
+        return y2, parts
+
+    def bwd(dy2, y, vecs, KBT, *, T, C):
+        dpre, parts, dtaps = saved[5](dy2, y, vecs, KBT, T=T, C=C)
+        if one_process:
+            log.append(("terms", {"parts": host(parts)}, None))
+        return dpre, parts, dtaps
+
+    def backward(ctx, dout, *stat_grads):
+        if forced is not None:
+            dout = next(forced).to(dout.device)
+        log.append(("dout", host(dout), None))
+        return saved[6](ctx, dout, *stat_grads)
+
+    stgcn_train._global, layers.all_reduce_sum, layers.BatchNorm.forward = chain, bn, bn_forward
+    stgcn_train.tconv_stats_fwd, stgcn_train.tconv_bwd, layer.backward = fwd, bwd, staticmethod(backward)
+    if one_process:
+        layers.in_group = lambda: True
+    try:
+        yield log
+    finally:
+        (stgcn_train._global, layers.all_reduce_sum, layers.in_group, layers.BatchNorm.forward,
+         stgcn_train.tconv_stats_fwd, stgcn_train.tconv_bwd) = saved[:6]
+        layer.backward = staticmethod(saved[6])
+
+
+def bf16_steps(inputs, one_process=False, forced=None):
+    """Two bf16 train steps (``compute_dtype: bfloat16``, f32 parameters)
+    on this rank's rows of the global batch and noise, through DDP, or under
+    a (data, model) grid of degree ``inputs["tp"]`` on the model group's
+    rows, for each train path of ``inputs["paths"]`` (True: the fused
+    chain): each step's losses, the first step's gradients (reduced and
+    gathered, before clipping), its seed and proposal picks and its reduced
+    sums (``recorded_sums``), the gathered state after each step, this
+    rank's own tensors and AdamW moments, the sharded keys and the kernels'
+    launches.  ``one_process``: the same steps in a process of its own on
+    the whole batch (the reference), its rows in ``inputs["order"]`` when
+    given."""
+    from pose2room_tpu_torch import kernels
+    from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
+    from pose2room_tpu_torch.parallel import batch_shard, make_grid
+    from pose2room_tpu_torch.parallel.tensor import full_state_dict, gather_state_dict, shard_module_, sharded_keys
+    from pose2room_tpu_torch.train.state import make_optimizer
+    from pose2room_tpu_torch.train.step import batch_to_device, train_step
+
+    tp = inputs.get("tp", 1)
+    grid = None if one_process else make_grid(tp)
+    n = 1 if one_process else process_count()
+    B = len(inputs["batch"]["input_joints"])
+    ranks = grid.model_ranks if grid is not None else (0 if one_process else process_index(),)
+    rows = inputs.get("order") or [i for r in ranks for i in range(B)[r::n]]
+    batch = batch_to_device({k: v[rows] for k, v in inputs["batch"].items()}, "cpu")
+    eps = {k: torch.from_numpy(v[rows].copy()) for k, v in inputs["eps"].items()}
+    out = {}
+    try:
+        for fused in inputs["paths"]:
+            model = P2RNet(P2RNetConfig(**inputs["sizes"], fused_train=fused, compute_dtype="bfloat16"), device="cpu")
+            model.load_state_dict(inputs["state_dict"])
+            optimizer, _, clip_norm = make_optimizer(model, inputs["optimizer"])
+            if grid is not None:
+                shard_module_(model, optimizer)
+            net = model if one_process else wrap_model(model)
+            shard = (0, 1) if one_process else batch_shard()
+            res = {"losses": [], "state": [], "sums": []}
+            kernels.reset_launch_counts()
+            for i in range(2):
+                with recorded_sums(res["sums"] if i == 0 else [], one_process,
+                                   forced[fused] if forced is not None and i == 0 else None):
+                    step_losses, end_points = train_step(net, optimizer, batch, eps=eps, clip_norm=clip_norm,
+                                                         shard=shard)
+                res["losses"].append({k: float(v) for k, v in step_losses.items()})
+                if i == 0:
+                    # clipped in place by g / norm * clip_norm: undo it
+                    scale = max(res["losses"][0]["grad_norm"] / clip_norm, 1.0) if clip_norm > 0 else 1.0
+                    grads = {k: p.grad * scale for k, p in model.named_parameters()}
+                    res["grads"] = gather_state_dict(grads, sharded_keys(model))
+                    res["picks"] = {k: end_points[k].clone() for k in ("seed_inds", "aggregated_vote_inds")}
+                res["state"].append({k: v.detach().clone() for k, v in full_state_dict(model).items()})
+            res["launches"] = dict(kernels.LAUNCHES)
+            res["sharded"] = sharded_keys(model)
+            res["own"] = {**{k: v.detach().clone() for k, v in model.state_dict().items()},
+                          **{f"{k}/{m}": optimizer.state[p][m].clone() for k, p in model.named_parameters()
+                             for m in ("exp_avg", "exp_avg_sq")}}
+            out[fused] = res
+    finally:
+        if grid is not None:
+            make_grid(1)
+    return out
+
+
+def tp_dense_grad(inputs):
+    """A bf16 column-parallel dense layer at tp ``inputs["tp"]``
+    (``models.layers.column_parallel_dense``) on a whole f32 input ``x``
+    with this rank's block of ``w`` (out, in) and the whole bias: its output
+    and the input's gradient under the output gradient ``dy``, and this
+    rank's own f32 product for that gradient (before the group's sum and
+    the rounding to bf16), by the same autograd op."""
+    from pose2room_tpu_torch.models.layers import column_parallel_dense
+    from pose2room_tpu_torch.parallel import make_grid
+
+    grid = make_grid(inputs["tp"])
+    try:
+        block = inputs["w"].chunk(grid.tp, 0)[grid.model_index]
+        x = inputs["x"].clone().requires_grad_(True)
+        y = column_parallel_dense(x, block.t(), inputs["b"], torch.bfloat16)
+        (y.float() * inputs["dy"]).sum().backward()
+        xw = x.detach().to(torch.bfloat16).float().requires_grad_(True)
+        own = torch.matmul(xw, block.t().to(torch.bfloat16).float()).to(torch.bfloat16)
+        (own.float() * inputs["dy"].chunk(grid.tp, -1)[grid.model_index]).sum().backward()
+        return {"y": y.detach(), "dx": x.grad, "own": xw.grad}
+    finally:
+        make_grid(1)
+
+
 def quiet_board(**_):
     """A ``LogBoard`` that writes nothing: on this host the board's import
     of tensorboard loads TensorFlow (~17 s a process), and the tests that
@@ -331,5 +546,8 @@ def demo_run(inputs):
 
 SCENARIOS = {"train_steps": train_steps, "card_steps": card_steps, "train_run": train_run, "train_run_lr": train_run,
              "test_run": test_run, "ap_merge": ap_merge, "tp_steps": tp_steps, "tp_train_run": tp_train_run,
-             "tp_test_run": test_run, "demo_run": demo_run}
+             "tp_test_run": test_run, "demo_run": demo_run, "bf16_steps": bf16_steps,
+             "tp_bf16_steps": bf16_steps, "bf16_train_run": tp_train_run, "tp_bf16_train_run": tp_train_run,
+             "test_runs": test_runs, "tp_test_runs": test_runs,
+             "tp_dense_grad": tp_dense_grad}
 
