@@ -32,7 +32,8 @@ from pose2room_tpu_torch.models.graph import SPARSE_JOINT_ORDER, build_spatial_g
 from pose2room_tpu_torch.models.layers import MLP1x1
 from pose2room_tpu_torch.ops import stgcn_fused, stgcn_sparse
 from pose2room_tpu_torch.runners import test as test_runner
-from torch_port_util import SMALL, f32, flax_payload, jax_model, ordinal, port_model, ulps, walking_clip
+from torch_golden import goldens  # noqa: F401  (a fixture)
+from torch_port_util import SMALL, f32, jax_model, ordinal, port_model, ulps, walking_clip
 
 TEST_YAML = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                          "configs", "config_files", "p2rnet_test.yaml")
@@ -41,8 +42,8 @@ VARIANTS = {"dense": dict(), "sparse": dict(sparse_eval=True), "module": dict(fu
 
 
 @pytest.fixture(scope="module")
-def payload():
-    return flax_payload(SMALL["num_gaussian"], seed=3)
+def payload(goldens):
+    return goldens.flax_payload(SMALL["num_gaussian"], seed=3)
 
 
 @pytest.fixture(scope="module")

@@ -49,38 +49,25 @@ from pose2room_tpu_torch.ops import stgcn_train
 from pose2room_tpu_torch.runners import common
 from pose2room_tpu_torch.train import state
 from pose2room_tpu_torch.train.step import GT_KEYS, batch_to_device, train_step
-from torch_port_util import (
-    SMALL,
-    f32,
-    flax_payload,
-    jax_model,
-    mdn_eps_from_jax,
-    ordinal,
-    port_model,
-    scene_batch,
-    ulps,
+from torch_golden import goldens, jax_layer_bf16  # noqa: F401  (fixtures)
+from torch_kernel_cases import (
+    BF16,
+    NAMES,
+    B,
+    C,
+    T,
+    V,
+    W0,
+    Wp,
+    assert_ulp_close,
+    bf16_layer_args,
+    bf16_port_leaves,
+    bf16_round,
 )
+from torch_port_util import SMALL, f32, jax_model, mdn_eps_from_jax, port_model, scene_batch
 
-BF16 = torch.bfloat16
-V, C, T, B = 5, 64, 16, 2
-W0, Wp = V * C, 384
-NAMES = ["x", "M", "bias_col", "g1", "b1", "taps", "cb", "g2", "b2"]
 TRAIN_YAML = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "configs", "config_files", "p2rnet_train.yaml")
-
-
-def bf16_round(a):
-    """numpy f32 -> the same values rounded to bf16 (round to nearest even)."""
-    return torch.from_numpy(np.asarray(a, np.float32)).to(BF16).float().numpy()
-
-
-def assert_ulp_close(got, ref, what, share=1e-3):
-    """Two bf16 arrays (as f32): within 1 bf16 ulp wherever |ref| is above
-    1e-3 of its max, and at most ``share`` of the elements not bit-equal."""
-    got, ref = f32(got), f32(ref)
-    live = np.abs(ref) > 1e-3 * np.abs(ref).max()
-    assert ulps(got[live], ref[live]) <= 1, what
-    assert np.mean(ordinal(got) != ordinal(ref)) <= share, what
 
 
 def assert_bulk_close(a, b, what):
@@ -184,29 +171,6 @@ def test_train_wrappers_refuse_float16():
         stgcn_train.tconv_bwd(dy2.half(), y.half(), vecs, KB.half(), T=T, C=C)
 
 
-def _layer_args(seed, residual):
-    """The f32 layer operands of tests/test_torch_train_layer.py, x and M
-    rounded to bf16 (the chain dtype), the rest f32."""
-    rng = np.random.RandomState(seed)
-    x = np.zeros((B, T, Wp), np.float32)
-    x[..., :W0] = rng.randn(B, T, W0) * 0.6
-    if not residual:
-        x = x[..., :W0].copy()  # block 0: the unpadded merged input
-    M = np.zeros((Wp, Wp), np.float32)
-    M[:W0, :W0] = rng.randn(W0, W0) * 0.04
-    bias_col = np.zeros(Wp, np.float32)
-    bias_col[:W0] = rng.randn(W0) * 0.1
-    f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
-    return [bf16_round(x), bf16_round(M), bias_col, 0.7 + rng.rand(C).astype(np.float32), f(C) * 0.2,
-            f(3, C, C) * 0.15, f(C) * 0.1, 0.7 + rng.rand(C).astype(np.float32), f(C) * 0.2]
-
-
-def _port_leaves(arrays):
-    """x and M in bf16, the rest f32, each a leaf that takes a gradient."""
-    return [torch.from_numpy(a.copy()).to(BF16 if i < 2 else torch.float32).requires_grad_()
-            for i, a in enumerate(arrays)]
-
-
 @pytest.mark.parametrize("residual", [False, True])
 def test_custom_backward_bf16_matches_autograd(residual):
     """FusedTrainLayer's hand-written backward in bf16 against torch autograd
@@ -214,11 +178,11 @@ def test_custom_backward_bf16_matches_autograd(residual):
     code (bit for bit); each gradient within 3e-2 of max(|g|, 1e-3) (JAX
     test_custom_vjp_matches_autodiff's bf16 band); the conv bias's analytic
     zero against autodiff's noise, under 0.3 of the b2 gradient's scale."""
-    args = _layer_args(3, residual)
+    args = bf16_layer_args(3, residual)
     w = torch.from_numpy(bf16_round(np.random.RandomState(4).randn(B, T, Wp)))
     results = []
     for fn in (stgcn_train.FusedTrainLayer.apply, stgcn_train.train_layer_ref):
-        leaves = _port_leaves(args)
+        leaves = bf16_port_leaves(args)
         outs = fn(*leaves, residual, V, C, T)
         (outs[0].float() * w).sum().backward()
         results.append(([o.detach() for o in outs], [leaf.grad for leaf in leaves]))
@@ -244,28 +208,6 @@ def test_custom_backward_bf16_matches_autograd(residual):
         assert (a - b).abs().max().item() <= 3e-2 * scale, name
 
 
-@pytest.fixture(scope="module")
-def jax_layer_bf16():
-    """make_train_layer(dtype=bfloat16) (custom VJP, plain branch on the
-    CPU): outputs and the gradients of sum(out * w) for both residual
-    settings."""
-    results = {}
-    for residual in (False, True):
-        args = _layer_args(10 + residual, residual)
-        jargs = [jnp.asarray(a, jnp.bfloat16 if i < 2 else jnp.float32) for i, a in enumerate(args)]
-        w = bf16_round(np.random.RandomState(20).randn(B, T, Wp))
-        layer = jax_train.make_train_layer(residual, V, C, T, dtype="bfloat16")
-        outs = layer(*jargs)
-
-        def loss(*a):
-            return jnp.sum(layer(*a)[0].astype(jnp.float32) * w)
-
-        grads = jax.grad(loss, argnums=tuple(range(9)))(*jargs)
-        results[residual] = (args, [np.asarray(o, np.float32) for o in outs],
-                             [np.asarray(g, np.float32) for g in grads], w)
-    return results
-
-
 @pytest.mark.parametrize("residual", [False, True])
 def test_layer_bf16_matches_jax(jax_layer_bf16, residual):
     """FusedTrainLayer in bf16 against the JAX package's: the output within
@@ -273,7 +215,7 @@ def test_layer_bf16_matches_jax(jax_layer_bf16, residual):
     relative, each gradient within 1e-2 of its max|g|; dM bf16 like M, the
     conv bias's gradient exactly 0 in both."""
     args, outs_j, grads_j, w = jax_layer_bf16[residual]
-    leaves = _port_leaves(args)
+    leaves = bf16_port_leaves(args)
     outs = stgcn_train.FusedTrainLayer.apply(*leaves, residual, V, C, T)
     (outs[0].float() * torch.from_numpy(w)).sum().backward()
     assert outs[0].dtype == BF16
@@ -482,11 +424,11 @@ STEP_BATCH_SEED = 4
 
 
 @pytest.fixture(scope="module")
-def bf16_step_case():
+def bf16_step_case(goldens):
     """The JAX side of one bf16 train step at the SMALL sizes (fused train
     chain on its plain branch, jit): losses, grads, new batch stats,
     end_points, on scene batch STEP_BATCH_SEED."""
-    payload = flax_payload(SMALL["num_gaussian"], seed=5)
+    payload = goldens.flax_payload(SMALL["num_gaussian"], seed=5)
     vote_head = payload["params"]["centervoting"]["conv_input"]["dense2"]
     vote_head["kernel"] = vote_head["kernel"] * np.float32(0.1)  # votes near the hips: live box terms
     variables = {"params": payload["params"], "batch_stats": payload["batch_stats"]}
@@ -503,7 +445,8 @@ def bf16_step_case():
             out, mut = model.apply({"params": p, "batch_stats": variables["batch_stats"]},
                                    jbatch["input_joints"], train=True, rngs={"mdn": key},
                                    mutable=["batch_stats"])
-            return jax_detection_loss(out, gt)["total"], (jax_detection_loss(out, gt), mut, out)
+            losses = jax_detection_loss(out, gt)  # once: the eager pass below pays each call in full
+            return losses["total"], (losses, mut, out)
 
         return jax.value_and_grad(loss_fn, has_aux=True)(params)
 

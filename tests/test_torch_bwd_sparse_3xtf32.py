@@ -2,7 +2,7 @@
 (csrc/stgcn_sparse.cu), emulated on the CPU in each kernel's own order.
 
 Both form their products on the tensor cores in 3xTF32 with the rules of
-csrc/tconv_mma.cuh, which tests/test_torch_tconv_3xtf32.py emulates
+csrc/tconv_mma.cuh, which tests/torch_kernel_cases.py emulates
 (``split``, ``kstep_accumulate``: three products per k-step of 8 in a fresh
 fragment, folded into the f32 accumulator).  Here:
 
@@ -29,9 +29,9 @@ from pose2room_tpu.ops import stgcn_train as jax_train
 from pose2room_tpu_torch.models import stgcn as port_stgcn
 from pose2room_tpu_torch.models.graph import SPARSE_JOINT_ORDER, build_spatial_graph
 from pose2room_tpu_torch.ops import stgcn_fused, stgcn_sparse, stgcn_train
-from test_torch_tconv_3xtf32 import emulated_kernel_tconv, kstep_accumulate
-from test_torch_train_layer import NAMES, _layer_args
-from torch_port_util import SMALL, assert_generate_close, flax_payload, jax_model, port_model, to_numpy, walking_clip
+from torch_golden import goldens, jax_layer  # noqa: F401  (fixtures)
+from torch_kernel_cases import NAMES, emulated_kernel_tconv, kstep_accumulate, layer_args, sparse_chunks
+from torch_port_util import SMALL, assert_generate_close, port_model, to_numpy, walking_clip
 
 ROWS = 128  # rows of a tile (tconv_mma.cuh: kRows)
 C = 64
@@ -128,17 +128,14 @@ def test_emulated_kernel4_within_2e7_of_plain(rng, slots):
     assert np.max(np.abs(dtaps - dtaps_ref) / gmag) <= 2e-7
 
 
-def test_train_layer_backward_with_emulated_kernel4_matches_jax(monkeypatch):
+def test_train_layer_backward_with_emulated_kernel4_matches_jax(jax_layer, monkeypatch):
     """One fused train layer (residual) whose backward runs kernel 4's
-    emulated arithmetic, against jax.grad of the JAX train layer, in the
-    bands of tests/test_torch_train_layer.py."""
+    emulated arithmetic, against jax.grad of the JAX train layer
+    (``torch_golden.jax_layer``), in the bands of
+    tests/test_torch_train_layer.py."""
     V, T, B, Wp = 5, 16, 2, 384
-    args = _layer_args(11, True)
-    w = np.random.RandomState(20).randn(B, T, Wp).astype(np.float32)
-    layer = jax_train.make_train_layer(True, V, C, T, dtype="float32")
-    jargs = [jnp.asarray(a) for a in args]
-    outs_j = [np.asarray(o) for o in layer(*jargs)]
-    grads_j = jax.grad(lambda *a: (layer(*a)[0] * w).sum(), argnums=tuple(range(9)))(*jargs)
+    args = layer_args(11, True)
+    outs_j, grads_j, w = jax_layer[True]
     calls = []
 
     def emulated(dy2, y, vecs, KBT, *, T, C):
@@ -164,18 +161,6 @@ def test_train_layer_backward_with_emulated_kernel4_matches_jax(monkeypatch):
 # ---------------------------------------------------------------------------
 # kernel 5
 # ---------------------------------------------------------------------------
-
-def sparse_chunks(col_off, cap):
-    """(w, j0, j1) of each chunk of the CSR lists, in (column, chunk) order:
-    a list of L tiles cut into max(1, ceil(L / cap)) near-equal chunks
-    (csrc/stgcn_sparse.cu)."""
-    chunks = []
-    for w in range(len(col_off) - 1):
-        lo, L = int(col_off[w]), int(col_off[w + 1] - col_off[w])
-        n = max(1, -(-L // cap))
-        chunks += [(w, lo + q * L // n, lo + (q + 1) * L // n) for q in range(n)]
-    return chunks
-
 
 def emulated_kernel5_acc(x, tiles, col_off, vlist, cap):
     """x @ M (N, Wp) as kernel 5 sums it: per chunk, its tiles in list order
@@ -246,15 +231,13 @@ def test_emulated_kernel5_matches_plain(rng, natural, cap):
     assert np.all(out[:, pad * C:(pad + 1) * C] == 0)
 
 
-def test_sparse_generate_small_with_emulated_kernel5_matches_jax(monkeypatch):
+def test_sparse_generate_small_with_emulated_kernel5_matches_jax(goldens, monkeypatch):
     """The SMALL sparse chain with kernel 5's emulated arithmetic in every
     block (cap 4: the longer lists split): indices equal to the JAX
     package's, floats in its bands."""
-    payload = flax_payload(SMALL["num_gaussian"], seed=3)
+    payload = goldens.flax_payload(SMALL["num_gaussian"], seed=3)
     x = walking_clip(np.random.RandomState(0), 2, SMALL["num_frames"])
-    jvars = {"params": payload["params"], "batch_stats": payload["batch_stats"]}
-    ref = jax.tree_util.tree_map(
-        np.asarray, jax_model(SMALL, sparse_eval=True).apply(jvars, x, method=JaxP2RNet.generate))
+    ref = goldens.jax_generate_small(sparse_eval=True)  # JAX's sparse generate on these weights and clips
     calls = []
 
     def emulated(h, m_tiles, vecs, col_off, vlist):

@@ -13,6 +13,7 @@ import jax
 from pose2room_tpu.data.dataset import load_demo_clip as jax_load_demo_clip
 from pose2room_tpu.models import P2RNet as JaxP2RNet
 from pose2room_tpu_torch.data.dataset import load_demo_clip
+from torch_golden import goldens  # noqa: F401  (a fixture)
 from torch_port_util import (
     FULL,
     SMALL,
@@ -34,8 +35,8 @@ def clip():
     return x
 
 
-def test_generate_production_shape_matches_jax(clip):
-    payload = flax_payload(FULL["num_gaussian"], seed=5)
+def test_generate_production_shape_matches_jax(clip, goldens):
+    payload = goldens.flax_payload(FULL["num_gaussian"], seed=5)
     variables = {"params": payload["params"], "batch_stats": payload["batch_stats"]}
     ref = jax.tree_util.tree_map(
         np.asarray, jax_model(FULL).apply(variables, clip, method=JaxP2RNet.generate)

@@ -21,7 +21,7 @@ from pose2room_tpu.ops import sampling as jax_sampling
 from pose2room_tpu.ops import stgcn_fused as jax_fused
 from pose2room_tpu_torch import kernels
 from pose2room_tpu_torch.ops import sampling, stgcn_fused
-from test_torch_gpu import FPS_KINDS, FPS_TIED_PAIRS, fps_cloud
+from torch_fps_clouds import FPS_KINDS, FPS_TIED_PAIRS, fps_cloud
 
 
 def _layer_operands(rng, B, T, W0, C=64):

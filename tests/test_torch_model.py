@@ -24,6 +24,7 @@ from pose2room_tpu_torch.models.graph import build_spatial_graph
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
 from pose2room_tpu_torch.models.stgcn import blocked_cumsum
 from pose2room_tpu_torch.runners import train as train_runner
+from torch_golden import goldens  # noqa: F401  (a fixture)
 from torch_port_util import (
     SMALL,
     assert_generate_close,
@@ -39,8 +40,8 @@ TRAIN_YAML = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file
 
 
 @pytest.fixture(scope="module")
-def payload():
-    return flax_payload(SMALL["num_gaussian"], seed=3)
+def payload(goldens):
+    return goldens.flax_payload(SMALL["num_gaussian"], seed=3)
 
 
 @pytest.fixture(scope="module")
@@ -115,16 +116,19 @@ def test_fold_matches_jax(payload, port):
     dict(cluster_sampling="seed_fps"),
     dict(vote_factor=2),
 ])
-def test_generate_small_matches_jax(payload, jax_variables, kw):
+def test_generate_small_matches_jax(payload, jax_variables, goldens, kw):
     """Fused chain, module path, seed_fps proposals and two votes per seed.
     vote_factor changes parameter shapes, so it gets its own weights."""
     x = walking_clip(np.random.RandomState(0), 2, SMALL["num_frames"])
     if "vote_factor" in kw:
         payload = flax_payload(SMALL["num_gaussian"], seed=4, vote_factor=kw["vote_factor"])
         jax_variables = {"params": payload["params"], "batch_stats": payload["batch_stats"]}
-    ref = jax.tree_util.tree_map(
-        np.asarray, jax_model(SMALL, **kw).apply(jax_variables, x, method=JaxP2RNet.generate)
-    )
+    if kw:
+        ref = jax.tree_util.tree_map(
+            np.asarray, jax_model(SMALL, **kw).apply(jax_variables, x, method=JaxP2RNet.generate)
+        )
+    else:  # the same call on the same weights and clips, shared with other files
+        ref = goldens.jax_generate_small(sparse_eval=False)
     model = port_model(SMALL, payload, **kw)
     got = to_numpy(model.generate(torch.from_numpy(x), folded=model.fold_eval()))
     assert set(got) == set(ref)

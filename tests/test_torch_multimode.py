@@ -37,12 +37,12 @@ from pose2room_tpu_torch.data.synth import write_synthetic_dataset
 from pose2room_tpu_torch.eval import multi_modal
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
 from pose2room_tpu_torch.runners import test as test_runner
+from torch_golden import goldens  # noqa: F401  (a fixture)
 from torch_port_util import (
     REPO,
     SMALL,
     assert_generate_close,
     f32,
-    flax_payload,
     jax_generate_multi,
     jax_multi_draws,
     jax_test_metrics,
@@ -59,8 +59,8 @@ MASK_BAND = 1e-4  # flipped share of the Bernoulli weights
 
 
 @pytest.fixture(scope="module")
-def payload():
-    return flax_payload(SMALL["num_gaussian"], seed=3)
+def payload(goldens):
+    return goldens.flax_payload(SMALL["num_gaussian"], seed=3)
 
 
 @pytest.fixture(scope="module")

@@ -20,11 +20,11 @@ from pose2room_tpu.ops import stgcn_sparse as jax_sparse
 from pose2room_tpu_torch.data.dataset import load_demo_clip
 from pose2room_tpu_torch.models.graph import SPARSE_JOINT_ORDER, build_spatial_graph
 from pose2room_tpu_torch.ops import stgcn_sparse
+from torch_golden import goldens  # noqa: F401  (a fixture)
 from torch_port_util import (
     FULL,
     SMALL,
     assert_generate_close,
-    flax_payload,
     jax_model,
     port_model,
     to_numpy,
@@ -42,8 +42,8 @@ def _support():
 
 
 @pytest.fixture(scope="module")
-def payload():
-    return flax_payload(SMALL["num_gaussian"], seed=3)
+def payload(goldens):
+    return goldens.flax_payload(SMALL["num_gaussian"], seed=3)
 
 
 def test_sparse_joint_order_matches_jax():
@@ -168,14 +168,12 @@ def test_fold_sparse_matches_jax(payload):
     np.testing.assert_array_equal(cj_bias.numpy(), dense["conv_joint"][1].numpy())
 
 
-def test_sparse_generate_small_matches_jax(payload):
+def test_sparse_generate_small_matches_jax(payload, goldens):
     """Whole sparse ``generate`` against the JAX package's sparse generate,
     and its seed features against the JAX sparse backbone and the port's
     dense chain within 2e-5 of their scale (tests/test_stgcn_sparse.py)."""
-    jvars = {"params": payload["params"], "batch_stats": payload["batch_stats"]}
     x = walking_clip(np.random.RandomState(0), 2, SMALL["num_frames"])
-    ref = jax.tree_util.tree_map(
-        np.asarray, jax_model(SMALL, sparse_eval=True).apply(jvars, x, method=JaxP2RNet.generate))
+    ref = goldens.jax_generate_small(sparse_eval=True)  # JAX's sparse generate on these weights and clips
     model = port_model(SMALL, payload, sparse_eval=True)
     got = to_numpy(model.generate(torch.from_numpy(x), folded=model.fold_eval()))
     assert_generate_close(got, ref)
@@ -188,10 +186,10 @@ def test_sparse_generate_small_matches_jax(payload):
     np.testing.assert_array_equal(inline["seed_features"], got["seed_features"])
 
 
-def test_sparse_generate_production_shape_matches_jax():
+def test_sparse_generate_production_shape_matches_jax(goldens):
     x = load_demo_clip(DEMO_CLIP, num_frames=768)[None]
     np.testing.assert_array_equal(x[0], jax_load_demo_clip(DEMO_CLIP, num_frames=768))
-    payload = flax_payload(FULL["num_gaussian"], seed=5)
+    payload = goldens.flax_payload(FULL["num_gaussian"], seed=5)
     jvars = {"params": payload["params"], "batch_stats": payload["batch_stats"]}
     ref = jax.tree_util.tree_map(
         np.asarray, jax_model(FULL, sparse_eval=True).apply(jvars, x, method=JaxP2RNet.generate))

@@ -31,8 +31,9 @@ from pose2room_tpu.ops import stgcn_sparse as jax_sparse
 from pose2room_tpu_torch.models import stgcn as port_stgcn
 from pose2room_tpu_torch.models.graph import SPARSE_JOINT_ORDER, build_spatial_graph
 from pose2room_tpu_torch.ops import stgcn_sparse
-from test_torch_bwd_sparse_3xtf32 import sparse_chunks
-from torch_port_util import SMALL, f32, flax_payload, jax_model, port_model, ulps, walking_clip
+from torch_kernel_cases import sparse_chunks
+from torch_golden import goldens  # noqa: F401  (a fixture)
+from torch_port_util import SMALL, f32, jax_model, port_model, ulps, walking_clip
 
 BF16 = torch.bfloat16
 SHIPPED_FOLD = 4  # csrc/stgcn_sparse.cu: kFold
@@ -53,14 +54,8 @@ def to_bf16(a):
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(BF16).float().numpy()
 
 
-def truncate_f32(a):
-    """float64 -> the f32 next to it toward zero (the tensor cores' adds)."""
-    f = a.astype(np.float32)
-    return np.where(np.abs(f.astype(np.float64)) > np.abs(a), np.nextafter(f, np.float32(0)), f)
-
-
 def truncate_f32_torch(a):
-    """``truncate_f32`` of a float64 tensor."""
+    """``torch_kernel_cases.truncate_f32`` of a float64 tensor."""
     f = a.float()
     return torch.where(f.double().abs() > a.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
 
@@ -175,13 +170,13 @@ def test_emulated_bf16_accumulator_against_float64(full_b1):
     assert np.all(acc[~live] == 0)
 
 
-def test_sparse_bf16_generate_small_with_emulated_kernel_matches_jax(monkeypatch):
+def test_sparse_bf16_generate_small_with_emulated_kernel_matches_jax(goldens, monkeypatch):
     """The SMALL sparse bf16 chain with the bf16 leg's emulated order in
     every block (cap 4: the longer lists split): seed and proposal indices
     equal to the JAX package's bf16 generate, seed features within 1e-2 of
     their max and the other outputs within 0.05 of theirs (the bands of
     tests/test_torch_bf16.py::test_generate_matches_jax)."""
-    payload = flax_payload(SMALL["num_gaussian"], seed=3)
+    payload = goldens.flax_payload(SMALL["num_gaussian"], seed=3)
     clip = walking_clip(np.random.RandomState(2), 2, SMALL["num_frames"])
     jvars = {"params": payload["params"], "batch_stats": payload["batch_stats"]}
     jm = jax_model(SMALL, compute_dtype="bfloat16", sparse_eval=True)

@@ -3,10 +3,10 @@
 On the card the ST-GCN temporal conv runs on the tensor cores in 3xTF32:
 every operand a splits into big = rna_tf32(a) and small = rna_tf32(a - big),
 and each k-step of 8 sums small*big, big*small and big*big into a fresh
-fragment that an f32 add folds into the accumulator.  The emulation here
-(numpy, this file only) rounds to 10 explicit mantissa bits with ties away
-from zero, forms the products in float64 and rounds every sum to f32, and
-shows that:
+fragment that an f32 add folds into the accumulator.  The emulation
+(numpy, tests/torch_kernel_cases.py) rounds to 10 explicit mantissa bits
+with ties away from zero, forms the products in float64 and rounds every
+sum to f32; this file shows that:
 
 * one full-width block at B=1 stays within 2e-6 of sum |a*b| of the plain
   f32 version (``epilogue_merged_ref``);
@@ -22,43 +22,15 @@ import torch
 
 from pose2room_tpu.models import P2RNet as JaxP2RNet
 from pose2room_tpu_torch.ops import stgcn_fused
+from torch_kernel_cases import KSTEP, emulated_kernel_tconv, kstep_accumulate, split
+from torch_golden import goldens  # noqa: F401  (a fixture)
 from torch_port_util import (
     SMALL,
     assert_generate_close,
-    flax_payload,
-    jax_model,
     port_model,
     to_numpy,
     walking_clip,
 )
-
-KSTEP = 8  # depth of one m16n8k8 product
-
-
-def rna_tf32(a):
-    """f32 -> the nearest value with 10 explicit mantissa bits, ties away
-    from zero (cvt.rna.tf32.f32), as f32."""
-    bits = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
-    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
-
-
-def split(a):
-    a = np.asarray(a, dtype=np.float32)
-    big = rna_tf32(a)
-    return big, rna_tf32(a - big)
-
-
-def kstep_accumulate(acc, a, b):
-    """acc (f32) += one k-step as the kernel sums it: a (..., 8) @ b (..., 8, n)."""
-    (ab, as_), (bb, bs) = split(a), split(b)
-
-    def prod(x, y):
-        return np.matmul(x.astype(np.float64), y.astype(np.float64))
-
-    part = prod(as_, bb).astype(np.float32)
-    part = (part + prod(ab, bs)).astype(np.float32)
-    part = (part + prod(ab, bb)).astype(np.float32)
-    return (acc + part).astype(np.float32)
 
 
 def emulated_tconv_group(h, tap):
@@ -71,24 +43,6 @@ def emulated_tconv_group(h, tap):
     for k0 in range(0, stgcn_fused.LANE, KSTEP):
         acc = kstep_accumulate(acc, a[:, k0:k0 + KSTEP], b[k0:k0 + KSTEP])
     return torch.from_numpy(acc.reshape(B, T, Wp))
-
-
-def emulated_kernel_tconv(t1, KB, C=64):
-    """The kernels' temporal conv of t1 (T, Wp): per joint, the three taps'
-    diagonal C x C blocks at (col0 % 128), all 3 x C/8 k-steps into one
-    accumulator, rows outside the clip zero."""
-    T, Wp = t1.shape
-    J = Wp // C
-    zero = np.zeros((1, Wp), np.float32)
-    shifted = [np.concatenate([zero, t1[:-1]]), t1, np.concatenate([t1[1:], zero])]
-    acc = np.zeros((J, T, C), np.float32)
-    for s in range(3):
-        a = shifted[s].reshape(T, J, C).transpose(1, 0, 2)  # (J, T, C)
-        taps = np.stack([KB[s, (j * C) % 128:(j * C) % 128 + C, (j * C) % 128:(j * C) % 128 + C]
-                         for j in range(J)])  # (J, C, C)
-        for k0 in range(0, C, KSTEP):
-            acc = kstep_accumulate(acc, a[..., k0:k0 + KSTEP], taps[:, k0:k0 + KSTEP])
-    return acc.transpose(1, 0, 2).reshape(T, Wp)
 
 
 def _block_operands(rng, T=768, W0=3392):
@@ -158,14 +112,12 @@ def test_emulated_block_within_2e6_of_plain(rng, residual):
 
 
 @pytest.mark.parametrize("sparse_eval", [False, True])
-def test_generate_small_with_emulated_tconv_matches_jax(monkeypatch, sparse_eval):
+def test_generate_small_with_emulated_tconv_matches_jax(goldens, monkeypatch, sparse_eval):
     """The dense and the sparse eval chains at SMALL with the 3xTF32 conv in
     every block: indices equal to the JAX package's, floats in its bands."""
-    payload = flax_payload(SMALL["num_gaussian"], seed=3)
+    payload = goldens.flax_payload(SMALL["num_gaussian"], seed=3)
     x = walking_clip(np.random.RandomState(0), 2, SMALL["num_frames"])
-    jvars = {"params": payload["params"], "batch_stats": payload["batch_stats"]}
-    ref = jax.tree_util.tree_map(
-        np.asarray, jax_model(SMALL, sparse_eval=sparse_eval).apply(jvars, x, method=JaxP2RNet.generate))
+    ref = goldens.jax_generate_small(sparse_eval)  # JAX's generate on these weights and clips
     calls = []
 
     def counted(h, tap):

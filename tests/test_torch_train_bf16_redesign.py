@@ -35,21 +35,19 @@ import torch
 
 from pose2room_tpu.ops import stgcn_train as jax_train
 from pose2room_tpu_torch.ops import stgcn_train
-from test_torch_bf16_train import (  # noqa: F401  (jax_layer_bf16 is a fixture)
-    B,
-    C,
+from torch_golden import goldens, jax_layer_bf16  # noqa: F401  (fixtures)
+from torch_kernel_cases import (
     NAMES,
+    C,
     T as T_LAYER,
     V,
     W0,
     Wp,
-    _layer_args,
-    _port_leaves,
     assert_ulp_close,
+    bf16_port_leaves,
     bf16_round,
-    jax_layer_bf16,
+    truncate_f32,
 )
-from test_torch_sparse_wgmma import truncate_f32
 from torch_port_util import f32
 
 BF16 = torch.bfloat16
@@ -369,7 +367,7 @@ def test_layer_bf16_with_emulated_legs_matches_jax(jax_layer_bf16, monkeypatch, 
                         lambda *a, **k: calls.append("fwd") or _emulated_fwd_wrapper(*a, **k))
     monkeypatch.setattr(stgcn_train, "tconv_bwd", lambda *a, **k: calls.append("bwd") or _emulated_bwd_wrapper(*a, **k))
     args, outs_j, grads_j, w = jax_layer_bf16[residual]
-    leaves = _port_leaves(args)
+    leaves = bf16_port_leaves(args)
     outs = stgcn_train.FusedTrainLayer.apply(*leaves, residual, V, C, T_LAYER)
     (outs[0].float() * torch.from_numpy(w)).sum().backward()
     assert calls == ["fwd", "bwd"]

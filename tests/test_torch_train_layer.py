@@ -26,10 +26,8 @@ from pose2room_tpu_torch.models.graph import build_spatial_graph
 from pose2room_tpu_torch.models.layers import MLP1x1, STGCNBlock
 from pose2room_tpu_torch.ops import stgcn_train
 from pose2room_tpu_torch.ops.stgcn_fused import block_diag_taps
-
-V, C, T, B = 5, 64, 16, 2
-W0, Wp = V * C, 384
-NAMES = ["x", "M", "bias_col", "g1", "b1", "taps", "cb", "g2", "b2"]
+from torch_golden import goldens, jax_layer  # noqa: F401  (fixtures)
+from torch_kernel_cases import B, C, NAMES, T, V, W0, Wp, layer_args
 
 
 def _kernel_operands(seed):
@@ -45,40 +43,6 @@ def _kernel_operands(seed):
     dy2[:, :W0] = rng.randn(B * T, W0) * 0.5
     KB = np.array(jax_train._block_diag_taps(jnp.asarray(taps)))
     return y, vecs, KB, dy2
-
-
-def _layer_args(seed, residual):
-    rng = np.random.RandomState(seed)
-    x = np.zeros((B, T, Wp), np.float32)
-    x[..., :W0] = rng.randn(B, T, W0) * 0.6
-    if not residual:
-        x = x[..., :W0].copy()  # block 0: the unpadded merged input
-    M = np.zeros((Wp, Wp), np.float32)
-    M[:W0, :W0] = rng.randn(W0, W0) * 0.04
-    bias_col = np.zeros(Wp, np.float32)
-    bias_col[:W0] = rng.randn(W0) * 0.1
-    f = lambda *s: rng.randn(*s).astype(np.float32)  # noqa: E731
-    return [x, M, bias_col, 0.7 + rng.rand(C).astype(np.float32), f(C) * 0.2,
-            f(3, C, C) * 0.15, f(C) * 0.1, 0.7 + rng.rand(C).astype(np.float32), f(C) * 0.2]
-
-
-@pytest.fixture(scope="module")
-def jax_layer():
-    """make_train_layer (f32, custom VJP, plain branch on the CPU): outputs
-    and gradients of sum(out * w) for both residual settings."""
-    results = {}
-    for residual in (False, True):
-        args = [jnp.asarray(a) for a in _layer_args(10 + residual, residual)]
-        w = jnp.asarray(np.random.RandomState(20).randn(B, T, Wp).astype(np.float32))
-        layer = jax_train.make_train_layer(residual, V, C, T, dtype="float32")
-        outs = layer(*args)
-
-        def loss(*a):
-            return jnp.sum(layer(*a)[0] * w)
-
-        grads = jax.grad(loss, argnums=tuple(range(9)))(*args)
-        results[residual] = ([np.asarray(o) for o in outs], [np.asarray(g) for g in grads], np.array(w))
-    return results
 
 
 def _copy_mlp(port, params, stats):
@@ -171,7 +135,7 @@ def test_tconv_bwd_matches_jax():
 def test_custom_backward_matches_autograd(residual):
     """FusedTrainLayer's hand-written backward == torch autograd of the
     identical forward built from the plain versions."""
-    args = [torch.from_numpy(a) for a in _layer_args(3, residual)]
+    args = [torch.from_numpy(a) for a in layer_args(3, residual)]
     w = torch.from_numpy(np.random.RandomState(4).randn(B, T, Wp).astype(np.float32))
     results = []
     for fn in (stgcn_train.FusedTrainLayer.apply, stgcn_train.train_layer_ref):
@@ -201,7 +165,7 @@ def test_custom_backward_matches_autograd(residual):
 @pytest.mark.parametrize("residual", [False, True])
 def test_layer_matches_jax_grad(jax_layer, residual):
     outs_j, grads_j, w = jax_layer[residual]
-    leaves = [torch.from_numpy(a).requires_grad_() for a in _layer_args(10 + residual, residual)]
+    leaves = [torch.from_numpy(a).requires_grad_() for a in layer_args(10 + residual, residual)]
     outs = stgcn_train.FusedTrainLayer.apply(*leaves, residual, V, C, T)
     (outs[0] * torch.from_numpy(w)).sum().backward()
     for name, a, b in zip(("out", "mean1", "var1", "mean2", "var2"), outs, outs_j):

@@ -51,7 +51,8 @@ from pose2room_tpu_torch.runners import common
 from pose2room_tpu_torch.train import state
 from pose2room_tpu_torch.train.step import GT_KEYS, batch_to_device, train_step
 from pose2room_tpu_torch.utils.profiling import ProfileWindow
-from torch_port_util import SMALL, flax_payload, jax_model, mdn_eps_from_jax, port_model, scene_batch
+from torch_golden import goldens  # noqa: F401  (a fixture)
+from torch_port_util import SMALL, jax_model, mdn_eps_from_jax, port_model, scene_batch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_YAML = os.path.join(REPO, "configs", "config_files", "p2rnet_train.yaml")
@@ -212,10 +213,10 @@ def test_unported_train_options_raise(section, tmp_path):
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def step_case():
+def step_case(goldens):
     """The JAX side of one train step at the SMALL sizes (f32, fused train
     chain on its plain branch): losses, grads, new batch stats, end_points."""
-    payload = flax_payload(SMALL["num_gaussian"], seed=5)
+    payload = goldens.flax_payload(SMALL["num_gaussian"], seed=5)
     # smaller vote offsets: votes stay near the hips, which walk through the
     # objects, so some proposals are positive and every box term is live
     vote_head = payload["params"]["centervoting"]["conv_input"]["dense2"]

@@ -12,7 +12,9 @@ for one rank, gloo for several), runs each scenario ``name`` of
 wall seconds}) to ``<tmpdir>/rank<r>.pt``;
 ``Ranks.results()`` waits for them and returns those dicts in rank order.
 The ranks import the port only (no JAX), and a rank that fails, or ranks
-that outlast ``timeout`` seconds, fail ``results()``.
+that outlast ``timeout`` seconds, fail ``results()``: the error names each
+rank's state (the scenario it was in and for how long, its exit code,
+whether it saved its results), and every later call raises it again.
 """
 
 import contextlib
@@ -60,6 +62,8 @@ def _rank_main(rank, nprocs, port, inputs, tmpdir, device, threads):
     try:
         out, seconds = {}, {}
         for name, args in inputs.items():
+            with open(os.path.join(tmpdir, f"rank{rank}.at"), "w") as f:
+                f.write(f"{name} {time.time()}")
             t0 = time.perf_counter()
             out[name] = SCENARIOS[name](args)
             seconds[name] = time.perf_counter() - t0
@@ -70,23 +74,50 @@ def _rank_main(rank, nprocs, port, inputs, tmpdir, device, threads):
 
 class Ranks:
     def __init__(self, nprocs, inputs, tmpdir, device="cpu", timeout=600, threads=RANK_THREADS):
-        self.nprocs, self.tmpdir = nprocs, str(tmpdir)
+        self.nprocs, self.tmpdir, self.timeout = nprocs, str(tmpdir), timeout
         os.makedirs(self.tmpdir, exist_ok=True)
         self._deadline = time.monotonic() + timeout
         self._context = mp.start_processes(_rank_main, args=(nprocs, free_port(), inputs, self.tmpdir, device, threads),
                                            nprocs=nprocs, join=False, start_method="spawn")
-        self._results = None
+        self._results = self._error = None
+
+    def _path(self, rank, ext):
+        return os.path.join(self.tmpdir, f"rank{rank}.{ext}")
+
+    def _states(self):
+        """Each rank's state, for an error: alive or its exit code, the
+        scenario it was last in and for how long, and whether it saved."""
+        out = []
+        for r, p in enumerate(self._context.processes):
+            state = "alive" if p.is_alive() else f"exit code {p.exitcode}"
+            if os.path.exists(self._path(r, "pt")):
+                state += ", saved its results"
+            elif os.path.exists(self._path(r, "at")):
+                with open(self._path(r, "at")) as f:
+                    name, since = f.read().split()
+                state += f", in scenario {name!r} for {time.time() - float(since):.0f} s"
+            else:
+                state += ", before its first scenario"
+            out.append(f"rank {r}: {state}")
+        return "; ".join(out)
 
     def results(self):
+        if self._error is not None:
+            raise self._error
         if self._results is None:
             try:
                 while not self._context.join(timeout=1):
                     if time.monotonic() > self._deadline:
-                        raise TimeoutError(f"{self.nprocs} ranks did not finish in time")
+                        raise TimeoutError(f"{self.nprocs} ranks did not finish in {self.timeout} s ({self._states()})")
+                missing = [r for r in range(self.nprocs) if not os.path.exists(self._path(r, "pt"))]
+                if missing:
+                    raise RuntimeError(f"ranks {missing} exited without their results ({self._states()})")
+                self._results = [torch.load(self._path(r, "pt"), weights_only=False) for r in range(self.nprocs)]
+            except Exception as e:
+                self._error = e
+                raise
             finally:
                 self.close()
-            self._results = [torch.load(os.path.join(self.tmpdir, f"rank{r}.pt"), weights_only=False)
-                             for r in range(self.nprocs)]
         return self._results
 
     def close(self):
@@ -544,10 +575,21 @@ def demo_run(inputs):
         make_grid(1)
 
 
+def stall(inputs):
+    """A rank that fails to report: once every rank is here, the ranks of
+    ``inputs["exit"]`` exit without their results and the others sleep
+    ``inputs["seconds"]`` (what ``Ranks.results()`` says of such ranks is
+    under test)."""
+    torch.distributed.barrier()  # the group is whole: no rank is left joining it
+    if process_index() in inputs["exit"]:
+        os._exit(0)
+    time.sleep(inputs["seconds"])
+
+
 SCENARIOS = {"train_steps": train_steps, "card_steps": card_steps, "train_run": train_run, "train_run_lr": train_run,
              "test_run": test_run, "ap_merge": ap_merge, "tp_steps": tp_steps, "tp_train_run": tp_train_run,
              "tp_test_run": test_run, "demo_run": demo_run, "bf16_steps": bf16_steps,
              "tp_bf16_steps": bf16_steps, "bf16_train_run": tp_train_run, "tp_bf16_train_run": tp_train_run,
              "test_runs": test_runs, "tp_test_runs": test_runs,
-             "tp_dense_grad": tp_dense_grad}
+             "tp_dense_grad": tp_dense_grad, "stall": stall}
 

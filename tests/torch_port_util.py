@@ -131,20 +131,28 @@ def scene_batch(seed, B, num_frames):
 
 def mdn_eps_from_jax(model, variables, x, key, sizes=SMALL):
     """The noise the JAX model's three MDN ``predict`` heads draw for rng
-    ``key``: record each head's rng key, then repeat its draw."""
-    keys = []
+    ``key``: record each head's rng key (under jit: the eager forward takes
+    seconds), then repeat its draw."""
+    dims = []
 
-    def record(next_fun, args, kwargs, context):
-        if isinstance(context.module, JaxMDNHead) and context.method_name == "predict":
-            keys.append((context.module.out_dim, args[1]))
-        return next_fun(*args, **kwargs)
+    def keys_of(variables, x, key):
+        keys = []
 
-    with nn.intercept_methods(record):
-        model.apply(variables, x, train=True, rngs={"mdn": key}, mutable=["batch_stats"])
+        def record(next_fun, args, kwargs, context):
+            if isinstance(context.module, JaxMDNHead) and context.method_name == "predict":
+                dims.append(context.module.out_dim)
+                keys.append(args[1])
+            return next_fun(*args, **kwargs)
+
+        with nn.intercept_methods(record):
+            model.apply(variables, x, train=True, rngs={"mdn": key}, mutable=["batch_stats"])
+        return keys
+
+    keys = jax.jit(keys_of)(variables, x, key)
     B, P, G = x.shape[0], sizes["num_proposals"], sizes["num_gaussian"]
     return {
         name: np.asarray(jax.random.normal(jax.random.split(k)[0], (B, P, G, 1, dim)))
-        for name, (dim, k) in zip(("center", "size", "heading"), keys)
+        for name, dim, k in zip(("center", "size", "heading"), dims, keys)
     }
 
 
