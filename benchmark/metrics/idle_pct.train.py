@@ -1,0 +1,8 @@
+"""idle_pct.train: the share of the traced window in which no operation ran
+on the device."""
+
+from benchmark.harness.readers import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx)
