@@ -26,9 +26,16 @@ Two worker modes (``device.worker_mode``):
   hosts where one core of Python cannot feed the card, at the cost of
   pickling each sample back.  The same pre-drawn seeds make its batches
   bit-equal to thread mode's.
+
+``DataLoader.stats`` counts, always on, the batches and items made and the
+CPU seconds they took (``cpu_s``): each item's ``time.thread_time`` in the
+worker that read it, which travels back with the item, plus the collate.
+The thread that makes a batch adds it up, so no lock is taken;
+``reset_stats`` starts the count again.
 """
 
 import multiprocessing
+import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
@@ -42,9 +49,16 @@ def _process_worker_init(dataset):
     _WORKER_DATASET = dataset
 
 
+def _timed(fetch, *args, **kwargs):
+    """(fetch(*args, **kwargs), the CPU seconds this thread spent in it)."""
+    t0 = time.thread_time()
+    item = fetch(*args, **kwargs)
+    return item, time.thread_time() - t0
+
+
 def _process_worker_fetch(args):
     idx, seed = args
-    return _WORKER_DATASET.__getitem__(idx, rng=np.random.RandomState(seed))
+    return _timed(_WORKER_DATASET.__getitem__, idx, rng=np.random.RandomState(seed))
 
 
 def collate(samples):
@@ -72,6 +86,7 @@ class DataLoader:
         self.process_index = process_index
         self.process_count = process_count
         self.epoch = 0
+        self.reset_stats()
         if not num_workers:
             self._pool = None
         elif worker_mode == "process":
@@ -89,6 +104,22 @@ class DataLoader:
 
     def set_epoch(self, epoch):
         self.epoch = epoch
+
+    def reset_stats(self):
+        """Zero ``stats``.  A fresh dict: a batch being counted meanwhile
+        goes into the old one, and the reset is never lost."""
+        self.stats = {"batches": 0, "items": 0, "cpu_s": 0.0}
+
+    def _collate_counted(self, timed):
+        """Collate (item, seconds) pairs and count the batch in ``stats``."""
+        t0 = time.thread_time()
+        batch = collate([item for item, _ in timed])
+        cpu_s = sum(s for _, s in timed) + time.thread_time() - t0
+        stats = self.stats
+        stats["batches"] += 1
+        stats["items"] += len(timed)
+        stats["cpu_s"] += cpu_s
+        return batch
 
     def close(self):
         for pool in (self._prefetcher, self._pool):
@@ -119,18 +150,18 @@ class DataLoader:
         seeds = [drawn[last[int(idx)]] for idx in order]
 
         def fetch(pos):
-            return self.dataset.__getitem__(int(order[pos]), rng=np.random.RandomState(seeds[pos]))
+            return _timed(self.dataset.__getitem__, int(order[pos]), rng=np.random.RandomState(seeds[pos]))
 
         def make_batch(start):
             positions = range(start, min(start + self.batch_size, len(order)))
             if self.drop_last and len(positions) < self.batch_size:
                 return None
             if self._pool is None:
-                return collate([fetch(p) for p in positions])
+                return self._collate_counted([fetch(p) for p in positions])
             if self.worker_mode == "process":
                 jobs = [(int(order[p]), int(seeds[p])) for p in positions]
-                return collate(list(self._pool.map(_process_worker_fetch, jobs)))
-            return collate(list(self._pool.map(fetch, positions)))
+                return self._collate_counted(list(self._pool.map(_process_worker_fetch, jobs)))
+            return self._collate_counted(list(self._pool.map(fetch, positions)))
 
         starts = list(range(0, len(order), self.batch_size))
         if self._pool is None:

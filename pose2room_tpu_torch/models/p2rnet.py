@@ -20,6 +20,10 @@ flow back through the casts to the f32 parameters.
 them to the card; ``device="cpu"`` runs it on the CPU (the kernels' plain
 versions).  Serving folds the graph operands once per weight load
 (``fold_eval``) and passes them to every ``generate(folded=...)``.
+
+Under a profiler, ``forward`` and ``generate`` record the model's layer
+spans (``utils/profiling.py:SPANS``): the noise draw, the backbone, the
+votes, the proposals and the heads.
 """
 
 import dataclasses
@@ -33,6 +37,7 @@ from pose2room_tpu_torch.models.proposal import MDN_KEYS, ProposalNet
 from pose2room_tpu_torch.models.stgcn import STGCN
 from pose2room_tpu_torch.models.vote import CenterVote, l2_normalize
 from pose2room_tpu_torch.parallel.collectives import draw_rows
+from pose2room_tpu_torch.utils.profiling import annotate
 
 
 # model.compute_dtype -> the modules' compute dtype (None: float32 throughout)
@@ -141,9 +146,11 @@ class P2RNet(nn.Module):
         return self.backbone.fold_eval_operands() if self.config.fused_eval else None
 
     def _trunk(self, input_joints, folded=None, generator=None, shard=(0, 1)):
-        end_points = self.backbone(input_joints, folded=folded, generator=generator, shard=shard)
-        xyz, features = self.centervoting(end_points["seed_skeleton"], end_points["seed_features"])
-        features = l2_normalize(features)
+        with annotate("model/backbone"):
+            end_points = self.backbone(input_joints, folded=folded, generator=generator, shard=shard)
+        with annotate("model/vote"):
+            xyz, features = self.centervoting(end_points["seed_skeleton"], end_points["seed_features"])
+            features = l2_normalize(features)
         end_points["vote_xyz"] = xyz
         end_points["vote_features"] = features
         return end_points, xyz, features
@@ -158,11 +165,12 @@ class P2RNet(nn.Module):
         or a model group holds its rows of the global batch's noise."""
         c = self.config
         dims = {"center": 3, "size": 3, "heading": 2}
-        return {
-            k: draw_rows(lambda n: torch.randn((n, c.num_proposals, c.num_gaussian, 1, dims[k]),
-                                               generator=generator), batch_size, shard).to(self.device)
-            for k in MDN_KEYS
-        }
+        with annotate("model/noise"):
+            return {
+                k: draw_rows(lambda n: torch.randn((n, c.num_proposals, c.num_gaussian, 1, dims[k]),
+                                                   generator=generator), batch_size, shard).to(self.device)
+                for k in MDN_KEYS
+            }
 
     def multi_noise(self, batch_size, n_samples, generator):
         """Noise of the three MDN ``generate_multi`` heads, drawn on the
@@ -190,12 +198,13 @@ class P2RNet(nn.Module):
         statistics in ``.eval()`` mode.  Returns the end_points dict.
         """
         assert_precision_policy()
-        if eps is None:
-            if generator is None:
-                raise ValueError("pass the MDN noise eps or a CPU generator to draw it from")
-            eps = self.mdn_eps(input_joints.shape[0], generator, shard)
-        end_points, xyz, features = self._trunk(input_joints, generator=generator, shard=shard)
-        return self.detection(xyz, features, end_points, eps=eps)
+        with annotate("model/forward"):
+            if eps is None:
+                if generator is None:
+                    raise ValueError("pass the MDN noise eps or a CPU generator to draw it from")
+                eps = self.mdn_eps(input_joints.shape[0], generator, shard)
+            end_points, xyz, features = self._trunk(input_joints, generator=generator, shard=shard)
+            return self.detection(xyz, features, end_points, eps=eps)
 
     @torch.no_grad()
     def generate(self, input_joints, multi_mode=False, n_samples=1, folded=None, generator=None,
@@ -211,10 +220,11 @@ class P2RNet(nn.Module):
         end_points dict."""
         if self.training:
             raise RuntimeError("generate runs on the running statistics: call model.eval() first")
-        if multi_mode and noise is None:
-            if generator is None:
-                raise ValueError("multi_mode: pass the noise or a generator of the model's device")
-            noise = self.multi_noise(input_joints.shape[0], n_samples, generator)
-        assert_precision_policy()
-        end_points, xyz, features = self._trunk(input_joints, folded=folded, generator=generator)
-        return self.detection(xyz, features, end_points, noise=noise if multi_mode else None)
+        with annotate("model/generate"):
+            if multi_mode and noise is None:
+                if generator is None:
+                    raise ValueError("multi_mode: pass the noise or a generator of the model's device")
+                noise = self.multi_noise(input_joints.shape[0], n_samples, generator)
+            assert_precision_policy()
+            end_points, xyz, features = self._trunk(input_joints, folded=folded, generator=generator)
+            return self.detection(xyz, features, end_points, noise=noise if multi_mode else None)

@@ -40,6 +40,7 @@ from pose2room_tpu_torch.ops.sampling import (
     gather_points,
     group_points,
 )
+from pose2room_tpu_torch.utils.profiling import annotate
 
 MDN_KEYS = ("center", "size", "heading")
 
@@ -111,26 +112,28 @@ class ProposalNet(nn.Module):
         {"center", "size", "heading"} -> (eps (B, P, G, n, D), u (B, P, G,
         n)) for the heads' ``generate_multi``; None for MDN ``get_mean``.
         Generation exports pi either way."""
-        agg_xyz, agg_feat, inds = self._aggregate(xyz, features, end_points)
-        end_points["aggregated_vote_xyz"] = agg_xyz
-        end_points["aggregated_vote_inds"] = inds
-        feats = (self.conv_center(agg_feat), self.conv_size(agg_feat), self.conv_heading(agg_feat))
-        sem_obj = self.conv_sem_obj(agg_feat)  # (B,P,2+num_class)
-        heads = (self.gmm_center, self.gmm_size, self.gmm_heading)
-        if eps is None:
-            if noise is None:
-                means = [head.get_mean(f) for head, f in zip(heads, feats)]
+        with annotate("model/proposal"):
+            agg_xyz, agg_feat, inds = self._aggregate(xyz, features, end_points)
+        with annotate("model/heads"):
+            end_points["aggregated_vote_xyz"] = agg_xyz
+            end_points["aggregated_vote_inds"] = inds
+            feats = (self.conv_center(agg_feat), self.conv_size(agg_feat), self.conv_heading(agg_feat))
+            sem_obj = self.conv_sem_obj(agg_feat)  # (B,P,2+num_class)
+            heads = (self.gmm_center, self.gmm_size, self.gmm_heading)
+            if eps is None:
+                if noise is None:
+                    means = [head.get_mean(f) for head, f in zip(heads, feats)]
+                else:
+                    means = [head.generate_multi(f, *noise[k]) for head, f, k in zip(heads, feats, MDN_KEYS)]
+                (pred_center, pi_center), (pred_size, pi_size), (pred_heading, pi_heading) = means
+                end_points["pi"] = {"center": pi_center, "size": pi_size, "heading": pi_heading}
             else:
-                means = [head.generate_multi(f, *noise[k]) for head, f, k in zip(heads, feats, MDN_KEYS)]
-            (pred_center, pi_center), (pred_size, pi_size), (pred_heading, pi_heading) = means
-            end_points["pi"] = {"center": pi_center, "size": pi_size, "heading": pi_heading}
-        else:
-            pred_center, pred_size, pred_heading = (
-                head.predict(f, eps[k]) for head, f, k in zip(heads, feats, MDN_KEYS)
-            )
-        end_points["center"] = agg_xyz + pred_center
-        end_points["size"] = pred_size  # log-space
-        end_points["heading"] = pred_heading  # (sin, cos)
-        end_points["objectness_scores"] = sem_obj[..., 0:2]
-        end_points["sem_cls_scores"] = sem_obj[..., 2:]
-        return end_points
+                pred_center, pred_size, pred_heading = (
+                    head.predict(f, eps[k]) for head, f, k in zip(heads, feats, MDN_KEYS)
+                )
+            end_points["center"] = agg_xyz + pred_center
+            end_points["size"] = pred_size  # log-space
+            end_points["heading"] = pred_heading  # (sin, cos)
+            end_points["objectness_scores"] = sem_obj[..., 0:2]
+            end_points["sem_cls_scores"] = sem_obj[..., 2:]
+            return end_points

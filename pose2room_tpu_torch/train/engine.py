@@ -13,7 +13,8 @@ the host waits for the previous step's numbers.
 
 ``train.h2d_dtype`` compresses the target arrays of each batch on the way
 to the device (``step.batch_to_device``); ``log.profile_steps > 0`` traces
-train steps [3, 3 + profile_steps) into ``<save_path>/profile/``.
+train steps [3, 3 + profile_steps) into ``<save_path>/profile/``, with the
+port's layer spans (``utils/profiling.py:SPANS``) inside each step.
 
 The MDN noise of step ``it`` of epoch ``e`` comes from a CPU generator
 seeded ``seed * 1000003 + e * 100000 + it`` (the JAX package folds
@@ -40,7 +41,6 @@ order (``parallel.gather_batch``) and takes their rows of the noise
 the shards, and rank 0 writes what one process writes.
 """
 
-import contextlib
 import os
 import time
 
@@ -52,7 +52,7 @@ from pose2room_tpu_torch.parallel.tensor import gather_batch
 from pose2room_tpu_torch.train.state import apply_lr_schedule, bnm_momentum, lr_factor, optimizer_steps
 from pose2room_tpu_torch.train.step import batch_to_device, eval_step, train_step
 from pose2room_tpu_torch.utils.logger import LogBoard, LossRecorder
-from pose2room_tpu_torch.utils.profiling import ProfileWindow, StepTimer, annotate
+from pose2room_tpu_torch.utils.profiling import ProfileWindow, StepTimer
 
 
 def step_generator(seed, epoch, it):
@@ -90,10 +90,7 @@ def run_epoch(phase, epoch, loader, step_fn, device, seed, log_fn, print_step=10
     for it, batch in enumerate(loader):
         if profile_window is not None:
             profile_window.maybe_start(step_no)
-        # a named span in the trace; no work on the step's path otherwise
-        span = annotate(f"{phase}_step") if profile_window is not None else contextlib.nullcontext()
-        with span:
-            losses = step_fn(batch_to_device(gather_batch(batch), device, h2d_dtype), step_generator(seed, epoch, it))
+        losses = step_fn(batch_to_device(gather_batch(batch), device, h2d_dtype), step_generator(seed, epoch, it))
         if phase == "train":
             step_no += 1
         if profile_window is not None:

@@ -4,7 +4,10 @@ A train step is the forward in ``.train()`` mode (live BatchNorm), the
 detection loss, the backward, the global gradient norm (optax's
 ``global_norm``, taken before any clipping) and the AdamW update.  Losses
 come back as device tensors; the engine reads them one step late, so the
-host never waits for the card between steps.
+host never waits for the card between steps.  Under a profiler the upload
+and the step's parts are spans (``utils/profiling.py:SPANS``): ``train/h2d``,
+and ``train/step`` around the forward, ``train/loss``, ``train/backward`` and
+``train/optimizer``.
 
 Data parallel (inside a process group, the model wrapped by
 ``parallel.wrap_model``): each rank's batch is its rows of the global batch
@@ -29,6 +32,7 @@ from pose2room_tpu_torch.parallel.collectives import all_reduce_sum_, current_gr
 from pose2room_tpu_torch.parallel.mesh import unwrap
 from pose2room_tpu_torch.parallel.tensor import grad_norm, reduce_gradients
 from pose2room_tpu_torch.train.state import clip_by_global_norm, global_norm
+from pose2room_tpu_torch.utils.profiling import annotate
 
 GT_KEYS = (
     "center_label",
@@ -52,12 +56,13 @@ def batch_to_device(batch, device, h2d_dtype=None):
     can flip FPS and ball-query selections."""
     cast_to = np.dtype(h2d_dtype) if h2d_dtype else None
     out = {}
-    for k in ("input_joints", *GT_KEYS):
-        x = batch[k]
-        if cast_to is not None and k != "input_joints" and x.dtype == np.float32:
-            out[k] = torch.from_numpy(x.astype(cast_to)).to(device).float()
-        else:
-            out[k] = torch.from_numpy(x).to(device)
+    with annotate("train/h2d"):
+        for k in ("input_joints", *GT_KEYS):
+            x = batch[k]
+            if cast_to is not None and k != "input_joints" and x.dtype == np.float32:
+                out[k] = torch.from_numpy(x.astype(cast_to)).to(device).float()
+            else:
+                out[k] = torch.from_numpy(x).to(device)
     return out
 
 
@@ -84,25 +89,29 @@ def train_step(model, optimizer, batch, *, eps=None, generator=None, clip_norm=-
     frozen module (in no param group) too, and all count in the global norm
     and its clipping.
     """
-    net = unwrap(model)
-    net.train()
-    end_points = model(batch["input_joints"], eps=eps, generator=generator, shard=shard)
-    losses = detection_loss(end_points, batch, origin_joint_id,
-                            reduce=all_reduce_sum_ if in_group() else None)
-    # the model's, not the optimizer's: a frozen module's .grad would
-    # otherwise accumulate across steps and grow the global norm
-    net.zero_grad(set_to_none=True)
-    losses["total"].backward()  # through DDP: every rank holds the summed gradients
-    if current_grid() is not None:
-        reduce_gradients(net)
-    grads = [p.grad for p in net.parameters() if p.grad is not None]
-    with torch.no_grad():
-        norm = global_norm(grads) if current_grid() is None else grad_norm(net)
-    if clip_norm > 0:
-        clip_by_global_norm(grads, clip_norm, norm)
-    optimizer.step()
-    losses = _global_losses(losses)
-    losses["grad_norm"] = norm
+    with annotate("train/step"):
+        net = unwrap(model)
+        net.train()
+        end_points = model(batch["input_joints"], eps=eps, generator=generator, shard=shard)
+        with annotate("train/loss"):
+            losses = detection_loss(end_points, batch, origin_joint_id,
+                                    reduce=all_reduce_sum_ if in_group() else None)
+        with annotate("train/backward"):
+            # the model's, not the optimizer's: a frozen module's .grad would
+            # otherwise accumulate across steps and grow the global norm
+            net.zero_grad(set_to_none=True)
+            losses["total"].backward()  # through DDP: every rank holds the summed gradients
+            if current_grid() is not None:
+                reduce_gradients(net)
+        with annotate("train/optimizer"):
+            grads = [p.grad for p in net.parameters() if p.grad is not None]
+            with torch.no_grad():
+                norm = global_norm(grads) if current_grid() is None else grad_norm(net)
+            if clip_norm > 0:
+                clip_by_global_norm(grads, clip_norm, norm)
+            optimizer.step()
+            losses = _global_losses(losses)
+            losses["grad_norm"] = norm
     return losses, end_points
 
 

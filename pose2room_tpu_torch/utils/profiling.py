@@ -1,23 +1,49 @@
-"""Profiling: torch.profiler trace capture and per-step timing.
+"""Profiling: per-step timing, the port's layer spans, and a trace window.
 
 Port of pose2room_tpu/utils/profiling.py and the train engine's
 ProfileWindow (pose2room_tpu/train/engine.py:122-144):
 
 * ``StepTimer``: rolling per-step latency on the host clock;
-* ``trace``: a context manager that captures a torch.profiler trace (host
-  ops, and the card's kernels where there is a card) into ``logdir`` as a
-  ``*.pt.trace.json`` file (chrome://tracing, Perfetto, or TensorBoard's
-  profiler plugin);
-* ``ProfileWindow``: the same capture over train steps [start, start + n),
-  opened by ``log.profile_steps > 0`` in the train engine;
-* ``annotate``: a named span inside a trace (``record_function``).
+* ``annotate``: a named span at a layer boundary of the port (``SPANS``),
+  recorded as ``p2r/<name>`` while a torch profiler is recording and
+  nothing otherwise, so the spans sit on the profiler's own clock beside
+  the host operations and the card's kernels they enclose;
+* ``ProfileWindow``: a torch.profiler trace of train steps
+  [start, start + n), opened by ``log.profile_steps > 0`` in the train
+  engine, written into ``logdir`` as a ``*.pt.trace.json`` file
+  (chrome://tracing, Perfetto, or TensorBoard's profiler plugin).
+
+Tracing is on exactly while a profiler records (a ``ProfileWindow``, or a
+caller's own ``torch.profiler.profile``); there is no other switch.
 """
 
 import contextlib
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function, tensorboard_trace_handler
+from torch._C._profiler import _RecordFunctionFast
+from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+PREFIX = "p2r/"
+
+# every span of the port and its layer, the layers in the order they run;
+# a span nests in the span of the call around it
+SPANS = {
+    "train/h2d": "train step",  # train/step.py:batch_to_device
+    "train/step": "train step",  # train/step.py:train_step: forward and the three below
+    "train/loss": "train step",  # models/loss.py:detection_loss
+    "train/backward": "train step",  # zero_grad, backward, the tensor-parallel gradient sums
+    "train/optimizer": "train step",  # global norm, clipping, the optimizer's step, the global losses
+    "model/forward": "model",  # P2RNet.forward
+    "model/generate": "model",  # P2RNet.generate
+    "model/noise": "model",  # P2RNet.mdn_eps: the host draw and its upload
+    "model/backbone": "model",  # the ST-GCN
+    "model/vote": "model",  # center votes and their L2 normalisation
+    "model/proposal": "model",  # ProposalNet._aggregate: FPS, gather, ball query, aggregation MLP
+    "model/heads": "model",  # the rest of ProposalNet.forward
+}
+
+_OFF = contextlib.nullcontext()
 
 
 class StepTimer:
@@ -40,26 +66,18 @@ class StepTimer:
         return 1000.0 * sum(self.times) / len(self.times) if self.times else 0.0
 
 
-def _profiler(logdir, cuda):
-    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(logdir)))
-
-
-@contextlib.contextmanager
-def trace(logdir):
-    """Capture a torch.profiler trace into ``logdir`` while the block runs,
-    the card's kernels too where there is a card."""
-    prof = _profiler(logdir, torch.cuda.is_available())
-    prof.start()
-    try:
-        yield
-    finally:
-        prof.stop()
-
-
 def annotate(name):
-    """Named span inside a trace."""
-    return record_function(name)
+    """The span ``p2r/<name>`` while a torch profiler records; otherwise one
+    shared null context, so an untraced step pays one state check.
+
+    The span is recorded as an operator, not as ``record_function``'s user
+    annotation: the profiler credits a kernel to the innermost operator open
+    on the thread that launched it, and the port's own kernels are launched
+    through ctypes, outside any operator, so only an operator span around
+    them counts their device time."""
+    if torch._C._autograd._profiler_enabled():
+        return _RecordFunctionFast(PREFIX + name)
+    return _OFF
 
 
 class ProfileWindow:
@@ -77,7 +95,8 @@ class ProfileWindow:
     def maybe_start(self, step):
         """Call before a step, with the number of steps done so far."""
         if not self._done and self._prof is None and step >= self.start_step:
-            self._prof = _profiler(self.logdir, self.cuda)
+            activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if self.cuda else [])
+            self._prof = profile(activities=activities, on_trace_ready=tensorboard_trace_handler(self.logdir))
             self._prof.start()
 
     def maybe_stop(self, step):

@@ -16,7 +16,8 @@
   tensorboard's event reader;
 * one CPU train run with process workers, h2d_dtype, a profile window and
   the board: the step's targets, the trace, and the board's steps;
-* ``trace`` around a block writes one trace holding its ``annotate`` span.
+* a ``ProfileWindow`` around a block writes one trace holding its
+  ``annotate`` span.
 """
 
 import glob
@@ -47,7 +48,7 @@ from pose2room_tpu_torch.runners import train as train_runner
 from pose2room_tpu_torch.train import engine, state
 from pose2room_tpu_torch.train.step import GT_KEYS, batch_to_device, train_step
 from pose2room_tpu_torch.utils.logger import LogBoard
-from pose2room_tpu_torch.utils.profiling import annotate, trace
+from pose2room_tpu_torch.utils.profiling import ProfileWindow, annotate
 from torch_port_util import SMALL, flax_payload, port_model, scene_batch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -272,7 +273,7 @@ def test_train_run_with_options(tmp_path, monkeypatch):
     traces = glob.glob(os.path.join(cfg.save_path, "profile", "*.pt.trace.json"))
     assert len(traces) == 1
     with open(traces[0]) as f:
-        assert '"train_step"' in f.read()
+        assert '"p2r/train/step"' in f.read()
     (events,) = glob.glob(str(tmp_path / "runs"))
     scalars = _scalars(events)
     assert [s for s, _ in scalars["total/train"]] == [1, 2, 3, 4]
@@ -282,9 +283,11 @@ def test_train_run_with_options(tmp_path, monkeypatch):
 
 
 def test_trace_writes_the_block_with_its_spans(tmp_path):
-    with trace(tmp_path / "trace"):
-        with annotate("scaled_sum"):
-            (torch.arange(8.0) * 2.0).sum()
+    window = ProfileWindow(tmp_path / "trace", start_step=0, n_steps=1)
+    window.maybe_start(0)
+    with annotate("scaled_sum"):
+        (torch.arange(8.0) * 2.0).sum()
+    window.maybe_stop(1)
     (path,) = glob.glob(str(tmp_path / "trace" / "*.pt.trace.json"))
     with open(path) as f:
-        assert '"scaled_sum"' in f.read()
+        assert '"p2r/scaled_sum"' in f.read()
