@@ -874,6 +874,77 @@ def sparse_kernel_phase(dev, smi):
     return rows
 
 
+def graph_gemm_operands(B, K, g, dev):
+    """The graph GEMM's operands at production shape in the fold's layout:
+    x (B, T, K) >= 0 (K = W0 for block 0, WP after it), the lane-padded M
+    zero past W0, vecs with s1, b1 zero at the pad columns; and the fold's B
+    operand of M."""
+    x = torch.relu(torch.randn(B, T, K, generator=g))
+    if K > W0:
+        x[..., W0:] = 0
+    M = torch.zeros(WP, WP)
+    M[:W0, :W0] = torch.randn(W0, W0, generator=g) * 0.02
+    vecs = torch.zeros(8, WP)
+    vecs[0, :W0] = 0.5 + torch.rand(W0, generator=g)
+    vecs[1, :W0] = torch.randn(W0, generator=g) * 0.1
+    x, M, vecs = (t.to(dev) for t in (x, M, vecs))
+    return x, M, vecs, stgcn_fused.gemm_b_operand(M)
+
+
+def graph_gemm_phase(dev, smi):
+    """The dense graph GEMM (csrc/stgcn_graph_gemm.cu) at B = 1, 8 and 32,
+    block 0 (K = W0) and a residual block (K = WP): against the plain
+    version (``graph_matmul_bn_relu``: torch.matmul in f32, TF32 off, then
+    BN1 and the ReLU, which is also the library yardstick), its f32 sum
+    against float64 over sum |a*b| (s1 = +-1, b1 = 0: acc = relu(acc) -
+    relu(-acc)), the same bits on relaunch, the pad columns 0; card ms, the
+    3xTF32 and f32 bounds, the plain version's ms and the matmul's alone."""
+    g = torch.Generator().manual_seed(4)
+    rows = {}
+    for B in (1, 8, 32):
+        for K in (W0, WP):
+            x, M, vecs, b_split = graph_gemm_operands(B, K, g, dev)
+            Mk = M[:K]
+            run = lambda: stgcn_fused.graph_gemm_bn_relu(x, Mk, vecs[0], vecs[1], b_split)  # noqa: E731
+            out, again = run(), run()
+            ref = stgcn_fused.graph_matmul_bn_relu(x, Mk, vecs[0], vecs[1])
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            check(torch.allclose(out, ref, atol=1e-4, rtol=1e-4), f"graph GEMM B={B} K={K}: max |err| {err}")
+            check(bool(torch.all(out[..., W0:] == 0)), f"graph GEMM B={B} K={K}: pad columns not 0")
+            check(torch.equal(out, again), f"graph GEMM B={B} K={K}: two launches differ")
+            unit = torch.zeros_like(vecs)
+            unit[0] = 1.0
+            acc = stgcn_fused.graph_gemm_bn_relu(x, Mk, unit[0], unit[1], b_split)
+            unit[0] = -1.0
+            acc -= stgcn_fused.graph_gemm_bn_relu(x, Mk, unit[0], unit[1], b_split)
+            xd = x.reshape(B * T, K).double()
+            exact, mag = xd @ Mk.double(), xd.abs() @ Mk.double().abs()
+            live = mag > 0
+            a_max, a_bias = float64_gap(acc.reshape(B * T, WP)[live], exact[live], mag[live])
+            check(a_max <= 5e-7 and abs(a_bias) <= 5e-8,
+                  f"graph GEMM B={B} K={K}: acc off float64 by {a_max} of sum|a*b| (bias {a_bias})")
+            del unit, acc, xd, exact, mag, live
+            N = B * T
+            flops = 2 * N * K * WP
+            nbytes = N * K * 4 + N * WP * 4 + b_split.numel() * 4 + 2 * WP * 4
+            f_ms, _ = bound_ms(nbytes, flops)
+            b_ms, b_by = tc_bound_ms(nbytes, flops)
+            k_ms = device_ms(run)
+            p_ms = device_ms(lambda: stgcn_fused.graph_matmul_bn_relu(x, Mk, vecs[0], vecs[1]))
+            mm_ms = device_ms(lambda: torch.matmul(x, Mk))
+            rows[("stgcn_graph_gemm", B, K)] = dict(
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=p_ms,
+                float64_max=a_max, float64_bias=a_bias)
+            print(f"[{smi}] graph GEMM B={B} K={K}: max|err| vs plain {err:.3e}  same bits on relaunch  "
+                  f"acc vs float64: max {a_max:.2e}, bias {a_bias:.2e} of sum|a*b|  kernel {k_ms:.4f} ms "
+                  f"({flops / k_ms / 1e9:.1f} TFLOP/s)  plain = library (f32 matmul + BN1 + ReLU) {p_ms:.4f} ms "
+                  f"(matmul alone {mm_ms:.4f} ms)  {bound_shares(k_ms, f_ms, b_ms, b_by)}")
+            del x, M, Mk, vecs, b_split, out, again, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
 def bf16_bound_ms(nbytes, flops):
     """Least time of bf16 products on the tensor cores: (ms, what bounds it)."""
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_BF16_FLOPS
@@ -1199,6 +1270,8 @@ def serving_phase(workdir, smi):
         check(launches.get("stgcn_epilogue", 0) == 6 * n,
               f"epilogue launches {launches.get('stgcn_epilogue', 0)} != 6 per request x {n}")
         check(launches.get("fps", 0) == n, f"FPS launches {launches.get('fps', 0)} != 1 per request x {n}")
+        check(launches.get("stgcn_graph_gemm", 0) == 6 * n,
+              f"graph GEMM launches {launches.get('stgcn_graph_gemm', 0)} != 6 per request x {n}")
         for path, dump_dir, n_boxes, _ in results:
             for f in ("skeleton_points.ply", "000000_pi_dict.json"):
                 check(os.path.isfile(os.path.join(dump_dir, f)), f"{path}: {f} not written")
@@ -1404,7 +1477,8 @@ def batch_sweep_phase(workdir, smi):
             folded = model.fold_eval()
             name = f"{'bf16' if dtype == 'bfloat16' else 'f32'} {'sparse_eval' if sparse else 'dense'}"
             leg = "_bf16" if dtype == "bfloat16" else ""
-            expect = {f"stgcn_epilogue{leg}": 6, "fps": 1, **({f"stgcn_sparse{leg}": 6} if sparse else {})}
+            expect = {f"stgcn_epilogue{leg}": 6, "fps": 1, **({f"stgcn_sparse{leg}": 6} if sparse else {}),
+                      **({"stgcn_graph_gemm": 6} if dtype == "float32" and not sparse else {})}
             quarters = [cat_end_points([model.generate(x[i:i + 32], folded=folded)])
                         for i in range(0, max(SWEEP_BATCHES), 32)]
             held = []
@@ -1596,9 +1670,10 @@ def train_phase(workdir, smi):
         launches = dict(kernels.LAUNCHES)
         print(f"train run (1 epoch: 2 train steps of 8, 1 val step of 8) {time.perf_counter() - t0:.1f} s; "
               f"launch counts {launches}")
-        expect = {"stgcn_train_fwd": 6 * 2, "stgcn_train_bwd": 6 * 2, "stgcn_epilogue": 6 * 1, "fps": 2 + 1}
+        expect = {"stgcn_train_fwd": 6 * 2, "stgcn_train_bwd": 6 * 2, "stgcn_graph_gemm": 6 * 1,
+                  "stgcn_epilogue": 6 * 1, "fps": 2 + 1}
         check(launches == expect, f"train run launch counts {launches} != {expect} "
-              "(6 train_fwd + 6 train_bwd + 1 fps per train step, 6 epilogue + 1 fps per val step)")
+              "(6 train_fwd + 6 train_bwd + 1 fps per train step, 6 graph GEMM + 6 epilogue + 1 fps per val step)")
         for phase in ("train", "val"):
             means = history[0][phase]
             check(all(np.isfinite(v) for v in means.values()), f"{phase} losses not finite: {means}")
@@ -1680,7 +1755,7 @@ def options_run(config, datasets, workdir, name):
         log = f.read()
     epochs = len(history)
     expect = {"stgcn_train_fwd": 6 * 2 * epochs, "stgcn_train_bwd": 6 * 2 * epochs,
-              "stgcn_epilogue": 6 * epochs, "fps": 3 * epochs}
+              "stgcn_graph_gemm": 6 * epochs, "stgcn_epilogue": 6 * epochs, "fps": 3 * epochs}
     print(f"  {name}: {epochs} epoch(s) in {seconds:.1f} s; launch counts {launches}")
     check(launches == expect, f"{name}: launch counts {launches} != {expect}")
     for means in history:
@@ -3211,7 +3286,8 @@ def ddp_phase(workdir, smi):
 
     # (b) the train runner under the two ranks
     runs = [r["train_run"] for r in ranks]
-    expect = {"stgcn_train_fwd": 6 * 2, "stgcn_train_bwd": 6 * 2, "stgcn_epilogue": 6 * 1, "fps": 2 + 1}
+    expect = {"stgcn_train_fwd": 6 * 2, "stgcn_train_bwd": 6 * 2, "stgcn_graph_gemm": 6 * 1,
+              "stgcn_epilogue": 6 * 1, "fps": 2 + 1}
     for r, run in enumerate(runs):
         check(run["launches"] == expect, f"(b) train run rank {r} launches {run['launches']} != {expect}")
         for phase in ("train", "val"):
@@ -3464,7 +3540,8 @@ def tp_phase(workdir, smi, refs):
 
     # (d) the runners under world 2
     runs = [r["train_run"] for r in ranks]
-    expect = {"stgcn_train_fwd": 6 * 2, "stgcn_train_bwd": 6 * 2, "stgcn_epilogue": 6 * 1, "fps": 2 + 1}
+    expect = {"stgcn_train_fwd": 6 * 2, "stgcn_train_bwd": 6 * 2, "stgcn_graph_gemm": 6 * 1,
+              "stgcn_epilogue": 6 * 1, "fps": 2 + 1}
     for r, run in enumerate(runs):
         check(run["launches"] == expect, f"(d) train run rank {r} launches {run['launches']} != {expect}")
         for phase in ("train", "val"):
@@ -3504,7 +3581,8 @@ def tp_phase(workdir, smi, refs):
     demos = [r["demo_float32"] for r in ranks]
     want = single_demo["float32"]
     for r, d in enumerate(demos):
-        check(d["launches"] == {"stgcn_epilogue": 6, "fps": 1}, f"(d) demo rank {r} launches {d['launches']}")
+        check(d["launches"] == {"stgcn_graph_gemm": 6, "stgcn_epilogue": 6, "fps": 1},
+              f"(d) demo rank {r} launches {d['launches']}")
         check(d["results"] == want["results"], f"(d) demo rank {r} served {d['results']}, one process {want['results']}")
     check(demos[0]["vis_path"] == demos[1]["vis_path"], "(d) the demo ranks used different run dirs")
     files, differ = same_files(want["vis_path"], demos[0]["vis_path"])
@@ -3776,10 +3854,10 @@ def pipeline_train(root, samples, split, device, has_h5py):
         launches = dict(kernels.LAUNCHES)
         n_train = -(-len(split["train"]) // 8)
         n_val = -(-len(split["val"]) // 8)
-        expect = {"stgcn_train_fwd": 6 * n_train, "stgcn_train_bwd": 6 * n_train, "stgcn_epilogue": 6 * n_val,
-                  "fps": n_train + n_val}
+        expect = {"stgcn_train_fwd": 6 * n_train, "stgcn_train_bwd": 6 * n_train, "stgcn_graph_gemm": 6 * n_val,
+                  "stgcn_epilogue": 6 * n_val, "fps": n_train + n_val}
         check(launches == expect, f"pipeline train run launch counts {launches} != {expect} (6 train_fwd + 6 "
-              "train_bwd + 1 fps per train step, 6 epilogue + 1 fps per val step)")
+              "train_bwd + 1 fps per train step, 6 graph GEMM + 6 epilogue + 1 fps per val step)")
         for phase in ("train", "val"):
             means = history[0][phase]
             check(all(np.isfinite(v) for v in means.values()), f"pipeline {phase} losses not finite: {means}")
@@ -4010,6 +4088,7 @@ def main():
     rows = kernel_phase(dev, smi, fps_latency_floor(probe))
     rows.update(train_kernel_phase(dev, smi))
     rows.update(sparse_kernel_phase(dev, smi))
+    rows.update(graph_gemm_phase(dev, smi))
     print(f"kernel phase {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     rows.update(bf16_kernel_phase(dev, smi))
@@ -4072,6 +4151,9 @@ def main():
         {"name": "stgcn_sparse", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_sparse.cu",
          "replaces": "pose2room_tpu/ops/stgcn_sparse.py:115", "launches": test_launches["stgcn_sparse"],
          **rows[("stgcn_sparse", "annealed", 1)]},
+        {"name": "stgcn_graph_gemm", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_graph_gemm.cu",
+         "replaces": "none (XLA's dot, pose2room_tpu/ops/stgcn_fused.py:59)",
+         "launches": launches["stgcn_graph_gemm"], **rows[("stgcn_graph_gemm", 32, WP)]},
         {"name": "stgcn_epilogue_bf16", "route": "cuda", "source": "pose2room_tpu_torch/csrc/stgcn_epilogue.cu",
          "replaces": "pose2room_tpu/ops/stgcn_fused.py:83", "launches": bf16_launches["stgcn_epilogue_bf16"],
          **rows[("stgcn_epilogue_bf16", 1, True)]},

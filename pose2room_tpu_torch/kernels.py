@@ -30,7 +30,7 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("stgcn_epilogue", "fps", "stgcn_train_fwd", "stgcn_train_bwd", "stgcn_sparse")
+SOURCES = ("stgcn_epilogue", "fps", "stgcn_train_fwd", "stgcn_train_bwd", "stgcn_sparse", "stgcn_graph_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -12,7 +12,8 @@ models/p2rnet/modules/stgcn.py:12-152):
 * a joint-flatten 1x1 conv to 256-d per-frame features, gathered at seeds.
 
 In eval mode the six blocks run on the merged (B, T, V*C) layout through
-``ops/stgcn_fused.py`` (f32 matmul + the CUDA epilogue kernel), or with
+``ops/stgcn_fused.py`` (the graph GEMM kernel in f32 on a card, a matmul
+in bf16 or on the CPU, then the CUDA epilogue kernel), or with
 ``sparse_eval`` on the joint-permuted layout through ``ops/stgcn_sparse.py``
 (the block-sparse graph matmul kernel, then the same epilogue kernel).  The
 operands are a function of the weights alone: ``fold_eval_operands`` builds
@@ -37,7 +38,7 @@ from torch import nn
 from pose2room_tpu_torch.models.graph import SPARSE_JOINT_ORDER, build_spatial_graph
 from pose2room_tpu_torch.models.layers import MLP1x1, STGCNBlock, column_parallel_dense, dense, lecun_normal_, linear
 from pose2room_tpu_torch.ops.sampling import gather_points
-from pose2room_tpu_torch.ops.stgcn_fused import LANE, fused_epilogue, fused_stgcn_layer, widen
+from pose2room_tpu_torch.ops.stgcn_fused import LANE, fused_epilogue, fused_stgcn_layer, gemm_b_operand, widen
 from pose2room_tpu_torch.ops.stgcn_sparse import (
     sparse_graph_matmul_bn_relu,
     sparse_tile_lists,
@@ -169,17 +170,22 @@ class STGCN(nn.Module):
     @torch.no_grad()
     def fold_eval_operands(self):
         """The fused chain's operands, a function of the weights only:
-        per-block (M, vecs, KB) and the joint-major conv_joint kernel; with
-        ``sparse_eval`` per-block (tiles, vecs, KB), the conv_joint kernel
-        rows in the joint order, and the order and tile lists as tensors on
-        the model's device.  Re-fold after every weight change."""
+        per-block (M, vecs, KB), the joint-major conv_joint kernel and, for
+        f32 on a card, each block's graph GEMM B operand (``gemm_b``:
+        ``gemm_b_operand(M)``, 95.6 MB a block at full width; None
+        otherwise); with ``sparse_eval`` per-block (tiles, vecs, KB), the
+        conv_joint kernel rows in the joint order, and the order and tile
+        lists as tensors on the model's device.  Re-fold after every weight
+        change."""
         bias = self.conv_joint.bias.clone()
         if not self.sparse_eval:
             blocks = [
                 blk.fold_eval_arrays(self.A * imp)
                 for blk, imp in zip(self.st_gcn_networks, self.edge_importance)
             ]
-            return {"blocks": blocks, "conv_joint": (self._conv_joint_joint_major(), bias)}
+            gemm = blocks[0][0].is_cuda and blocks[0][0].dtype == torch.float32
+            return {"blocks": blocks, "conv_joint": (self._conv_joint_joint_major(), bias),
+                    "gemm_b": [gemm_b_operand(M) for M, _, _ in blocks] if gemm else None}
         vlist, wlist = self.sparse_vlist, tile_columns(self.sparse_col_off)
         blocks = [
             blk.fold_eval_arrays_sparse(self.A * imp, self.sparse_order, vlist, wlist)
@@ -258,8 +264,9 @@ class STGCN(nn.Module):
             # unpadded merged input against M's first W0 rows
             folded = folded if folded is not None else self.fold_eval_operands()
             hm = h.reshape(B, T, W0)
-            for blk, (M, vecs, KB) in zip(self.st_gcn_networks, folded["blocks"]):
-                hm = fused_stgcn_layer(hm, M, vecs, KB, residual=blk.residual)
+            gemm_b = folded.get("gemm_b") or [None] * len(folded["blocks"])
+            for blk, (M, vecs, KB), b_split in zip(self.st_gcn_networks, folded["blocks"], gemm_b):
+                hm = fused_stgcn_layer(hm, M, vecs, KB, residual=blk.residual, b_split=b_split)
             frame_feat = self._conv_joint_dense(hm[..., :W0], *folded["conv_joint"])  # (B,T,256)
         else:
             for blk, imp in zip(self.st_gcn_networks, self.edge_importance):

@@ -8,9 +8,13 @@ folded form of models/layers.py:
     y2 = temporal_conv3(t1)         # (3,1) conv over T, per joint C -> C
     out = relu(y2 * s2 + b2' [+ x]) # eval BN2 (+ conv bias) and residual
 
-The graph matmul is one large f32 product left to ``torch.matmul`` with TF32
-off, as the JAX package leaves it to XLA.  Everything after it is the
-hand-written CUDA epilogue kernel (csrc/stgcn_epilogue.cu) on a card, and
+The JAX package leaves the graph matmul to XLA's dot.  Here, in f32 on a
+card, the graph matmul with BN1 and the ReLU is the hand-written graph GEMM
+(csrc/stgcn_graph_gemm.cu: 3xTF32 on ``wgmma``, its B operand Mᵀ split
+into TF32 halves once at fold time by ``gemm_b_operand``); in bf16 it is
+``torch.matmul`` on widened operands, and on the CPU the plain version
+``graph_matmul_bn_relu``.  Everything after it is the hand-written CUDA
+epilogue kernel (csrc/stgcn_epilogue.cu) on a card, and
 ``epilogue_merged_ref`` on the CPU.  The temporal conv is column-local in the
 merged layout: a 128-column group is 128/C joints' channels, so it is three
 block-diagonal 128x128 taps over row-shifted activations.
@@ -83,6 +87,80 @@ def graph_matmul_bn_relu(x, M, s1, b1):
     return torch.relu(torch.matmul(widen(x), widen(M)) * s1 + b1).to(x.dtype)
 
 
+def rna_tf32(t):
+    """f32 -> the nearest TF32 value (10 explicit mantissa bits), ties away
+    from zero, as f32: the integer add and mask of csrc/tconv_mma.cuh's
+    ``rna_tf32`` on the bits."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def gemm_b_operand(M):
+    """The graph GEMM's B operand from M (K, Ncols) f32: (2, Ncols, K), Mᵀ
+    (K-major: row j holds column j of M along k) split into big =
+    rna_tf32(m) and small = rna_tf32(m - big), the kernel's 3xTF32 split,
+    big half first.  A function of the weights alone, so the fold builds it
+    once; 2 x 47.8 MB a block at full width."""
+    if M.dtype != torch.float32:
+        raise TypeError(f"gemm_b_operand: M is {M.dtype}; the graph GEMM takes float32")
+    mt = M.t().contiguous()
+    big = rna_tf32(mt)
+    return torch.stack([big, rna_tf32(mt - big)])
+
+
+GEMM_COLS = 192  # output columns of a graph GEMM tile (csrc/stgcn_graph_gemm.cu: kBN): 3456 = 18 x 192
+GEMM_K_STAGE = 32  # k of one stage (kBK): K must be a multiple
+
+
+def check_graph_gemm_operands(x, b_split, s1, b1):
+    """Before a launch of the graph GEMM: x (B, T, K) f32 with K a multiple
+    of 32; b_split (2, Ncols, Kb) f32 with K <= Kb, Kb a multiple of 4 and
+    Ncols of 192 (the kernel's tile: the merged width 3456 is 18 of them);
+    s1, b1 (Ncols,) f32; each contiguous, on x's device and 16-byte aligned
+    (TMA and float2 loads).  Raises ValueError / TypeError."""
+    name = "stgcn_graph_gemm"
+    if x.dim() != 3 or b_split.dim() != 3 or b_split.shape[0] != 2:
+        raise ValueError(f"{name}: x {tuple(x.shape)} and b_split {tuple(b_split.shape)}: "
+                         "expected (B, T, K) and (2, Ncols, Kb)")
+    K, (_, Ncols, Kb) = x.shape[-1], b_split.shape
+    if K % GEMM_K_STAGE or K > Kb or Kb % 4:
+        raise ValueError(f"{name}: K = {K} with Kb = {Kb}: K must be a multiple of {GEMM_K_STAGE} "
+                         "and at most Kb, Kb a multiple of 4")
+    if Ncols % GEMM_COLS:
+        raise ValueError(f"{name}: {Ncols} output columns is not a multiple of {GEMM_COLS}")
+    kernels.check_operands(name, {"x": (x, tuple(x.shape)), "b_split": (b_split, (2, Ncols, Kb)),
+                                  "s1": (s1, (Ncols,)), "b1": (b1, (Ncols,))}, x.device, align=16)
+
+
+def graph_gemm_bn_relu(x, M, s1, b1, b_split=None):
+    """relu((x @ M) * s1 + b1): the plain version on the CPU and for bf16
+    (``graph_matmul_bn_relu``), the graph GEMM kernel for CUDA f32, which it
+    launches or raises.  x: (B, T, K); M: (K, Ncols); s1, b1: (Ncols,).
+    b_split: ``gemm_b_operand`` of M or of a matrix whose first K rows are
+    M (the fold's, built once); None builds it from M here.  Returns
+    (B, T, Ncols) in x's dtype."""
+    if x.device.type == "cpu" or (x.device.type == "cuda" and x.dtype == torch.bfloat16):
+        return graph_matmul_bn_relu(x, M, s1, b1)
+    if x.device.type != "cuda":
+        raise ValueError(f"no graph GEMM kernel for device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"stgcn_graph_gemm: x is {x.dtype}; the kernel takes float32 (bfloat16 takes torch.matmul)")
+    if b_split is None:
+        b_split = gemm_b_operand(M)
+    check_graph_gemm_operands(x, b_split, s1, b1)
+    B, T, K = x.shape
+    Ncols, Kb = b_split.shape[1:]
+    out = torch.empty(B, T, Ncols, dtype=x.dtype, device=x.device)
+    fn = kernels.load("stgcn_graph_gemm").p2r_graph_gemm_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x.data_ptr(), b_split.data_ptr(), s1.data_ptr(), b1.data_ptr(), out.data_ptr(), B * T, K, Kb, Ncols,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    kernels.check(err, "stgcn_graph_gemm")
+    kernels.LAUNCHES["stgcn_graph_gemm"] += 1
+    return out
+
+
 def epilogue_merged_ref(t1, x, vecs, KB, *, residual):
     """Plain PyTorch version of the epilogue kernel (same operands).
 
@@ -145,9 +223,11 @@ def fused_epilogue(t1, x, vecs, KB, *, residual):
     return out
 
 
-def fused_stgcn_layer(x, M, vecs, KB, *, residual):
+def fused_stgcn_layer(x, M, vecs, KB, *, residual, b_split=None):
     """One ST-GCN block over merged activations: the graph matmul (f32
-    accumulator) + the fused epilogue.
+    accumulator; the graph GEMM kernel for CUDA f32, on ``b_split``, the
+    fold's ``gemm_b_operand(M)``, or one built here when None) + the fused
+    epilogue.
 
     x: (B, T, W) in the chain dtype (f32 or bf16; M and KB the same).  With ``residual`` W must equal Wp = M.shape[1] (pad
     columns zero); without, W may be the UNPADDED merged width: the matmul
@@ -160,7 +240,7 @@ def fused_stgcn_layer(x, M, vecs, KB, *, residual):
         raise ValueError(f"M has shape {tuple(M.shape)}; expected square, lane-padded")
     if not (W == Wp or (not residual and W <= Wp)):
         raise ValueError(f"input width {W} does not fit M {tuple(M.shape)} (residual={residual})")
-    t1 = graph_matmul_bn_relu(x, M[:W], vecs[0], vecs[1])
+    t1 = graph_gemm_bn_relu(x, M[:W], vecs[0], vecs[1], b_split)
     return fused_epilogue(t1, x if residual else None, vecs, KB, residual=residual)
 
 

@@ -354,6 +354,105 @@ def test_generate_card_matches_cpu_small(cuda_device):
         torch.testing.assert_close(a[key].cpu(), b[key], atol=5e-4, rtol=0)
 
 
+def _gemm_operands(B, T, K, dev, seed=0):
+    """The graph GEMM's operands at full width: x (B, T, K) >= 0, the
+    lane-padded M (3456, 3456) zero past 3392, vecs with s1, b1 zero there."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.relu(torch.randn(B, T, K, generator=g))
+    M = torch.zeros(3456, 3456)
+    M[:3392, :3392] = torch.randn(3392, 3392, generator=g) * 0.02
+    vecs = torch.zeros(8, 3456)
+    vecs[0, :3392] = 0.5 + torch.rand(3392, generator=g)
+    vecs[1, :3392] = torch.randn(3392, generator=g) * 0.1
+    return [t.to(dev) for t in (x, M, vecs)]
+
+
+@pytest.mark.parametrize("B,T", [(1, 768), (8, 768), (32, 768), (3, 100)])
+@pytest.mark.parametrize("K", [3392, 3456])
+def test_graph_gemm_kernel_matches_plain(cuda_device, B, T, K):
+    """Block 0 (K = 3392 against the fold's B operand of K = 3456) and a
+    residual block, at B = 1, 8 and 32 and on ragged rows (300): the
+    kernel's t1 and the plain version's each within 2e-6 of |s1| sum |a*b|
+    of float64 (plus the rounding of BN1), the pad columns exactly 0, the
+    same bits on relaunch."""
+    x, M, vecs = _gemm_operands(B, T, K, cuda_device)
+    b_split = stgcn_fused.gemm_b_operand(M)
+    before = kernels.LAUNCHES["stgcn_graph_gemm"]
+    got = stgcn_fused.graph_gemm_bn_relu(x, M[:K], vecs[0], vecs[1], b_split)
+    again = stgcn_fused.graph_gemm_bn_relu(x, M[:K], vecs[0], vecs[1], b_split)
+    plain = stgcn_fused.graph_matmul_bn_relu(x, M[:K], vecs[0], vecs[1])
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["stgcn_graph_gemm"] == before + 2
+    assert got.shape == (B, T, 3456) and torch.equal(got, again)
+    assert torch.all(got[..., 3392:] == 0)
+    xd, Md = x.reshape(B * T, K).double(), M[:K].double()
+    exact, mag = xd @ Md, xd.abs() @ Md.abs()
+    s1, b1 = vecs[0].double(), vecs[1].double()
+    want = torch.relu(exact * s1 + b1)
+    bound = 2e-6 * s1.abs() * mag + 2.0 ** -22 * ((exact * s1).abs() + b1.abs()) + 1e-30
+    for t1 in (got, plain):
+        assert torch.all((t1.reshape(B * T, 3456).double() - want).abs() <= bound)
+
+
+def test_graph_gemm_bf16_keeps_its_route(cuda_device):
+    """bf16 operands go to ``torch.matmul`` as before: no launch."""
+    x, M, vecs = _gemm_operands(1, 128, 3456, cuda_device)
+    xb, Mb = x.to(torch.bfloat16), M.to(torch.bfloat16)
+    before = dict(kernels.LAUNCHES)
+    got = stgcn_fused.graph_gemm_bn_relu(xb, Mb, vecs[0], vecs[1])
+    assert dict(kernels.LAUNCHES) == before
+    assert torch.equal(got, stgcn_fused.graph_matmul_bn_relu(xb, Mb, vecs[0], vecs[1]))
+
+
+def test_graph_gemm_wrapper_rejects_bad_operands(cuda_device):
+    x, M, vecs = _gemm_operands(1, 64, 3456, cuda_device)
+    b_split = stgcn_fused.gemm_b_operand(M)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(TypeError):
+        stgcn_fused.graph_gemm_bn_relu(x.double(), M.double(), vecs[0], vecs[1])
+    with pytest.raises(ValueError):  # K not a multiple of 32
+        stgcn_fused.graph_gemm_bn_relu(x[..., :3400].contiguous(), M[:3400], vecs[0], vecs[1], b_split)
+    with pytest.raises(ValueError):
+        stgcn_fused.graph_gemm_bn_relu(x, M, vecs[0], vecs[1], b_split.cpu())
+    with pytest.raises(ValueError):
+        stgcn_fused.graph_gemm_bn_relu(x, M, vecs[0, :3328], vecs[1, :3328], b_split)
+    shifted = torch.zeros(x.numel() + 1, device=cuda_device)[1:].view(x.shape)
+    with pytest.raises(ValueError):
+        stgcn_fused.graph_gemm_bn_relu(shifted, M, vecs[0], vecs[1], b_split)
+    assert dict(kernels.LAUNCHES) == before
+
+
+def test_graph_gemm_launches_per_generate(cuda_device):
+    """6 graph GEMM launches per dense f32 ``generate``, on the B operands
+    the card's fold holds (6 x (2, 3456, 3456) f32); 0 per sparse
+    ``generate`` and per train step."""
+    from pose2room_tpu_torch.train.state import make_optimizer
+    from pose2room_tpu_torch.train.step import batch_to_device, train_step
+
+    x = _walking_clip(2).to(cuda_device)
+    dense = P2RNet(P2RNetConfig(**SMALL_CFG), device=cuda_device)
+    folded = dense.fold_eval()
+    assert [tuple(b.shape) for b in folded["gemm_b"]] == [(2, 3456, 3456)] * 6
+    kernels.reset_launch_counts()
+    dense.generate(x, folded=folded)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"stgcn_graph_gemm": 6, "stgcn_epilogue": 6, "fps": 1}
+    sparse = P2RNet(P2RNetConfig(**SMALL_CFG, sparse_eval=True), device=cuda_device)
+    kernels.reset_launch_counts()
+    sparse.generate(x, folded=sparse.fold_eval())
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"stgcn_sparse": 6, "stgcn_epilogue": 6, "fps": 1}
+    case = _card_steps_case()
+    model = P2RNet(P2RNetConfig(**case["sizes"]), device=cuda_device)
+    model.load_state_dict(case["state_dict"])
+    optimizer, _, _ = make_optimizer(model, case["optimizer"])
+    eps = {k: torch.from_numpy(v.copy()).to(cuda_device) for k, v in case["eps"].items()}
+    kernels.reset_launch_counts()
+    train_step(model, optimizer, batch_to_device(case["batch"], cuda_device), eps=eps)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"stgcn_train_fwd": 6, "stgcn_train_bwd": 6, "fps": 1}
+
+
 SMALL_CFG = dict(num_frames=96, num_seeds=64, num_proposals=16, num_gaussian=10)
 
 
@@ -382,7 +481,7 @@ def test_generate_multi_mode_card_matches_cpu_small(cuda_device, B, n):
     kernels.reset_launch_counts()
     a = gpu.generate(x.to(cuda_device), multi_mode=True, n_samples=n, folded=gpu.fold_eval(),
                      noise=_on(noise, cuda_device))
-    assert dict(kernels.LAUNCHES) == {"stgcn_epilogue": 6, "fps": 1}
+    assert dict(kernels.LAUNCHES) == {"stgcn_graph_gemm": 6, "stgcn_epilogue": 6, "fps": 1}
     b = cpu.generate(x, multi_mode=True, n_samples=n, folded=cpu.fold_eval(), noise=noise)
     for key in ("seed_inds", "aggregated_vote_inds"):
         assert torch.equal(a[key].cpu(), b[key]), key
@@ -877,7 +976,8 @@ def test_train_options_on_card(cuda_device, tmp_path, monkeypatch):
         launches = dict(kernels.LAUNCHES)
     finally:
         cfg.close()
-    assert launches == {"stgcn_train_fwd": 24, "stgcn_train_bwd": 24, "stgcn_epilogue": 6, "fps": 5}
+    assert launches == {"stgcn_train_fwd": 24, "stgcn_train_bwd": 24, "stgcn_graph_gemm": 6, "stgcn_epilogue": 6,
+                        "fps": 5}
     assert np.isfinite(history[0]["train"]["total"])
     final = model.state_dict()
     names = [k for k, _ in model.named_parameters()]

@@ -214,9 +214,11 @@ def test_cpu_wrappers_never_count_launches(rng):
 
 def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
     """Editing csrc/tconv_mma.cuh rebuilds exactly the kernels that include
-    it, directly or through csrc/tconv_bf16.cuh; editing tconv_bf16.cuh
-    exactly the four with a bf16 leg; editing wgmma_bf16.cuh only kernel 5,
-    whose bf16 leg runs on wgmma."""
+    it, directly or through csrc/tconv_bf16.cuh or csrc/wgmma_tf32.cuh;
+    editing tconv_bf16.cuh exactly the four with a bf16 leg; editing
+    wgmma_bf16.cuh kernel 5, whose bf16 leg runs on wgmma, and the graph
+    GEMM, whose wgmma_tf32.cuh takes its TMA loads and barriers; editing
+    wgmma_tf32.cuh only the graph GEMM."""
     src = tmp_path / "csrc"
     shutil.copytree(kernels.CSRC, src)
     monkeypatch.setattr(kernels, "CSRC", str(src))
@@ -226,9 +228,12 @@ def test_library_name_hashes_included_headers(tmp_path, monkeypatch):
     assert kernels._source_files("stgcn_train_bwd") == ["stgcn_train_bwd.cu", *both]
     assert kernels._source_files("stgcn_sparse") == ["stgcn_sparse.cu", *both, "wgmma_bf16.cuh"]
     assert kernels._source_files("fps") == ["fps.cu"]
+    assert kernels._source_files("stgcn_graph_gemm") == [
+        "stgcn_graph_gemm.cu", "wgmma_tf32.cuh", "tconv_mma.cuh", "wgmma_bf16.cuh"]
     tensor_core = {"stgcn_epilogue", "stgcn_train_fwd", "stgcn_train_bwd", "stgcn_sparse"}
-    for edited, rebuilt in (("tconv_mma.cuh", tensor_core), ("tconv_bf16.cuh", tensor_core),
-                            ("wgmma_bf16.cuh", {"stgcn_sparse"})):
+    for edited, rebuilt in (("tconv_mma.cuh", tensor_core | {"stgcn_graph_gemm"}), ("tconv_bf16.cuh", tensor_core),
+                            ("wgmma_bf16.cuh", {"stgcn_sparse", "stgcn_graph_gemm"}),
+                            ("wgmma_tf32.cuh", {"stgcn_graph_gemm"})):
         before = {name: kernels._lib_path(name) for name in kernels.SOURCES}
         header = src / edited
         header.write_text(header.read_text() + "\n// edited\n")

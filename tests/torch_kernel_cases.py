@@ -14,7 +14,11 @@ files share.
   tests/test_torch_bwd_sparse_3xtf32.py);
 * kernel 5's split-K chunks (csrc/stgcn_sparse.cu) and the tensor cores'
   truncating f32 adds (tests/test_torch_bwd_sparse_3xtf32.py,
-  tests/test_torch_sparse_wgmma.py, tests/test_torch_train_bf16_redesign.py).
+  tests/test_torch_sparse_wgmma.py, tests/test_torch_train_bf16_redesign.py);
+* the dense graph GEMM's order (csrc/stgcn_graph_gemm.cu, 3xTF32 on wgmma:
+  three products a k8 step into a fresh accumulator with truncating adds,
+  folded every ``fold`` k8 steps by an IEEE add), in torch float64 on the
+  host's threads (tests/test_torch_graph_gemm.py).
 """
 
 import numpy as np
@@ -142,3 +146,38 @@ def sparse_chunks(col_off, cap):
         n = max(1, -(-L // cap))
         chunks += [(w, lo + q * L // n, lo + (q + 1) * L // n) for q in range(n)]
     return chunks
+
+
+def split_torch(t):
+    """``split`` of an f32 tensor, in torch (the same bits)."""
+    def rna(a):
+        return ((a.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    big = rna(t)
+    return big, rna(t - big)
+
+
+def truncate_f32_torch(a):
+    """``truncate_f32`` of a float64 tensor."""
+    f = a.float()
+    return torch.where(f.double().abs() > a.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def emulated_graph_gemm_acc(x, M, fold):
+    """x (N, K) @ M (K, Ncols), f32 tensors, as the graph GEMM sums it: per
+    k8 step small(x)*big(M), big(x)*small(M), big(x)*big(M), each added to a
+    fresh tensor-core accumulator with truncation (the first of a group
+    starts it: scale-d 0); every ``fold`` k8 steps the accumulator is folded
+    into the f32 sum by an IEEE add.  Returns (N, Ncols) f32."""
+    K = x.shape[1]
+    (xb, xs), (mb, ms) = split_torch(x), split_torch(M)
+    xb, xs, mb, ms = (t.double() for t in (xb, xs, mb, ms))
+    acc = torch.zeros(x.shape[0], M.shape[1], dtype=torch.float32)
+    for k0 in range(0, K, KSTEP * fold):
+        part = None
+        for f in range(fold):
+            k = slice(k0 + KSTEP * f, k0 + KSTEP * (f + 1))
+            for a, b in ((xs, mb), (xb, ms), (xb, mb)):
+                p = a[:, k] @ b[k]
+                part = truncate_f32_torch(p if part is None else part.double() + p)
+        acc = acc + part
+    return acc
