@@ -8,7 +8,10 @@ makes its inputs and the program's state from the seed and offers
 ``warm()``, ``window(seconds)``, ``traced()``, ``finish()``, ``close()``
 and ``numbers()`` (the comparison, once the program's state is freed),
 and the attributes ``batch`` and, where it has them, ``waits`` (seconds
-each iteration waited for its input).
+each iteration waited for its input) and ``loader_stats`` (its input
+loader's counters over the traced iterations).  A kind whose model is not
+P2RNet offers ``shape()``: the shapes its counts and MFU read, in place of
+``work.shape_of`` of the configuration's ``model``.
 
 Everything random comes from ``--seed`` through ``streams``; every seed
 gives the same sizes.
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from benchmark.harness import spec, work
+from benchmark.harness import spans, spec, work
 from benchmark.harness import trace as tr
 from pose2room_tpu_torch import kernels
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
@@ -62,7 +65,9 @@ def traffic_of(cell, seed, device):
 
 
 def trace_window(traffic, device):
-    """The traffic's ``traced`` iterations under torch.profiler, reduced."""
+    """The traffic's ``traced`` iterations under torch.profiler, reduced:
+    the device's operations (``harness/trace.py``) and, under ``program``,
+    the program's own spans (``harness/spans.py``)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
@@ -72,6 +77,7 @@ def trace_window(traffic, device):
             traffic.finish()
     out = tr.reduce_events(tr.profiler_events(prof))
     out["iterations"] = n
+    out["program"] = spans.program(prof)
     return out
 
 
@@ -94,6 +100,7 @@ def run(cell, seed, seconds, trace, device, t_start):
     window = traffic.window(seconds)
     traced = trace_window(traffic, device) if trace else None
     waits = list(getattr(traffic, "waits", []))
+    shape = traffic.shape() if hasattr(traffic, "shape") else work.shape_of(cell.config["model"], traffic.batch)
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     traffic.close()
     if device.type == "cuda":
@@ -101,7 +108,6 @@ def run(cell, seed, seconds, trace, device, t_start):
     numbers = traffic.numbers()
     return {
         "root": cell.root, "cell": cell, "setup_s": setup_s, "setup_phases": phases, "window": window,
-        "trace": traced, "spans": {"loader_wait": waits}, "numbers": numbers,
-        "attempted": window["items"], "memory_peak_bytes": int(peak),
-        "shape": work.shape_of(cell.config["model"], traffic.batch),
+        "trace": traced, "spans": {"loader_wait": waits, "loader": getattr(traffic, "loader_stats", None)},
+        "numbers": numbers, "attempted": window["items"], "memory_peak_bytes": int(peak), "shape": shape,
     }

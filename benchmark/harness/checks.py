@@ -71,14 +71,33 @@ def seed_gap(joints, seed_inds, n_seeds):
 def fps_gap(xyz, picks):
     """Widest gap, in m^2, between the furthest remaining point and the
     furthest point of the program's pick set, replaying FPS over ``xyz``
-    (float64) and choosing within the set at each step.  The set is
-    sorted, so its order is rebuilt this way; a set that FPS could have
-    picked up to near ties reads near 0."""
+    (float64) in the order that keeps it least.  The set is sorted, so
+    its order is rebuilt: first greedily, the set's furthest point at each
+    step; where that leaves a gap, by a search over the orders that near
+    ties allow (``_least_order_gap``), since two near-tied picks taken the
+    other way round leave the points near the one taken later far from
+    every pick until it is taken.  A set that FPS could have picked up to
+    near ties reads near 0, a wrong pick the size of the step it skipped."""
     xyz = xyz.double()
+    picks = picks.long().to(xyz.device)
+    greedy = _greedy_order_gap(xyz, picks)
+    worst = 0.0
+    for r in torch.argsort(greedy, descending=True).tolist():
+        g = float(greedy[r])
+        if g <= worst:
+            break
+        if g >= NO_CHOICE:
+            return g
+        worst = max(worst, _least_order_gap(xyz[r].cpu().numpy(), picks[r].cpu().numpy(), g, worst))
+    return worst
+
+
+def _greedy_order_gap(xyz, picks):
+    """(B,) the gap of each row with the set's order rebuilt greedily."""
     B, N, _ = xyz.shape
     rows = torch.arange(B, device=xyz.device)
     in_set = torch.zeros(B, N, dtype=torch.bool, device=xyz.device)
-    in_set[rows[:, None], picks.long().to(xyz.device)] = True
+    in_set[rows[:, None], picks] = True
     valid = (xyz * xyz).sum(-1) > ref_model.NEAR_ORIGIN_SQ
     picked = torch.zeros_like(in_set)
     picked[:, 0] = True
@@ -94,7 +113,58 @@ def fps_gap(xyz, picks):
         last = mine.argmax(1)
         gap = torch.maximum(gap, best - mine[rows, last])
         picked[rows, last] = True
-    return float(gap.max())
+    return gap
+
+
+ORDER_SEARCH_NODES = 20_000  # picks tried a threshold, past which it counts as not met
+
+
+def _least_order_gap(xyz, picks, greedy, floor):
+    """The least gap of one row over the orders of its set, as far as it
+    matters above ``floor``: for thresholds rising tenfold from 1e-12 m^2,
+    a depth-first search, the set's furthest point first, among the set's
+    points within the threshold of the furthest remaining point; the first
+    order found gives its own widest gap.  ``greedy`` (that of the greedy
+    order) where none is found below it.  xyz (N, 3) float64, picks (P,)."""
+    N = xyz.shape[0]
+    valid = (xyz * xyz).sum(-1) > ref_model.NEAR_ORIGIN_SQ
+    in_set = np.zeros(N, dtype=bool)
+    in_set[picks] = True
+    steps = picks.shape[0] - 1
+    thresholds = [floor] if floor > 0 else []
+    thresholds += [t for t in 10.0 ** np.arange(-12, 1) if max(floor, 0.0) < t < greedy]
+    for t in thresholds:
+        failed, nodes = set(), [0]
+
+        def search(last, mind, picked, gap, depth):
+            if depth == steps:
+                return gap
+            mind = np.where(valid, np.minimum(mind, ((xyz - xyz[last]) ** 2).sum(-1)), mind)
+            score = np.where(valid, mind, -1.0)
+            best = np.where(picked, -2.0, score).max()
+            cand = np.flatnonzero(in_set & ~picked & (score >= best - t))
+            for c in cand[np.argsort(-score[cand], kind="stable")]:
+                nodes[0] += 1
+                if nodes[0] > ORDER_SEARCH_NODES:
+                    return None
+                picked[c] = True
+                key = np.packbits(picked).tobytes()
+                if key not in failed:
+                    found = search(c, mind, picked, max(gap, best - score[c]), depth + 1)
+                    if found is not None:
+                        return found
+                    if nodes[0] > ORDER_SEARCH_NODES:
+                        return None
+                    failed.add(key)
+                picked[c] = False
+            return None
+
+        picked = np.zeros(N, dtype=bool)
+        picked[0] = True
+        found = search(0, np.full(N, 1e10), picked, 0.0, 0)
+        if found is not None:
+            return found
+    return greedy
 
 
 def ball_gap(ref_xyz, prog_xyz, picks):

@@ -1,8 +1,9 @@
 """Arithmetic the metric readers share (benchmark/metrics/*.py).
 
 ``ctx`` is what ``cells.run`` returns: the untraced window's items and
-seconds, the traced window's reduction (None without --trace 1), the host
-spans, the cell's shapes.  A reader that finds nothing to read returns
+seconds, the traced window's reduction (None without --trace 1; the
+program's spans under its ``program``), the host spans and counters, the
+cell's shapes.  A reader that finds nothing to read returns
 None, and the metric is left out of the line."""
 
 from benchmark.harness import spec, work
@@ -12,6 +13,16 @@ def traced(ctx):
     """The traced window's reduction when a device operation ran in it."""
     t = ctx["trace"]
     return t if t is not None and t["busy_s"] > 0 else None
+
+
+def span_ms(ctx, name, key="host_s"):
+    """Milliseconds a traced iteration spent in the program's span ``name``
+    (harness/spans.py): its ``host_s`` on the host's clock, or the
+    ``device_s`` of the kernels launched inside it, read only where a
+    device operation ran; None where the span is not in the window."""
+    t = traced(ctx) if key == "device_s" else ctx["trace"]
+    r = None if t is None else t["program"].get(name)
+    return None if r is None else 1e3 * r[key] / t["iterations"]
 
 
 def rate(ctx):

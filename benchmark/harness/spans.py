@@ -17,15 +17,13 @@ operations and the device kernels they enclose.
   for the span around them.  The backward's kernels, launched on the
   autograd engine's own thread, count for no span of the main thread.
 
-No reader takes these yet: a metric of a span needs ``cells.trace_window``
-to keep ``program(prof)`` in the traced window's reduction.
+``cells.trace_window`` keeps ``program(prof)`` under the traced window's
+``program`` key, which a metric of a span reads (``readers.span_ms``).
 """
 
 import collections
 
-from benchmark.harness.trace import WINDOW_SPAN
-
-PROGRAM_PREFIX = "p2r/"
+from benchmark.harness.trace import PROGRAM_PREFIX, WINDOW_SPAN
 
 
 def reduce_spans(spans, window):

@@ -8,8 +8,11 @@ own iterations, reduced to what the per-layer metrics read.
   traced loop (which ends in a synchronise);
 * ``kernels``: {name: [launches, seconds]} by the device's own names;
 * ``breakdown``: the device operations that took most time, and the idle
-  gaps between device operations summed by what the host was doing at
-  their midpoint (the innermost harness span and the host operation).
+  gaps between device operations summed by what the main thread (the one
+  that runs the window) was doing at their midpoint: the innermost harness
+  span, the innermost program span (``p2r/...``) where one is open, and
+  the host operation, as ``"<harness span>: <program span>: <operation>"``.
+  A loader's or another thread's events name no gap.
 """
 
 import bisect
@@ -17,6 +20,7 @@ import collections
 
 WINDOW_SPAN = "bench/window"
 SPAN_PREFIX = "bench/"
+PROGRAM_PREFIX = "p2r/"
 
 
 def _merge(intervals):
@@ -29,15 +33,24 @@ def _merge(intervals):
     return out
 
 
+def _innermost(intervals, t, depth=None):
+    """The name of the latest-started of ``intervals`` (start, end, name),
+    sorted by start, that is open at ``t``, looking back ``depth`` of them
+    (all where None); None where none is."""
+    i = bisect.bisect_right(intervals, t, key=lambda iv: iv[0])
+    lo = 0 if depth is None else max(0, i - depth)
+    return next((n for s, e, n in reversed(intervals[lo:i]) if e >= t), None)
+
+
 def reduce_events(events, top=10):
-    """``events``: (name, is_device, start_us, end_us) of the traced window.
-    Returns the reduction described above; ``busy_s`` 0 when no operation
-    ran on a device."""
-    window = [(s, e) for n, dev, s, e in events if not dev and n == WINDOW_SPAN]
+    """``events``: (name, is_device, start_us, end_us, thread) of the traced
+    window.  Returns the reduction described above; ``busy_s`` 0 when no
+    operation ran on a device."""
+    window = [(s, e, th) for n, dev, s, e, th in events if not dev and n == WINDOW_SPAN]
     if not window:
         raise RuntimeError(f"the trace has no {WINDOW_SPAN!r} span")
-    w0, w1 = window[0]
-    device = [(n, max(s, w0), min(e, w1)) for n, dev, s, e in events if dev and e > w0 and s < w1]
+    w0, w1, main = window[0]
+    device = [(n, max(s, w0), min(e, w1)) for n, dev, s, e, _ in events if dev and e > w0 and s < w1]
     kernels = collections.defaultdict(lambda: [0, 0.0])
     for n, s, e in device:
         kernels[n][0] += 1
@@ -45,21 +58,20 @@ def reduce_events(events, top=10):
     busy = _merge([(s, e) for _, s, e in device])
     busy_s = sum(e - s for s, e in busy) * 1e-6
 
-    spans = sorted((s, e, n[len(SPAN_PREFIX):]) for n, dev, s, e in events
-                   if not dev and n.startswith(SPAN_PREFIX) and n != WINDOW_SPAN)
-    ops = sorted((s, e, n) for n, dev, s, e in events if not dev and not n.startswith(SPAN_PREFIX))
-    starts = [o[0] for o in ops]
+    host = [(s, e, n) for n, dev, s, e, th in events if not dev and th == main and n != WINDOW_SPAN]
+    spans = sorted((s, e, n[len(SPAN_PREFIX):]) for s, e, n in host if n.startswith(SPAN_PREFIX))
+    program = sorted(h for h in host if h[2].startswith(PROGRAM_PREFIX))
+    ops = sorted(h for h in host if not h[2].startswith((SPAN_PREFIX, PROGRAM_PREFIX)))
     gaps = collections.defaultdict(float)
     edges = [w0] + [x for iv in busy for x in iv] + [w1]
     for s, e in zip(edges[0::2], edges[1::2]):
         if e <= s:
             continue
         mid = (s + e) / 2
-        span = next((n for hs, he, n in reversed(spans) if hs <= mid <= he), "none")
-        # the latest-started host operation still running at the midpoint
-        i = bisect.bisect_right(starts, mid)
-        op = next((n for hs, he, n in reversed(ops[max(0, i - 256):i]) if he >= mid), "none")
-        gaps[f"{span}: {op}"] += (e - s) * 1e-6
+        span = _innermost(spans, mid) or "none"
+        layer = _innermost(program, mid)
+        op = _innermost(ops, mid, depth=256) or "none"
+        gaps[": ".join([span] + ([layer] if layer else []) + [op])] += (e - s) * 1e-6
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
     return {
         "busy_s": busy_s,
@@ -73,7 +85,7 @@ def reduce_events(events, top=10):
 
 
 def profiler_events(prof):
-    """(name, is_device, start_us, end_us) of every event of a finished
+    """(name, is_device, start_us, end_us, thread) of every event of a finished
     ``torch.profiler.profile``.  The device-side mirrors of the host's
     annotations (``record_function`` spans, the optimizer's step) are not
     device operations and are left out."""
@@ -86,5 +98,5 @@ def profiler_events(prof):
         device = e.device_type != DeviceType.CPU
         if device and (getattr(e, "is_user_annotation", False) or e.name in host):
             continue
-        out.append((e.name, device, e.time_range.start, e.time_range.end))
+        out.append((e.name, device, e.time_range.start, e.time_range.end, e.thread))
     return out

@@ -6,7 +6,8 @@ repeated to ``epoch_items`` rows so that no epoch ends inside the window),
 Each step's MDN noise comes from a host generator seeded from the run's
 seed and the step.  Set-up drives the first ``checked_steps`` steps through
 the window's own step function and keeps what the comparison needs, then
-``warm_steps`` more; the traced window runs ``trace_steps``.  Losses are
+``warm_steps`` more; the traced window runs ``trace_steps``, over which
+it keeps the loader's counters (``DataLoader.stats``).  Losses are
 read one step late, as the program's epoch loop reads them.
 """
 
@@ -112,10 +113,14 @@ class Traffic:
                 "seconds": elapsed, "ends": ends}
 
     def traced(self):
+        """The traced steps; the loader's counters count from their start
+        (and may take in the batch prefetched for the step after)."""
         self.waits = []
+        self.loader.reset_stats()
         n = self.traffic["trace_steps"]
         for _ in range(n):
             self.step()
+        self.loader_stats = dict(self.loader.stats)
         return n
 
     def close(self):

@@ -2,6 +2,7 @@
 the benchmark's own weights and inputs."""
 
 import numpy as np
+import pytest
 import torch
 
 from benchmark.harness import cells, checks, spec
@@ -79,3 +80,25 @@ def test_noise_is_the_programs_draw():
     b = net.mdn_eps(2, torch.Generator().manual_seed(5))
     assert all(torch.equal(a[k], b[k]) for k in a) and list(a) == list(b)
     assert checks.step_noise(dict(m), 2, 5, torch.device("cpu"))["size"].shape == (2, 16, 10, 1, 3)
+
+
+def _near_tie_points():
+    """Points (x, 1, z): 0 the first pick; 1 and 2 near-tied as the furthest
+    from it (2 a hair further), 5.2 m apart; 3 far from both; 4 near 1.
+    FPS that takes 1 before 2 picks 0, 1, 3, 2."""
+    th, r = np.radians(30.0), 10.0000001
+    pts = [(0.0, 0.0), (10.0, 0.0), (r * np.cos(th), r * np.sin(th)), (-9.0, 0.0), (9.0, -4.0)]
+    return torch.tensor([[(x, 1.0, z) for x, z in pts]], dtype=torch.float64)
+
+
+@pytest.mark.parametrize("picks, low, high", [
+    # the near tie taken the other way: greedy replay (2 first) leaves point
+    # 4 far from every pick and reads 54 m^2; some order reads ~2e-6
+    ([0, 1, 2, 3], 0.0, 1e-5),
+    # point 4 in place of 2: a wrong pick, 26.8 - 17 m^2 short of the best
+    ([0, 1, 3, 4], 9.0, 10.0),
+])
+def test_fps_gap_takes_the_order_that_a_near_tie_allows(picks, low, high):
+    xyz, sel = _near_tie_points(), torch.tensor([picks])
+    assert float(checks._greedy_order_gap(xyz, sel).max()) > 9.0
+    assert low <= checks.fps_gap(xyz, sel) <= high

@@ -9,23 +9,32 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from benchmark.harness import spans
 from benchmark.harness import trace as tr
 
-# (name, is_device, start_us, end_us): a window of one step whose idle gaps
-# fall inside the program's spans, and device work that crosses its ends
+MAIN, LOADER = 1, 2
+# (name, is_device, start_us, end_us, thread): a window of one step whose
+# idle gaps fall inside the program's spans, and device work that crosses
+# its ends
 EVENTS = [
-    ("bench/window", False, 1000, 2000),
-    ("bench/step", False, 1010, 1500),
-    ("p2r/train/step", False, 1020, 1490),
-    ("aten::mm", False, 1030, 1040),
-    ("cudaLaunchKernel", False, 1035, 1039),
-    ("p2r/model/noise", False, 1100, 1200),
-    ("aten::normal_", False, 1110, 1190),
-    ("bench/read_losses", False, 1500, 1600),
-    ("aten::_local_scalar_dense", False, 1510, 1590),
-    ("sgemm_kernel", True, 1040, 1090),
-    ("sgemm_kernel", True, 1300, 1400),
-    ("Memcpy HtoD (Pageable -> Device)", True, 1395, 1420),
-    ("elementwise_kernel", True, 1950, 2050),
-    ("sgemm_kernel", True, 900, 990),
+    ("bench/window", False, 1000, 2000, MAIN),
+    ("bench/step", False, 1010, 1500, MAIN),
+    ("p2r/train/step", False, 1020, 1490, MAIN),
+    ("aten::mm", False, 1030, 1040, MAIN),
+    ("cudaLaunchKernel", False, 1035, 1039, MAIN),
+    ("p2r/model/noise", False, 1100, 1200, MAIN),
+    ("aten::normal_", False, 1110, 1190, MAIN),
+    ("aten::to", False, 1192, 1290, MAIN),
+    ("bench/read_losses", False, 1500, 1600, MAIN),
+    ("aten::_local_scalar_dense", False, 1510, 1590, MAIN),
+    ("sgemm_kernel", True, 1040, 1090, 0),
+    ("sgemm_kernel", True, 1300, 1400, 0),
+    ("Memcpy HtoD (Pageable -> Device)", True, 1395, 1420, 0),
+    ("elementwise_kernel", True, 1950, 2050, 0),
+    ("sgemm_kernel", True, 900, 990, 0),
+]
+# a loader thread's operations, started after the main thread's, running
+# at the midpoints of a gap inside the noise span and of one outside any span
+LOADER_EVENTS = [
+    ("aten::copy_", False, 1194, 1260, LOADER),
+    ("aten::stack", False, 1600, 1800, LOADER),
 ]
 
 
@@ -64,11 +73,13 @@ def test_program_reads_the_spans_of_a_profiled_window():
     assert got["p2r/train/step"]["device_s"] == got["p2r/model/noise"]["device_s"] == 0  # no card
 
 
-def test_reduce_events_names_the_program_span_in_an_idle_gap():
-    """The traced window's reduction, pinned on a fixed event list: the
-    program's spans are host events there, so an idle gap inside one names
-    it where no operation runs."""
-    assert tr.reduce_events(EVENTS) == {
+@pytest.mark.parametrize("loader", [False, True], ids=["main-thread", "loader-thread-overlaps"])
+def test_reduce_events_names_the_program_span_in_an_idle_gap(loader):
+    """The traced window's reduction, pinned on a fixed event list: an idle
+    gap names the main thread's innermost harness span, innermost program
+    span and running operation; a loader thread's operations, though they
+    started later, name no gap."""
+    assert tr.reduce_events(EVENTS + (LOADER_EVENTS if loader else [])) == {
         "busy_s": pytest.approx(220e-6),
         "window_s": pytest.approx(1e-3),
         "kernels": {"sgemm_kernel": [2, pytest.approx(150e-6)],
@@ -77,7 +88,18 @@ def test_reduce_events_names_the_program_span_in_an_idle_gap():
         "breakdown": {
             "device_ops": [["sgemm_kernel", pytest.approx(150e-6)], ["elementwise_kernel", pytest.approx(50e-6)],
                            ["Memcpy HtoD (Pageable -> Device)", pytest.approx(25e-6)]],
-            "idle_gaps": [["none: none", pytest.approx(530e-6)], ["step: p2r/model/noise", pytest.approx(210e-6)],
-                          ["step: p2r/train/step", pytest.approx(40e-6)]],
+            "idle_gaps": [["none: none", pytest.approx(530e-6)],
+                          ["step: p2r/model/noise: aten::to", pytest.approx(210e-6)],
+                          ["step: p2r/train/step: none", pytest.approx(40e-6)]],
         },
     }
+
+
+def test_reduce_events_names_a_gap_deep_in_a_long_span():
+    """A program span that holds more operations than the look back over
+    operations still names a gap near its end."""
+    events = [("bench/window", False, 0, 10000, MAIN), ("p2r/train/backward", False, 100, 9000, MAIN)]
+    events += [("aten::mul", False, 200 + 10 * k, 205 + 10 * k, MAIN) for k in range(300)]
+    events += [("sgemm_kernel", True, 0, 100, 0), ("sgemm_kernel", True, 9500, 10000, 0)]
+    assert tr.reduce_events(events)["breakdown"]["idle_gaps"] == [
+        ["none: p2r/train/backward: none", pytest.approx(9400e-6)]]
