@@ -1,10 +1,14 @@
-"""Skeleton graph adjacency (precomputed numpy constant).
+"""Skeleton graph adjacency (precomputed numpy constants).
 
 Port of pose2room_tpu/models/graph.py: the K-partition 'spatial' adjacency
 stack of the ST-GCN backbone, from hop distances by boolean matrix powers,
 in-degree normalisation, and a root / closer / further split of each hop
 (reference models/p2rnet/modules/stgcn_layers.py:182-233).  Pure numpy, so
 the result is bit-equal to the JAX package's.
+
+``build_ntu_graph`` is 2s-AGCN's NTU RGB+D skeleton (lshiwjx/2s-AGCN
+graph/ntu_rgb_d.py and graph/tools.py): 25 joints, three subsets (the
+identity, the in-degree-normalised inward edges, the outward edges).
 """
 
 import numpy as np
@@ -82,3 +86,31 @@ def build_spatial_graph(num_node=53, edges=None, max_hop=5, center=0):
             A.append(a_root + a_close)
             A.append(a_further)
     return np.stack(A).astype(np.float32)
+
+
+# NTU RGB+D's 24 bones as (child, parent), 0-based (graph/ntu_rgb_d.py's
+# inward_ori_index less one): each points towards joint 20, the spine at
+# the shoulders
+NTU_INWARD = [(i - 1, j - 1) for i, j in [
+    (1, 2), (2, 21), (3, 21), (4, 3), (5, 21), (6, 5), (7, 6), (8, 7), (9, 21), (10, 9), (11, 10), (12, 11),
+    (13, 1), (14, 13), (15, 14), (16, 15), (17, 1), (18, 17), (19, 18), (20, 19), (22, 23), (23, 8),
+    (24, 25), (25, 12)]]
+
+
+def edge_matrix(edges, num_node):
+    """A[j, i] = 1 for each edge (i, j): column i holds the edges out of i."""
+    A = np.zeros((num_node, num_node))
+    for i, j in edges:
+        A[j, i] = 1
+    return A
+
+
+def build_ntu_graph(num_node=25):
+    """The (3, V, V) float32 adjacency stack of 2s-AGCN's 'spatial' labelling:
+    the identity, the inward edges and the outward edges, each edge set
+    column-normalised by in-degree (graph/tools.py:get_spatial_graph)."""
+    outward = [(j, i) for i, j in NTU_INWARD]
+    A = np.stack([edge_matrix([(i, i) for i in range(num_node)], num_node),
+                  normalize_digraph(edge_matrix(NTU_INWARD, num_node)),
+                  normalize_digraph(edge_matrix(outward, num_node))])
+    return A.astype(np.float32)

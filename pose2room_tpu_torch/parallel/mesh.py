@@ -43,6 +43,7 @@ import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 
 from pose2room_tpu_torch.parallel.collectives import current_grid, in_group, process_count, process_index, set_grid
+from pose2room_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,11 +110,13 @@ def pick_backend(cpu, n_cards, local_world_size):
     return "gloo" if cpu or local_world_size > n_cards else "nccl"
 
 
-def init_distributed(device=None):
+def init_distributed(device=None, timeout=None):
     """Join the process group torchrun describes; returns its backend, or
     None without a torchrun environment (a single process).  ``device``:
     the entry point's ``--device`` (``'cpu'`` runs every rank on the host;
     otherwise a card is required, and there is no fallback to the CPU).
+    ``timeout`` (a ``datetime.timedelta``): how long the rendezvous and each
+    collective may wait before they fail (torch's default when None).
     Idempotent: inside a group it returns the group's backend."""
     if in_group():
         return dist.get_backend()
@@ -133,7 +136,7 @@ def init_distributed(device=None):
         torch.cuda.set_device(local_rank % n_cards)
         where = f"cuda:{local_rank % n_cards}"
     dist.init_process_group(backend, init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
-                            rank=rank, world_size=world)
+                            rank=rank, world_size=world, **({} if timeout is None else {"timeout": timeout}))
     shared = " (ranks share a card)" if not cpu and backend == "gloo" else ""
     print(f"process group: rank {rank} of {world} on {where}, backend {backend}{shared}")
     return backend
@@ -148,8 +151,11 @@ def shutdown():
 
 def _sum_hook(process_group, bucket):
     """DDP comm hook: the bucket's gradients summed over the ranks (DDP's
-    default allreduce hook, without its division by the world size)."""
-    work = dist.all_reduce(bucket.buffer(), group=process_group, async_op=True)
+    default allreduce hook, without its division by the world size).  The
+    launch is the span ``train/allreduce``; on NCCL the collective's kernel
+    counts for it.  DDP calls the hook on the autograd engine's thread."""
+    with annotate("train/allreduce"):
+        work = dist.all_reduce(bucket.buffer(), group=process_group, async_op=True)
     return work.get_future().then(lambda fut: fut.value()[0])
 
 

@@ -12,18 +12,24 @@ moments (``parallel.tensor.shard_module_``), after the whole checkpoints
 are loaded, as JAX runners/common.py:89-95 shards after them.
 """
 
+import types
+
 import numpy as np
 import torch
 
 from pose2room_tpu_torch.config.loader import mount_external_config
+from pose2room_tpu_torch.models.agcn import AGCN, AGCNConfig
 from pose2room_tpu_torch.models.p2rnet import P2RNet, P2RNetConfig
 from pose2room_tpu_torch.parallel.collectives import current_grid, process_index
 from pose2room_tpu_torch.parallel.tensor import shard_module_
 from pose2room_tpu_torch.train.checkpoint import CheckpointIO
 from pose2room_tpu_torch.train.state import make_optimizer, train_options
 
-# the config's ``method:`` -> model class (the JAX package's METHODS registry)
-METHODS = {"P2RNet": P2RNet}
+# the config's ``method:`` -> model class (the JAX package's METHODS registry;
+# AGCN, 2s-AGCN's joint stream, has no counterpart there)
+METHODS = {"P2RNet": P2RNet, "AGCN": AGCN}
+# each class's configuration, read from the config by its ``from_cfg``
+CONFIGS = {P2RNet: P2RNetConfig, AGCN: AGCNConfig}
 
 
 def model_class(config):
@@ -36,13 +42,16 @@ def model_class(config):
 
 
 def build_model(cfg, device=None):
-    """The model of the config: its ``method``'s class initialised from
-    ``seed`` with a torch.Generator.  Also mounts the dataset and eval
-    configs on ``cfg``."""
+    """The model of the config (a CONFIG, or a plain dict such as
+    ``{"method": "AGCN", "model": {...}}``): its ``method``'s class
+    initialised from ``seed`` with a torch.Generator.  Also mounts the
+    dataset and eval configs on ``cfg``."""
+    if isinstance(cfg, dict):
+        cfg = types.SimpleNamespace(config=cfg)
     cls = model_class(cfg.config)
     mount_external_config(cfg)
     seed = int(cfg.config.get("seed", 42))
-    return cls(P2RNetConfig.from_cfg(cfg), device=device, generator=torch.Generator().manual_seed(seed))
+    return cls(CONFIGS[cls].from_cfg(cfg), device=device, generator=torch.Generator().manual_seed(seed))
 
 
 def setup(cfg, device=None):
@@ -59,6 +68,8 @@ def setup(cfg, device=None):
     runners/common.py:41); in a data-parallel run the caller has joined the
     group before building ``cfg`` (the CONFIG raises otherwise), and under
     ``device.model_parallel`` made the grid (``parallel.make_grid``)."""
+    if model_class(cfg.config) is not P2RNet:
+        raise NotImplementedError(f"the runners drive P2RNet; build {cfg.config['method']} with build_model")
     np.random.seed(int(cfg.config.get("seed", 42)) + process_index())
     model = build_model(cfg, device)
     freeze, phase_specs = train_options(cfg.config)

@@ -34,6 +34,7 @@ SPANS = {
     "train/loss": "train step",  # models/loss.py:detection_loss
     "train/backward": "train step",  # zero_grad, backward, the tensor-parallel gradient sums
     "train/optimizer": "train step",  # global norm, clipping, the optimizer's step, the global losses
+    "train/allreduce": "train step",  # parallel/mesh.py:_sum_hook: a gradient bucket's all-reduce launched
     "model/forward": "model",  # P2RNet.forward
     "model/generate": "model",  # P2RNet.generate
     "model/noise": "model",  # P2RNet.mdn_eps: the host draw and its upload
@@ -41,6 +42,10 @@ SPANS = {
     "model/vote": "model",  # center votes and their L2 normalisation
     "model/proposal": "model",  # ProposalNet._aggregate: FPS, gather, ball query, aggregation MLP
     "model/heads": "model",  # the rest of ProposalNet.forward
+    "agcn/forward": "model",  # AGCN.forward (models/agcn.py)
+    "agcn/gcn": "model",  # a unit's adaptive graph convolution, theta / phi to its ReLU
+    "agcn/adjacency": "model",  # its theta / phi, scores, softmax and + A + B
+    "agcn/tcn": "model",  # a unit's temporal conv, its BN, the residual and the ReLU
 }
 
 _OFF = contextlib.nullcontext()

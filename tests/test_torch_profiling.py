@@ -5,7 +5,8 @@
 * a SMALL train step (``batch_to_device`` + ``train_step``) and a SMALL
   ``generate`` under the profiler record each of their spans once, every
   one a span of ``SPANS`` and inside the span of the call around it;
-  together they record every span of ``SPANS``;
+  together with 2s-AGCN's forward and the DDP gradient hook they record
+  every span of ``SPANS``;
 * ``DataLoader.stats`` counts the batches, the items and their CPU seconds
   in both worker modes, the batches stay those of a loader without workers,
   and ``reset_stats`` zeroes the count.
@@ -49,6 +50,9 @@ GENERATE_SPANS = {
     "model/proposal": "model/generate",
     "model/heads": "model/generate",
 }
+# recorded by 2s-AGCN's forward (tests/test_torch_agcn.py) and by the DDP
+# gradient hook (below)
+OTHER_SPANS = {"agcn/forward", "agcn/gcn", "agcn/adjacency", "agcn/tcn", "train/allreduce"}
 
 
 @pytest.fixture(scope="module")
@@ -109,7 +113,31 @@ def test_step_records_the_spans_of_its_path(scenes, path):
     got = recorded_spans(prof)
     assert set(got) <= set(SPANS)
     assert got == want
-    assert set(TRAIN_SPANS) | set(GENERATE_SPANS) == set(SPANS)
+    assert set(TRAIN_SPANS) | set(GENERATE_SPANS) | OTHER_SPANS == set(SPANS)
+
+
+def test_ddp_gradient_hook_records_the_allreduce_span(monkeypatch):
+    """A process group of one on the CPU (gloo): DDP's summing hook opens
+    ``train/allreduce`` around each bucket's all-reduce."""
+    import datetime
+    import socket
+
+    from pose2room_tpu_torch.parallel.mesh import init_distributed, shutdown, wrap_model
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for key, value in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+                       "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}.items():
+        monkeypatch.setenv(key, value)
+    assert init_distributed("cpu", timeout=datetime.timedelta(seconds=60)) == "gloo"
+    try:
+        model = wrap_model(torch.nn.Linear(8, 4))
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            model(torch.randn(16, 8)).sum().backward()
+    finally:
+        shutdown()
+    assert recorded_spans(prof) == {"train/allreduce": None}
 
 
 @pytest.mark.parametrize("worker_mode", ["thread", "process"])
